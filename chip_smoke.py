@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each with its seconds:
+
+1. ``build``: the CUDA kernels (``nvcc``, one process per source, started
+   together) and the C++ enumerator, from the checkout's sources into
+   ``build/``.
+2. ``kernel_check``: each kernel against its plain PyTorch version on the
+   card (``torch.equal``), on synthetic chunks — u8 and u16 codes, widths
+   whose values straddle u32 words, padding entries.
+3. ``small``: chain_16_symm through the streamed engine and Lanczos: the
+   matvec against the host NumPy ``matvec_host`` (atol 1e-13 / rtol 1e-12;
+   the receive-side ``index_add_`` uses atomics, so sums run in another
+   order), E0/4 against the N=16 ring anchor −7.1422963606 (1e-9).
+4. ``full``: ``heisenberg_chain(32, symmetric=True)`` at the default row
+   chunk and the ``lossless`` codec — 4 707 969 representatives, |G| = 128,
+   T = 32 — enumerated by the native C++ kernel; one real plan chunk is
+   held against the plain version, then the launch counts are set to 0,
+   the main path runs (timed applies, then Lanczos), and the counts are
+   read: every apply must have launched the decode kernel once per plan
+   chunk.  E0 must match −56.826110112297656 to 1e-8 relative.
+5. ``split``: where an apply's time goes — the plan's host → device copy
+   alone, the apply with the plan already on the card, the decode kernel
+   and its plain version per launch over every chunk of the plan, and a
+   ``torch.profiler`` breakdown of one streamed apply by device kernel.
+6. ``cross_sector``: the same ring in the translation-only k = 0 sector
+   (18 784 170 states: no reflection, no spin inversion, so other orbits,
+   norms and plan) must give the same E0 as the full leg to 1e-9.
+
+Then the kernels line ``{"kernels": [...]}`` (launches on the main path,
+largest error against the plain version, time per launch beside its bound
+and the plain version's time), the card's name and power limit as
+``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits non-zero.  It needs one CUDA
+device; without one it exits with code 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and FP64 outside
+#: the tensor cores — the decode kernel's one multiply per entry is plain
+#: FP64
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOP_PER_S = 34e12
+
+CHAIN32_STATES = 4_707_969
+CHAIN32_E0 = -56.826110112297656      # BENCH_RECORDED_r02.json lanczos_e0
+N16_E0_OVER_4 = -7.1422963606
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def run_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    info = out[0] if isinstance(out, tuple) else out
+    emit({"phase": name, "seconds": time.perf_counter() - t0, **info})
+    return out
+
+
+# -- phase 1 ------------------------------------------------------------------
+
+def build_phase():
+    from distributed_matvec_tpu_torch.enumeration import native
+    from distributed_matvec_tpu_torch.ops import cuda_kernels
+
+    enum_ok = {}
+    t = threading.Thread(
+        target=lambda: enum_ok.update(ok=native.native_available()))
+    t.start()
+    libs = cuda_kernels.build_all()
+    t.join()
+    if not enum_ok.get("ok"):
+        raise RuntimeError("the C++ enumerator did not build")
+    ptxas = [ln.strip() for name in libs
+             for ln in cuda_kernels.build_log(name).splitlines()
+             if "registers" in ln or "spill" in ln]
+    return {"libraries": sorted(libs), "native_enumerator": True,
+            "ptxas": ptxas}
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+def synthetic_chunk(device, B, n_recv, n_live, n_real, code_bits, ndict,
+                    seed):
+    """One encoded chunk as the codec writes it: unique live destinations,
+    padding entries at the drop sentinel with one pad code and row 0."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    rng = np.random.default_rng(seed)
+    spec = {"n_live": n_live, "n_recv": n_recv,
+            "w_dest": PC.bits_for(n_recv), "w_row": PC.bits_for(B - 1),
+            "code_bits": code_bits, "ndict": ndict, "coeff": "dict",
+            "cshape": [B, 32]}
+    dest = np.full(n_live, n_recv, np.int64)
+    dest[:n_real] = rng.permutation(n_recv)[:n_real]
+    rows = np.zeros(n_live, np.int64)
+    rows[:n_real] = rng.integers(0, B, n_real)
+    code_np = np.uint8 if code_bits == 8 else np.uint16
+    codes = np.full(n_live, 3, code_np)
+    codes[:n_real] = rng.integers(0, ndict, n_real)
+    words = np.concatenate([PC.pack_bits(dest, spec["w_dest"]),
+                            PC.pack_bits(rows, spec["w_row"])])
+    ecodes = torch.from_numpy(codes if code_bits == 8
+                              else codes.view(np.int16))
+    return (spec, torch.from_numpy(words.view(np.int32)).to(device),
+            ecodes.to(device),
+            torch.from_numpy(rng.standard_normal(ndict)).to(device),
+            torch.from_numpy(rng.standard_normal(B)).to(device))
+
+
+def check_kernel(args) -> float:
+    """Kernel vs plain version on the same inputs; raises unless equal.
+    Returns the largest absolute difference (0.0 when equal)."""
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    got = PC.fused_decode_gather_scatter(*args)
+    want = PC._fused_decode_gather_scatter_plain(*args)
+    if got.device.type == "cuda":
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"fused decode kernel differs from its plain version "
+            f"(max abs err {err}, spec {args[0]})")
+    return err
+
+
+def kernel_check_phase(device):
+    cases = [  # (B, n_recv, n_live, n_real, code_bits, ndict)
+        (96, 150, 136, 121, 8, 200),
+        (5000, 9000, 8000, 7000, 8, 13),
+        (65536, 1_200_000, 1_200_008, 1_199_000, 16, 3000),
+    ]
+    errs = []
+    for i, case in enumerate(cases):
+        errs.append(check_kernel(synthetic_chunk(device, *case, seed=i)))
+    return {"cases": len(cases), "max_abs_err": max(errs)}, max(errs)
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+def small_phase(device):
+    import numpy as np
+
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
+
+    op = heisenberg_chain(16, symmetric=True)
+    eng = DistributedEngine(op, device=device)
+    x = np.random.default_rng(5).random(op.basis.number_states) - 0.5
+    y = eng.matvec_global(x)
+    ref = op.matvec_host(x)
+    np.testing.assert_allclose(y, ref, atol=1e-13, rtol=1e-12)
+    res = lanczos(eng.matvec, v0=eng.random_hashed(1), k=1, device=device)
+    e0 = float(res.eigenvalues[0])
+    if not (res.converged and abs(e0 / 4 - N16_E0_OVER_4) < 1e-9):
+        raise AssertionError(f"chain_16_symm E0/4 {e0 / 4} != "
+                             f"{N16_E0_OVER_4} (converged {res.converged})")
+    return {"n_states": int(op.basis.number_states),
+            "matvec_max_abs_err": float(np.abs(y - ref).max()),
+            "lanczos_iters": int(res.num_iters), "e0": e0,
+            "e0_over_4": e0 / 4}
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def full_phase(device, n=32, expect_states=CHAIN32_STATES,
+               expect_e0=CHAIN32_E0, applies=7):
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    # "native" makes the enumeration raise rather than fall back to NumPy
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    op = heisenberg_chain(n, symmetric=True)
+    t0 = time.perf_counter()
+    op.basis.build()
+    enum_s = time.perf_counter() - t0
+    n_states = int(op.basis.number_states)
+    if expect_states is not None and n_states != expect_states:
+        raise AssertionError(f"{n_states} representatives, expected "
+                             f"{expect_states}")
+    t0 = time.perf_counter()
+    eng = DistributedEngine(op, device=device)
+    engine_s = time.perf_counter() - t0
+
+    # one real plan chunk, kernel vs plain version
+    ci = eng.nchunks // 2
+    views = eng._chunk_views(eng._plan_host[ci].to(device))
+    x_c = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        eng.batch_size)).to(device)
+    chunk_err = check_kernel((eng._codec.spec, views[0], views[1],
+                              eng._cdict, x_c))
+
+    # the main path, with the launch counts set to 0 just before it
+    PC.fused_decode_gather_scatter.launches = 0
+    eng.n_applies = 0
+    xh = eng.random_hashed(1)
+    y = eng.matvec(xh)                       # first apply: warm-up
+    walls = []
+    for _ in range(applies):
+        _sync(device)
+        t0 = time.perf_counter()
+        y = eng.matvec(xh)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    x2 = eng.random_hashed(2)
+    y2 = eng.matvec(x2)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("non-finite matvec output")
+    # H is symmetric: <x2, H x1> = <x1, H x2>
+    a, b = float(torch.vdot(x2[0], y[0])), float(torch.vdot(xh[0], y2[0]))
+    if abs(a - b) > 1e-12 * max(abs(a), abs(b), 1.0):
+        raise AssertionError(f"<x2,Hx1> {a} != <x1,Hx2> {b}")
+    t0 = time.perf_counter()
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device=device)
+    _sync(device)
+    lanczos_s = time.perf_counter() - t0
+    launches = PC.fused_decode_gather_scatter.launches
+    n_applies = eng.n_applies
+
+    e0 = float(res.eigenvalues[0])
+    if launches == 0 or launches != eng.nchunks * n_applies:
+        raise AssertionError(
+            f"{launches} decode launches for {n_applies} applies of "
+            f"{eng.nchunks} chunks")
+    if expect_e0 is not None and abs(e0 - expect_e0) > 1e-8 * abs(
+            expect_e0):
+        raise AssertionError(f"E0 {e0} != {expect_e0}")
+    info = {"n_states": n_states, "enumeration_s": enum_s,
+            "enumeration": "native", "engine_init_s": engine_s,
+            "plan_build_s": eng.timings["plan_build_s"],
+            "plan_encode_s": eng.timings["plan_encode_s"],
+            "plan_bytes_raw": int(eng.plan_bytes_raw),
+            "plan_bytes": int(eng.plan_bytes), "nchunks": eng.nchunks,
+            "batch_size": eng.batch_size,
+            "spec": eng._codec.spec,
+            "real_chunk": ci, "real_chunk_max_abs_err": chunk_err,
+            "apply_ms": walls, "apply_ms_median": statistics.median(walls),
+            "applies": n_applies, "launches": launches,
+            "lanczos_iters": int(res.num_iters),
+            "lanczos_converged": bool(res.converged),
+            "lanczos_s": lanczos_s, "e0": e0}
+    return info, eng, launches, chunk_err
+
+
+# -- phase 5 and the kernels line ---------------------------------------------
+
+def device_ms(device, fn, reps=3):
+    """Median device time of ``fn()`` in ms: the stream is first held busy
+    (``torch.cuda._sleep``) so the host enqueues the whole of ``fn`` before
+    the device reaches the first event, and host launch gaps do not count."""
+    import torch
+
+    if device.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        torch.cuda._sleep(200_000_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize(device)
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def split_phase(device, eng):
+    """The apply's parts at the full size: plan H2D alone, the apply from a
+    device-resident plan, and the decode kernel and its plain version per
+    launch over every chunk of the plan."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    n = eng.nchunks
+    spec = eng._codec.spec
+    dev_plan = eng._plan_host.to(device)
+    views = [eng._chunk_views(dev_plan[ci]) for ci in range(n)]
+    B = eng.batch_size
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        n * B)).to(device)
+    xs = [x[ci * B:(ci + 1) * B] for ci in range(n)]
+
+    def h2d():
+        buf = eng._dev_bufs[0] if device.type == "cuda" else None
+        for ci in range(n):
+            if buf is not None:
+                buf.copy_(eng._plan_host[ci], non_blocking=True)
+
+    def kernel():
+        for ci in range(n):
+            PC.fused_decode_gather_scatter(spec, views[ci][0], views[ci][1],
+                                           eng._cdict, xs[ci])
+
+    def plain():
+        for ci in range(n):
+            PC._fused_decode_gather_scatter_plain(
+                spec, views[ci][0], views[ci][1], eng._cdict, xs[ci])
+
+    xh = eng.random_hashed(3)
+    # largest error of the kernel against the plain version over the plan
+    err = max(check_kernel((spec, views[ci][0], views[ci][1], eng._cdict,
+                            xs[ci])) for ci in range(n))
+    e = views[0]
+    bytes_per_launch = (e[0].numel() * 4 + e[1].numel() * e[1].element_size()
+                        + eng._cdict.numel() * 8 + B * 8
+                        + (spec["n_recv"] + 1) * 8)
+    flops_per_launch = spec["n_live"]
+    t_bytes = bytes_per_launch / HBM_BYTES_PER_S * 1e3
+    t_ops = flops_per_launch / FP64_FLOP_PER_S * 1e3
+    timing = {
+        "h2d_ms_per_apply": device_ms(device, h2d),
+        "device_plan_apply_ms": device_ms(
+            device, lambda: eng._apply(xh, views)),
+        "kernel_ms_per_launch": device_ms(device, kernel) / n,
+        "plain_ms_per_launch": device_ms(device, plain) / n,
+        "bound_ms_per_launch": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_per_launch": bytes_per_launch,
+        "plan_max_abs_err": err,
+        "max_memory_allocated": int(torch.cuda.max_memory_allocated(device))
+        if device.type == "cuda" else None,
+        "profile": profile_apply(eng, xh) if device.type == "cuda"
+        else None,
+    }
+    return timing
+
+
+def profile_apply(eng, xh, top=8):
+    """Device time of one streamed apply by kernel (and host → device
+    copy), from ``torch.profiler``: the ``top`` largest as
+    ``[name, ms, calls]`` and the sum over all of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._apply(xh, eng._stream_chunks())
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        # aten:: rows repeat the time of the kernels they launch
+        if us and not e.key.startswith("aten::"):
+            rows.append([e.key[:72], us / 1e3, e.count])
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms_total": sum(r[1] for r in rows),
+            "top": rows[:top]}
+
+
+def cross_sector_phase(device, e0_full, n=32):
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.models.basis import SpinBasis
+    from distributed_matvec_tpu_torch.models.lattices import (
+        chain_edges, heisenberg_from_edges)
+
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    basis = SpinBasis(n, n // 2, None, [([(i + 1) % n for i in range(n)], 0)])
+    t0 = time.perf_counter()
+    basis.build()
+    enum_s = time.perf_counter() - t0
+    op = heisenberg_from_edges(basis, chain_edges(n))
+    t0 = time.perf_counter()
+    eng = DistributedEngine(op, device=device)
+    engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device=device)
+    _sync(device)
+    lanczos_s = time.perf_counter() - t0
+    e0 = float(res.eigenvalues[0])
+    if not (res.converged and abs(e0 - e0_full) < 1e-9):
+        raise AssertionError(f"translation-only E0 {e0} != full-leg E0 "
+                             f"{e0_full} (converged {res.converged})")
+    return {"n_states": int(basis.number_states), "enumeration_s": enum_s,
+            "engine_init_s": engine_s,
+            "plan_encode_s": eng.timings["plan_encode_s"],
+            "plan_bytes": int(eng.plan_bytes), "nchunks": eng.nchunks,
+            "lanczos_iters": int(res.num_iters), "lanczos_s": lanczos_s,
+            "e0": e0, "e0_minus_full": e0 - e0_full}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import distributed_matvec_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    run_phase("build", build_phase)
+    _, synth_err = run_phase("kernel_check", kernel_check_phase, device)
+    run_phase("small", small_phase, device)
+    full, eng, launches, chunk_err = run_phase("full", full_phase, device)
+    split = run_phase("split", split_phase, device, eng)
+    del eng
+    torch.cuda.empty_cache()
+    run_phase("cross_sector", cross_sector_phase, device, full["e0"])
+    emit({"kernels": [{
+        "name": "fused_decode_gather_scatter",
+        "route": "cuda",
+        "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
+        "launches": launches,
+        "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"]),
+        "ms": split["kernel_ms_per_launch"],
+        "plain_ms": split["plain_ms_per_launch"],
+        "bound_ms": split["bound_ms_per_launch"],
+        "bound_by": split["bound_by"],
+        "library_ms": None,
+    }]})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

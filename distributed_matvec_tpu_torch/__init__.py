@@ -1,0 +1,31 @@
+"""distributed_matvec_tpu_torch — the PyTorch/CUDA port of
+``distributed_matvec_tpu``.
+
+It keeps the JAX package's module layout and names and imports nothing of
+it: the host layer (models, enumeration, the plan codec's encode) is
+copied, each file naming its source in its first line.  Layers, bottom to
+top:
+
+  utils/        — unsigned 64-bit arithmetic on int64 tensors, the device
+                  choice, the native build directory
+  models/       — expressions → nonbranching terms, symmetry groups, bases,
+                  operators, lattice constructors (copied)
+  enumeration/  — representative enumeration, NumPy + C++ (copied)
+  ops/          — tensor kernels (diag/off-diag apply, orbit scan, lookup),
+                  the plan codec and its CUDA decode kernel (csrc/)
+  parallel/     — hashed layout, the streamed matvec engine
+  solve/        — thick-restart Lanczos
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no device given and no CUDA device present they
+raise.
+"""
+
+from . import models, utils  # noqa: F401
+from .models.basis import SpinBasis
+from .models.operator import Operator
+from .parallel.distributed import DistributedEngine
+from .solve.lanczos import LanczosResult, lanczos
+
+__all__ = ["SpinBasis", "Operator", "DistributedEngine", "LanczosResult",
+           "lanczos"]

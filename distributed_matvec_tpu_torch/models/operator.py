@@ -1,0 +1,350 @@
+# Copied from distributed_matvec_tpu/models/operator.py
+"""Operators: compiled term tables + host application paths.
+
+Replaces the reference's ``Operator`` record (``reference src/ForeignTypes.chpl:154-259``),
+which wraps an opaque ``ls_hs_operator`` holding diagonal/off-diagonal
+*nonbranching term* tables (FFI.chpl:109-119).  Here the tables are dense
+NumPy arrays shaped for XLA:
+
+  * diagonal  — K₀ scalar terms ``(v, s, m, r)`` with zero flip mask; the diag
+    kernel evaluates ``d(α) = Σ_k v_k·(−1)^pc(α∧s_k)·[α∧m_k==r_k]`` — the
+    contract of ``ls_internal_operator_apply_diag_x1`` (FFI.chpl:219-221).
+  * off-diagonal — terms grouped by flip mask ``x`` into T groups, each with up
+    to K inner ``(v, s, m, r)`` legs, padded.  One (α, group) pair yields one
+    candidate ``|β⟩ = |α⊕x⟩`` with amplitude ``Σ_k …`` — the padded, static-shape
+    equivalent of ``ls_internal_operator_apply_off_diag_x1``'s compacted output
+    (FFI.chpl:222-225, BatchedOperator.chpl:82-213).  Grouping by ``x`` is what
+    keeps T = #bonds (not #Pauli-strings) for Heisenberg models.
+
+Amplitudes are stored as complex128 but the common Hermitian-real case is
+detected (``is_real``) so device kernels can run in float64.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .basis import SpinBasis
+from .expression import NonbranchingTerm, SymbolicExpression, parse_expression, simplify_terms
+
+__all__ = ["DiagTable", "OffDiagTable", "Operator"]
+
+
+@dataclass(frozen=True)
+class DiagTable:
+    v: np.ndarray  # complex128 [K]
+    s: np.ndarray  # uint64 [K]
+    m: np.ndarray  # uint64 [K]
+    r: np.ndarray  # uint64 [K]
+
+    @property
+    def num_terms(self) -> int:
+        return self.v.size
+
+    def apply(self, alphas: np.ndarray) -> np.ndarray:
+        """d(α) for each α (host/NumPy)."""
+        alphas = np.asarray(alphas, dtype=np.uint64)[:, None]
+        if self.num_terms == 0:
+            return np.zeros(alphas.shape[0], dtype=np.complex128)
+        sign = 1.0 - 2.0 * (_popcount_u64(alphas & self.s[None, :]) & 1).astype(np.float64)
+        ok = (alphas & self.m[None, :]) == self.r[None, :]
+        return (self.v[None, :] * sign * ok).sum(axis=1)
+
+
+@dataclass(frozen=True)
+class OffDiagTable:
+    x: np.ndarray      # uint64 [T]       flip mask per group
+    v: np.ndarray      # complex128 [T,K] inner amplitudes (0 where padded)
+    s: np.ndarray      # uint64 [T,K]
+    m: np.ndarray      # uint64 [T,K]
+    r: np.ndarray      # uint64 [T,K]
+
+    @property
+    def num_groups(self) -> int:
+        return self.x.size
+
+    @property
+    def max_inner(self) -> int:
+        return 0 if self.v.size == 0 else self.v.shape[1]
+
+    def term_indices_by_flip_weight(self, weight: int) -> List[int]:
+        """Indices of the term groups whose flip mask moves exactly
+        ``weight`` sites (1 = single-site fields, 2 = two-site exchange,
+        …).  Indexes THIS table's term order — the order every per-term
+        consumer (the hybrid engine's ``stream:`` splits, the plan
+        codec's term mask) sees — so callers never re-derive it from a
+        re-sorted mask list."""
+        return [i for i, m in enumerate(self.x.tolist())
+                if bin(int(m)).count("1") == weight]
+
+    def apply(self, alphas: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Dense [B,T] (betas, amplitudes) for each α (host/NumPy).
+
+        Zero amplitude marks "no matrix element" — the padded replacement for
+        the reference kernel's offset-compacted output.
+        """
+        alphas = np.asarray(alphas, dtype=np.uint64)
+        B, T = alphas.size, self.num_groups
+        betas = alphas[:, None] ^ self.x[None, :]
+        if T == 0:
+            return betas, np.zeros((B, 0), dtype=np.complex128)
+        a = alphas[:, None, None]
+        sign = 1.0 - 2.0 * (_popcount_u64(a & self.s[None]) & 1).astype(np.float64)
+        ok = (a & self.m[None]) == self.r[None]
+        amps = (self.v[None] * sign * ok).sum(axis=2)
+        return betas, amps
+
+
+def _popcount_u64(x: np.ndarray) -> np.ndarray:
+    return np.bitwise_count(x).astype(np.int64)
+
+
+def _build_tables(terms: Sequence[NonbranchingTerm]) -> Tuple[DiagTable, OffDiagTable]:
+    terms = simplify_terms(terms)
+    diag = [t for t in terms if t.is_diagonal]
+    off = [t for t in terms if not t.is_diagonal]
+    dt = DiagTable(
+        v=np.array([t.v for t in diag], dtype=np.complex128),
+        s=np.array([t.s for t in diag], dtype=np.uint64),
+        m=np.array([t.m for t in diag], dtype=np.uint64),
+        r=np.array([t.r for t in diag], dtype=np.uint64),
+    )
+    groups: dict = {}
+    for t in off:
+        groups.setdefault(t.x, []).append(t)
+    xs = sorted(groups)
+    T = len(xs)
+    K = max((len(g) for g in groups.values()), default=0)
+    v = np.zeros((T, K), dtype=np.complex128)
+    s = np.zeros((T, K), dtype=np.uint64)
+    m = np.zeros((T, K), dtype=np.uint64)
+    r = np.zeros((T, K), dtype=np.uint64)
+    for ti, xmask in enumerate(xs):
+        for ki, t in enumerate(groups[xmask]):
+            v[ti, ki] = t.v
+            s[ti, ki] = t.s
+            m[ti, ki] = t.m
+            r[ti, ki] = t.r
+    ot = OffDiagTable(x=np.array(xs, dtype=np.uint64), v=v, s=s, m=m, r=r)
+    return dt, ot
+
+
+class Operator:
+    """A quantum operator over a basis, compiled to nonbranching term tables."""
+
+    def __init__(
+        self,
+        basis: SpinBasis,
+        terms: Sequence[NonbranchingTerm] = (),
+        name: str = "",
+    ):
+        self.basis = basis
+        self.name = name
+        self.terms: List[NonbranchingTerm] = simplify_terms(terms)
+        self.diag_table, self.off_diag_table = _build_tables(self.terms)
+
+    # -- constructors --------------------------------------------------------
+
+    @staticmethod
+    def from_expressions(
+        basis: SpinBasis,
+        exprs: Sequence[Tuple[str, Sequence[Sequence[int]]]],
+        name: str = "",
+    ) -> "Operator":
+        """Build from (expression, sites) pairs — the YAML ``terms`` schema
+        (e.g. data/heisenberg_chain_10.yaml; loader parity with
+        ``loadConfigFromYaml``, ForeignTypes.chpl:261-288)."""
+        all_terms: List[NonbranchingTerm] = []
+        for expr_text, sites in exprs:
+            sym = parse_expression(expr_text)
+            need = sym.max_placeholder() + 1
+            for row in sites:
+                row = list(row) if isinstance(row, (list, tuple)) else [row]
+                if len(row) < need:
+                    raise ValueError(
+                        f"sites row {row} too short for expression {expr_text!r}"
+                    )
+                all_terms.extend(sym.instantiate(row))
+        return Operator(basis, all_terms, name=name)
+
+    # -- operator algebra (front-end parity with the reference's expression
+    #    algebra in lattice-symmetries: H = a*op1 + op2 - op3) ---------------
+
+    def _require_same_basis(self, other: "Operator") -> None:
+        if other.basis is not self.basis:
+            raise ValueError("operators act on different bases")
+
+    def __add__(self, other: "Operator") -> "Operator":
+        if not isinstance(other, Operator):
+            return NotImplemented
+        self._require_same_basis(other)
+        name = f"{self.name} + {other.name}".strip(" +") if \
+            (self.name or other.name) else ""
+        return Operator(self.basis, list(self.terms) + list(other.terms),
+                        name=name)
+
+    def __sub__(self, other: "Operator") -> "Operator":
+        if not isinstance(other, Operator):
+            return NotImplemented
+        self._require_same_basis(other)
+        from dataclasses import replace
+
+        neg = [replace(t, v=-t.v) for t in other.terms]
+        name = f"{self.name} - {other.name}".strip(" -") if \
+            (self.name or other.name) else ""
+        return Operator(self.basis, list(self.terms) + neg, name=name)
+
+    def __neg__(self) -> "Operator":
+        op = (-1.0) * self
+        op.name = f"-{self.name}" if self.name else ""
+        return op
+
+    def __mul__(self, scalar) -> "Operator":
+        import numbers
+
+        if not isinstance(scalar, numbers.Number):
+            return NotImplemented
+        from dataclasses import replace
+
+        terms = [replace(t, v=t.v * scalar) for t in self.terms]
+        name = f"{scalar}·{self.name}" if self.name else ""
+        return Operator(self.basis, terms, name=name)
+
+    __rmul__ = __mul__
+
+    # -- properties (reference API parity) -----------------------------------
+
+    @property
+    def number_off_diag_terms(self) -> int:
+        """Number of off-diagonal flip-mask groups (``Operator.numberOffDiagTerms``,
+        ForeignTypes.chpl:228-233)."""
+        return self.off_diag_table.num_groups
+
+    @property
+    def is_hermitian(self) -> bool:
+        by_key = {(t.x, t.s, t.m, t.r): t.v for t in self.terms}
+        for t in self.terms:
+            d = t.dagger()
+            v = by_key.get((d.x, d.s, d.m, d.r))
+            if v is None or abs(v - d.v) > 1e-12:
+                return False
+        return True
+
+    @property
+    def is_real(self) -> bool:
+        return all(abs(t.v.imag) < 1e-12 for t in self.terms)
+
+    @property
+    def effective_is_real(self) -> bool:
+        """Whether the symmetry-adapted matrix is real: real term amplitudes
+        AND real sector characters (complex momentum sectors make the
+        projected matrix complex Hermitian)."""
+        return self.is_real and not self.basis.group.has_complex_characters
+
+    # -- host application (reference backend / golden generator) -------------
+
+    def apply_diag(self, alphas: np.ndarray) -> np.ndarray:
+        d = self.diag_table.apply(alphas)
+        assert np.abs(d.imag).max(initial=0.0) < 1e-12, "non-real diagonal"
+        return d.real
+
+    def apply_off_diag(self, alphas: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        return self.off_diag_table.apply(alphas)
+
+    def apply_basis_state(self, alpha: int):
+        """H|α⟩ as (betas, coeffs) incl. the diagonal — convenience/tests."""
+        betas, amps = self.apply_off_diag(np.array([alpha], dtype=np.uint64))
+        d = self.apply_diag(np.array([alpha], dtype=np.uint64))
+        return (
+            np.concatenate([[np.uint64(alpha)], betas[0]]),
+            np.concatenate([d.astype(np.complex128), amps[0]]),
+        )
+
+    def matvec_host(self, x: np.ndarray, batch_size: int = 1 << 14) -> np.ndarray:
+        """Full symmetry-adapted y = H·x on the host (NumPy) — the CPU
+        backend, and the generator for large golden files.  Mirrors the
+        diag + off-diag + state_info + rescale pipeline of
+        ``localMatrixVector`` (DistributedMatrixVector.chpl:1055-1070) and
+        ``BatchedOperator.computeOffDiag`` (BatchedOperator.chpl:82-213).
+        """
+        basis = self.basis
+        reps = basis.representatives
+        norms = basis.norms
+        x = np.asarray(x)
+        real = self.effective_is_real and not np.iscomplexobj(x)
+        y = np.zeros(x.shape, dtype=np.float64 if real else np.complex128)
+        projected = basis.requires_projection
+        for lo in range(0, reps.size, batch_size):
+            hi = min(lo + batch_size, reps.size)
+            alphas = reps[lo:hi]
+            y[lo:hi] += self.apply_diag(alphas) * x[lo:hi]
+            betas, amps = self.apply_off_diag(alphas)  # [B,T]
+            amps = amps * x[lo:hi, None]
+            if projected:
+                flat = betas.reshape(-1)
+                rep_b, chars, norm_b = basis.group.state_info(flat)
+                scale = chars * norm_b / np.repeat(norms[lo:hi], betas.shape[1])
+                amps = amps.reshape(-1) * scale
+                betas = rep_b
+            else:
+                amps = amps.reshape(-1)
+                betas = betas.reshape(-1)
+            nz = amps != 0
+            idx = basis.state_index(betas[nz])
+            a = amps[nz]
+            if (idx < 0).any():
+                bad = betas[nz][idx < 0]
+                raise RuntimeError(
+                    f"generated state not in basis: {bad[:5]}"
+                )  # halt analog, DistributedMatrixVector.chpl:113-118
+            if real:
+                np.add.at(y, idx, a.real)
+            else:
+                np.add.at(y, idx, a)
+        return y
+
+    def to_sparse(self):
+        """Sparse CSR matrix of the (symmetry-adapted) operator — host only."""
+        import scipy.sparse as sp
+
+        basis = self.basis
+        n = basis.number_states
+        cols, rows, vals = [], [], []
+        reps = basis.representatives
+        norms = basis.norms
+        betas, amps = self.apply_off_diag(reps)
+        if basis.requires_projection:
+            flat = betas.reshape(-1)
+            rep_b, chars, norm_b = basis.group.state_info(flat)
+            amps = amps.reshape(-1) * chars * norm_b / np.repeat(norms, betas.shape[1])
+            betas = rep_b
+        else:
+            amps = amps.reshape(-1)
+            betas = betas.reshape(-1)
+        src = np.repeat(np.arange(n), self.number_off_diag_terms or 0)
+        nz = amps != 0
+        idx = basis.state_index(betas[nz])
+        rows.append(idx)
+        cols.append(src[nz])
+        vals.append(amps[nz])
+        diag = self.apply_diag(reps)
+        rows.append(np.arange(n))
+        cols.append(np.arange(n))
+        vals.append(diag.astype(np.complex128))
+        mat = sp.csr_matrix(
+            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+            shape=(n, n),
+        )
+        return mat.real if self.effective_is_real else mat
+
+    # -- serialization -------------------------------------------------------
+
+    def __repr__(self) -> str:
+        return (
+            f"Operator({self.name or 'H'}, diag_terms={self.diag_table.num_terms}, "
+            f"off_diag_groups={self.number_off_diag_terms}, "
+            f"inner={self.off_diag_table.max_inner}, basis={self.basis!r})"
+        )
