@@ -9,8 +9,11 @@ Phases, one JSON line each with its seconds:
    together) and the C++ enumerator, from the checkout's sources into
    ``build/``.
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
-   card (``torch.equal``), on synthetic chunks — u8 and u16 codes, widths
-   whose values straddle u32 words, padding entries.
+   card (``torch.equal``), on synthetic chunks (``KERNEL_CASES``) — u8 and
+   u16 codes, small and large dictionaries, 1- to 32-bit fields that
+   straddle u32 words, no padding, all padding, entry counts beside the
+   kernel's tile, holes anywhere in the send buffer, and one device's
+   identity layout at chain_32_symm's size.
 3. ``small``: chain_16_symm through the streamed engine and Lanczos: the
    matvec against the host NumPy ``matvec_host`` (atol 1e-13 / rtol 1e-12;
    the receive-side ``index_add_`` uses atomics, so sums run in another
@@ -24,8 +27,11 @@ Phases, one JSON line each with its seconds:
    chunk.  E0 must match −56.826110112297656 to 1e-8 relative.
 5. ``split``: where an apply's time goes — the plan's host → device copy
    alone, the apply with the plan already on the card, the decode kernel
-   and its plain version per launch over every chunk of the plan, and a
-   ``torch.profiler`` breakdown of one streamed apply by device kernel.
+   per launch over every chunk of the plan beside its byte bound, its
+   plain version, and the earlier one-thread-per-entry design (timed in
+   turns, with its zero fill and without), and a ``torch.profiler``
+   breakdown of one streamed apply by device kernel, in which nothing may
+   fill a send buffer once per chunk.
 6. ``cross_sector``: the same ring in the translation-only k = 0 sector
    (18 784 170 states: no reflection, no spin inversion, so other orbits,
    norms and plan) must give the same E0 as the full leg to 1e-9.
@@ -97,9 +103,13 @@ def build_phase():
 # -- phase 2 ------------------------------------------------------------------
 
 def synthetic_chunk(device, B, n_recv, n_live, n_real, code_bits, ndict,
-                    seed):
-    """One encoded chunk as the codec writes it: unique live destinations,
-    padding entries at the drop sentinel with one pad code and row 0."""
+                    seed, identity=False, w_dest=None, w_row=None):
+    """One encoded chunk as the codec writes it: unique live destinations
+    (``0 … n_real−1`` in order with ``identity``, as at one device; else
+    random slots of ``[0, n_recv)`` with holes anywhere), then padding
+    entries at the drop sentinel with one pad code and row 0, and a rok
+    stream whose bits are exactly the written slots.  ``w_dest``/``w_row``
+    widen the fields beyond the bits their values need."""
     import numpy as np
     import torch
 
@@ -107,55 +117,112 @@ def synthetic_chunk(device, B, n_recv, n_live, n_real, code_bits, ndict,
 
     rng = np.random.default_rng(seed)
     spec = {"n_live": n_live, "n_recv": n_recv,
-            "w_dest": PC.bits_for(n_recv), "w_row": PC.bits_for(B - 1),
+            "w_dest": w_dest or PC.bits_for(n_recv),
+            "w_row": w_row or PC.bits_for(B - 1),
             "code_bits": code_bits, "ndict": ndict, "coeff": "dict",
             "cshape": [B, 32]}
     dest = np.full(n_live, n_recv, np.int64)
-    dest[:n_real] = rng.permutation(n_recv)[:n_real]
+    dest[:n_real] = (np.arange(n_real) if identity
+                     else rng.permutation(n_recv)[:n_real])
     rows = np.zeros(n_live, np.int64)
-    rows[:n_real] = rng.integers(0, B, n_real)
+    rows[:n_real] = np.sort(rng.integers(0, B, n_real)) if identity \
+        else rng.integers(0, B, n_real)
     code_np = np.uint8 if code_bits == 8 else np.uint16
-    codes = np.full(n_live, 3, code_np)
+    codes = np.full(n_live, ndict - 1, code_np)
     codes[:n_real] = rng.integers(0, ndict, n_real)
+    rok = np.zeros(n_recv, bool)
+    rok[dest[:n_real]] = True
     words = np.concatenate([PC.pack_bits(dest, spec["w_dest"]),
                             PC.pack_bits(rows, spec["w_row"])])
     ecodes = torch.from_numpy(codes if code_bits == 8
                               else codes.view(np.int16))
     return (spec, torch.from_numpy(words.view(np.int32)).to(device),
             ecodes.to(device),
+            torch.from_numpy(PC.pack_bits(rok, 1).view(np.int32)).to(device),
             torch.from_numpy(rng.standard_normal(ndict)).to(device),
             torch.from_numpy(rng.standard_normal(B)).to(device))
 
 
 def check_kernel(args) -> float:
     """Kernel vs plain version on the same inputs; raises unless equal.
-    Returns the largest absolute difference (0.0 when equal)."""
+    Returns the largest absolute difference (0.0 when equal).  The kernel
+    runs twice: through the wrapper, and once more into a buffer filled
+    with NaN first, so a slot it leaves unwritten shows."""
     import torch
 
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
-    got = PC.fused_decode_gather_scatter(*args)
+    spec = args[0]
     want = PC._fused_decode_gather_scatter_plain(*args)
-    if got.device.type == "cuda":
+    outs = [PC.fused_decode_gather_scatter(*args)]
+    if outs[0].device.type == "cuda":
+        outs.append(torch.full_like(outs[0], float("nan")))
+        PC._launch_fused_decode(*args, outs[1])
         torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"fused decode kernel differs from its plain version "
-            f"(max abs err {err}, spec {args[0]})")
+    err = 0.0
+    for got in outs:
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"fused decode kernel differs from its plain version "
+                f"(max abs err {e}, spec {spec})")
     return err
 
 
+def per_entry_launch(spec, edest, ecodes, cdict, x_c, out) -> None:
+    """The earlier design of the decode kernel (one thread per entry, no
+    rok, ``out`` zero-filled by the caller), for timing beside the kernel;
+    the main path never calls it."""
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import cuda_kernels
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    lib = cuda_kernels.library("fused_decode")
+    rc = lib.dmt_fused_decode_per_entry(
+        edest.data_ptr(), PC.packed_words(spec["n_live"], spec["w_dest"]),
+        ecodes.data_ptr(), spec["code_bits"], cdict.data_ptr(),
+        x_c.data_ptr(), out.data_ptr(), spec["n_live"], spec["w_dest"],
+        spec["w_row"], spec["n_recv"],
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"per-entry decode launch failed: "
+                           f"{cuda_kernels.error_string(rc)}")
+
+
+#: kernel_check's synthetic chunks: (B, n_recv, n_live, n_real, code_bits,
+#: ndict, keyword options).  The kernel's tile is 1024 entries.
+KERNEL_CASES = [
+    (96, 150, 136, 121, 8, 200, {}),
+    (5000, 9000, 8000, 7000, 8, 13, {}),
+    # u16 codes, a large dictionary
+    (65536, 1_200_000, 1_200_008, 1_199_000, 16, 3000, {}),
+    # u16 codes; 32-bit fields
+    (300, 2000, 1800, 1500, 16, 700, {"w_dest": 32, "w_row": 32}),
+    # one device at chain_32_symm's shape: dest the identity, rows sorted
+    (65536, 1_380_000, 1_380_008, 1_379_000, 8, 200, {"identity": True}),
+    # no padding entry: the drop slot is 0.0
+    (4096, 5000, 4000, 4000, 8, 50, {}),
+    (4096, 4000, 4000, 4000, 8, 50, {"identity": True}),
+    # every entry padding
+    (100, 300, 264, 0, 8, 9, {}),
+    # n_live just below and above multiples of the tile
+    (700, 1100, 1023, 1000, 8, 30, {}),
+    (700, 1100, 1025, 1025, 8, 30, {}),
+    (700, 2047, 2047, 2046, 16, 30, {"identity": True}),
+    (700, 2100, 2049, 2040, 8, 30, {}),
+    # 1-bit fields: one slot, two rows
+    (2, 1, 8, 1, 8, 4, {}),
+    (2, 1, 1, 1, 8, 4, {}),
+]
+
+
 def kernel_check_phase(device):
-    cases = [  # (B, n_recv, n_live, n_real, code_bits, ndict)
-        (96, 150, 136, 121, 8, 200),
-        (5000, 9000, 8000, 7000, 8, 13),
-        (65536, 1_200_000, 1_200_008, 1_199_000, 16, 3000),
-    ]
-    errs = []
-    for i, case in enumerate(cases):
-        errs.append(check_kernel(synthetic_chunk(device, *case, seed=i)))
-    return {"cases": len(cases), "max_abs_err": max(errs)}, max(errs)
+    errs = [check_kernel(synthetic_chunk(device, *case[:6], seed=i,
+                                         **case[6]))
+            for i, case in enumerate(KERNEL_CASES)]
+    return {"cases": len(errs), "max_abs_err": max(errs)}, max(errs)
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -220,7 +287,7 @@ def full_phase(device, n=32, expect_states=CHAIN32_STATES,
     views = eng._chunk_views(eng._plan_host[ci].to(device))
     x_c = torch.from_numpy(np.random.default_rng(9).standard_normal(
         eng.batch_size)).to(device)
-    chunk_err = check_kernel((eng._codec.spec, views[0], views[1],
+    chunk_err = check_kernel((eng._codec.spec, views[0], views[1], views[3],
                               eng._cdict, x_c))
 
     # the main path, with the launch counts set to 0 just before it
@@ -307,8 +374,11 @@ def device_ms(device, fn, reps=3):
 
 def split_phase(device, eng):
     """The apply's parts at the full size: plan H2D alone, the apply from a
-    device-resident plan, and the decode kernel and its plain version per
-    launch over every chunk of the plan."""
+    device-resident plan, the decode kernel per launch over every chunk of
+    the plan beside its plain version and beside the earlier design (one
+    thread per entry after a separate zero fill; timed in turns: kernel,
+    earlier, earlier, kernel), the zero fill alone and the earlier kernel
+    alone, and a ``torch.profiler`` breakdown of one streamed apply."""
     import numpy as np
     import torch
 
@@ -316,71 +386,113 @@ def split_phase(device, eng):
 
     n = eng.nchunks
     spec = eng._codec.spec
+    n_recv = spec["n_recv"]
     dev_plan = eng._plan_host.to(device)
     views = [eng._chunk_views(dev_plan[ci]) for ci in range(n)]
     B = eng.batch_size
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         n * B)).to(device)
-    xs = [x[ci * B:(ci + 1) * B] for ci in range(n)]
+    args = [(spec, v[0], v[1], v[3], eng._cdict, x[ci * B:(ci + 1) * B])
+            for ci, v in enumerate(views)]
 
     def h2d():
-        buf = eng._dev_bufs[0] if device.type == "cuda" else None
+        buf = eng._dev_bufs[0]
         for ci in range(n):
-            if buf is not None:
-                buf.copy_(eng._plan_host[ci], non_blocking=True)
+            buf.copy_(eng._plan_host[ci], non_blocking=True)
 
     def kernel():
-        for ci in range(n):
-            PC.fused_decode_gather_scatter(spec, views[ci][0], views[ci][1],
-                                           eng._cdict, xs[ci])
+        for a in args:
+            PC.fused_decode_gather_scatter(*a)
 
     def plain():
-        for ci in range(n):
-            PC._fused_decode_gather_scatter_plain(
-                spec, views[ci][0], views[ci][1], eng._cdict, xs[ci])
+        for a in args:
+            PC._fused_decode_gather_scatter_plain(*a)
+
+    def zeros():
+        return torch.zeros(n_recv + 1, dtype=torch.float64, device=device)
+
+    def fill():
+        for _ in range(n):
+            zeros()
+
+    def per_entry():                 # as the earlier wrapper ran it
+        for a in args:
+            per_entry_launch(a[0], a[1], a[2], a[4], a[5], zeros())
+
+    filled = zeros()
+
+    def per_entry_kernel():          # the earlier kernel without its fill
+        for a in args:
+            per_entry_launch(a[0], a[1], a[2], a[4], a[5], filled)
 
     xh = eng.random_hashed(3)
     # largest error of the kernel against the plain version over the plan
-    err = max(check_kernel((spec, views[ci][0], views[ci][1], eng._cdict,
-                            xs[ci])) for ci in range(n))
+    err = max(check_kernel(a) for a in args)
+    # the earlier design on every chunk too, so its times are of right work
+    for a in args:
+        out = zeros()
+        per_entry_launch(a[0], a[1], a[2], a[4], a[5], out)
+        if not torch.equal(out, PC._fused_decode_gather_scatter_plain(*a)):
+            raise AssertionError("the per-entry design differs from the "
+                                 "plain version")
     e = views[0]
-    bytes_per_launch = (e[0].numel() * 4 + e[1].numel() * e[1].element_size()
-                        + eng._cdict.numel() * 8 + B * 8
-                        + (spec["n_recv"] + 1) * 8)
-    flops_per_launch = spec["n_live"]
+    bytes_no_rok = (e[0].numel() * 4 + e[1].numel() * e[1].element_size()
+                    + eng._cdict.numel() * 8 + B * 8 + (n_recv + 1) * 8)
+    bytes_per_launch = bytes_no_rok + e[3].numel() * 4
     t_bytes = bytes_per_launch / HBM_BYTES_PER_S * 1e3
-    t_ops = flops_per_launch / FP64_FLOP_PER_S * 1e3
+    t_ops = spec["n_live"] / FP64_FLOP_PER_S * 1e3
+    turns = {"kernel": [], "per_entry": []}
+    for name in ("kernel", "per_entry", "per_entry", "kernel"):
+        fn = kernel if name == "kernel" else per_entry
+        turns[name].append(device_ms(device, fn, reps=5) / n)
+    kernel_ms = statistics.median(turns["kernel"])
     timing = {
         "h2d_ms_per_apply": device_ms(device, h2d),
         "device_plan_apply_ms": device_ms(
             device, lambda: eng._apply(xh, views)),
-        "kernel_ms_per_launch": device_ms(device, kernel) / n,
+        "kernel_ms_per_launch": kernel_ms,
+        "kernel_ms_turns": turns["kernel"],
+        "per_entry_ms_per_launch": statistics.median(turns["per_entry"]),
+        "per_entry_ms_turns": turns["per_entry"],
+        "fill_ms_per_launch": device_ms(device, fill, reps=5) / n,
+        "per_entry_kernel_ms_per_launch":
+            device_ms(device, per_entry_kernel, reps=5) / n,
         "plain_ms_per_launch": device_ms(device, plain) / n,
         "bound_ms_per_launch": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_per_launch": bytes_per_launch,
+        "bytes_per_launch_without_rok": bytes_no_rok,
+        "bound_ms_without_rok": bytes_no_rok / HBM_BYTES_PER_S * 1e3,
+        "kernel_bytes_per_s": bytes_per_launch / (kernel_ms * 1e-3),
+        "kernel_share_of_bound": max(t_bytes, t_ops) / kernel_ms,
         "plan_max_abs_err": err,
-        "max_memory_allocated": int(torch.cuda.max_memory_allocated(device))
-        if device.type == "cuda" else None,
-        "profile": profile_apply(eng, xh) if device.type == "cuda"
-        else None,
+        "max_memory_allocated": int(torch.cuda.max_memory_allocated(device)),
+        "profile": profile_apply(eng, xh),
     }
+    # the send buffer has no fill of its own: nothing in the apply fills a
+    # [n_recv + 1] tensor once per chunk
+    fills = [f for f in timing["profile"]["fill_ops"]
+             if f[1] and f[1][0] == [n_recv + 1] and f[2] >= n]
+    if fills:
+        raise AssertionError(f"the send buffer is filled per chunk: {fills}")
     return timing
 
 
 def profile_apply(eng, xh, top=8):
     """Device time of one streamed apply by kernel (and host → device
     copy), from ``torch.profiler``: the ``top`` largest as
-    ``[name, ms, calls]`` and the sum over all of them."""
+    ``[name, ms, calls]``, the sum over all of them, every fill kernel's
+    row, and every ``aten::fill_``/``aten::zero_`` call grouped by the
+    shape it filled as ``[op, shapes, calls]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         eng._apply(xh, eng._stream_chunks())
         torch.cuda.synchronize()
-    rows = []
+    rows, fills = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -388,9 +500,14 @@ def profile_apply(eng, xh, top=8):
         # aten:: rows repeat the time of the kernels they launch
         if us and not e.key.startswith("aten::"):
             rows.append([e.key[:72], us / 1e3, e.count])
+            if "fill" in e.key.lower():
+                fills.append(rows[-1])
     rows.sort(key=lambda r: -r[1])
+    fill_ops = [[e.key, e.input_shapes, e.count]
+                for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in ("aten::fill_", "aten::zero_")]
     return {"device_ms_total": sum(r[1] for r in rows),
-            "top": rows[:top]}
+            "top": rows[:top], "fill_kernels": fills, "fill_ops": fill_ops}
 
 
 def cross_sector_phase(device, e0_full, n=32):

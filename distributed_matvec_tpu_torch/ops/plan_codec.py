@@ -354,10 +354,14 @@ def _decode_coeff_vals(spec: Dict, coeff, cdict):
     return coeff.to(torch.float64)
 
 
-def _fused_decode_gather_scatter_plain(spec: Dict, edest, ecodes, cdict,
-                                       x_c):
-    """The plain PyTorch version of :func:`fused_decode_gather_scatter`:
-    unpack, dictionary gather × ``x[row]``, scatter into the send buffer."""
+def _fused_decode_gather_scatter_plain(spec: Dict, edest, ecodes, erok,
+                                       cdict, x_c):
+    """The plain PyTorch version of :func:`fused_decode_gather_scatter`,
+    with the JAX kernel's semantics: zero-fill the send buffer, unpack,
+    dictionary gather × ``x[row]``, scatter.  It takes ``erok`` for the
+    kernel's signature and does not read it, so comparing the two on a real
+    plan also checks the kernel's precondition on ``rok``."""
+    del erok
     nl, n_recv = spec["n_live"], spec["n_recv"]
     nwd = packed_words(nl, spec["w_dest"])
     dest = unpack_bits(edest[:nwd], nl, spec["w_dest"])
@@ -370,7 +374,7 @@ def _fused_decode_gather_scatter_plain(spec: Dict, edest, ecodes, cdict,
     return out
 
 
-def _check_fused_operands(spec, edest, ecodes, cdict, x_c) -> None:
+def _check_fused_operands(spec, edest, ecodes, erok, cdict, x_c) -> None:
     nl = spec["n_live"]
     if spec["coeff"] != "dict":
         raise NotImplementedError(
@@ -378,11 +382,14 @@ def _check_fused_operands(spec, edest, ecodes, cdict, x_c) -> None:
     code_dtype = {8: torch.uint8, 16: torch.int16}.get(spec["code_bits"])
     words = packed_words(nl, spec["w_dest"]) + packed_words(nl,
                                                              spec["w_row"])
+    rok_words = packed_words(spec["n_recv"], 1)
     checks = [
         (edest.dtype == torch.int32 and edest.dim() == 1
          and edest.numel() == words, f"edest: int32 [{words}]"),
         (ecodes.dtype == code_dtype and ecodes.dim() == 1
          and ecodes.numel() == nl, f"ecodes: {code_dtype} [{nl}]"),
+        (erok.dtype == torch.int32 and erok.dim() == 1
+         and erok.numel() == rok_words, f"erok: int32 [{rok_words}]"),
         (cdict.dtype == torch.float64 and cdict.dim() == 1
          and cdict.numel() == spec["ndict"],
          f"cdict: float64 [{spec['ndict']}]"),
@@ -393,52 +400,69 @@ def _check_fused_operands(spec, edest, ecodes, cdict, x_c) -> None:
     for ok, want in checks:
         if not ok:
             raise ValueError(f"fused_decode_gather_scatter operand {want}")
-    devices = {t.device for t in (edest, ecodes, cdict, x_c)}
+    operands = (edest, ecodes, erok, cdict, x_c)
+    devices = {t.device for t in operands}
     if len(devices) != 1:
         raise ValueError(
             f"fused_decode_gather_scatter operands on several devices: "
             f"{sorted(map(str, devices))}")
-    if not all(t.is_contiguous() for t in (edest, ecodes, cdict, x_c)):
+    if not all(t.is_contiguous() for t in operands):
         raise ValueError("fused_decode_gather_scatter operands must be "
                          "contiguous")
 
 
-def fused_decode_gather_scatter(spec: Dict, edest, ecodes, cdict, x_c):
+def fused_decode_gather_scatter(spec: Dict, edest, ecodes, erok, cdict, x_c):
     """The fused decode + gather + multiply + scatter of one encoded chunk:
     unpack the bitpacked destination and row streams, decode the
     coefficient codes through the dictionary, gather each live entry's
     ``x`` row, multiply, and write the amplitude into the send buffer.
     Returns the ``[D·cap_eff + 1]`` f64 send buffer (the trailing slot
-    collects the padding entries).
+    collects the padding entries); every slot no live entry writes is 0.
+
+    ``erok`` is the chunk's ``rok`` word stream (1 bit per slot).  The
+    kernel writes the buffer once, without a separate zero fill, and takes
+    the precondition the plan build guarantees: a slot's ``rok`` bit is set
+    iff a live entry writes it, and padding entries form the tail of the
+    live stream.
 
     Scope: real sector, single column, dictionary-coded coefficients.
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     ``csrc/fused_decode.cu`` on the current stream (``launches`` counts
     them) or raise."""
-    _check_fused_operands(spec, edest, ecodes, cdict, x_c)
+    _check_fused_operands(spec, edest, ecodes, erok, cdict, x_c)
     device = x_c.device
     if device.type == "cpu":
-        return _fused_decode_gather_scatter_plain(spec, edest, ecodes,
+        return _fused_decode_gather_scatter_plain(spec, edest, ecodes, erok,
                                                   cdict, x_c)
     if device.type != "cuda":
         raise ValueError(f"no fused decode kernel for device {device}")
-    from . import cuda_kernels
-
-    lib = cuda_kernels.library("fused_decode")
-    n_recv = spec["n_recv"]
-    out = torch.zeros(n_recv + 1, dtype=torch.float64, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.dmt_fused_decode_gather_scatter(
-        edest.data_ptr(), packed_words(spec["n_live"], spec["w_dest"]),
-        ecodes.data_ptr(), spec["code_bits"], cdict.data_ptr(),
-        x_c.data_ptr(), out.data_ptr(), spec["n_live"], spec["w_dest"],
-        spec["w_row"], n_recv, stream)
-    if rc:
-        raise RuntimeError(
-            f"fused_decode_gather_scatter launch failed: "
-            f"{cuda_kernels.error_string(rc)}")
+    out = torch.empty(spec["n_recv"] + 1, dtype=torch.float64, device=device)
+    _launch_fused_decode(spec, edest, ecodes, erok, cdict, x_c, out)
     fused_decode_gather_scatter.launches += 1
     return out
 
 
 fused_decode_gather_scatter.launches = 0
+
+
+def _launch_fused_decode(spec: Dict, edest, ecodes, erok, cdict, x_c,
+                         out) -> None:
+    """Launch the kernel of ``csrc/fused_decode.cu`` on checked CUDA
+    operands, writing every slot of ``out`` (float64 [n_recv + 1]) on the
+    current stream; raises if the launch fails.  Not counted in
+    ``launches``."""
+    from . import cuda_kernels
+
+    lib = cuda_kernels.library("fused_decode")
+    nl = spec["n_live"]
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = lib.dmt_fused_decode_gather_scatter(
+        edest.data_ptr(), packed_words(nl, spec["w_dest"]),
+        packed_words(nl, spec["w_row"]), ecodes.data_ptr(),
+        spec["code_bits"], erok.data_ptr(), cdict.data_ptr(),
+        x_c.data_ptr(), out.data_ptr(), nl, spec["w_dest"], spec["w_row"],
+        spec["n_recv"], stream)
+    if rc:
+        raise RuntimeError(
+            f"fused_decode_gather_scatter launch failed: "
+            f"{cuda_kernels.error_string(rc)}")

@@ -376,7 +376,8 @@ class DistributedEngine:
         y = torch.zeros(M, dtype=torch.float64, device=self.device)
         for ci, (edest, codes, ridx_w, rok_w) in enumerate(chunks):
             send = PC.fused_decode_gather_scatter(
-                spec, edest, codes, self._cdict, xp[ci * B:(ci + 1) * B])
+                spec, edest, codes, rok_w, self._cdict,
+                xp[ci * B:(ci + 1) * B])
             ridx = PC.unpack_bits(ridx_w, n_recv, w_ridx)
             rok = PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)
             y.index_add_(0, ridx, torch.where(rok, send[:n_recv], 0.0))
