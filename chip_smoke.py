@@ -32,9 +32,33 @@ Phases, one JSON line each with its seconds:
    turns, with its zero fill and without), and a ``torch.profiler``
    breakdown of one streamed apply by device kernel, in which nothing may
    fill a send buffer once per chunk.
-6. ``cross_sector``: the same ring in the translation-only k = 0 sector
+6. ``local_full``: the same chain_32_symm operator (enumerated once, by
+   the full leg) through ``LocalEngine``, the default single-device path,
+   in plain PyTorch: the one-pass ``ell`` build (seconds, T0/S/Tmax,
+   table bytes, peak memory beside the 1.6× reckoning), its apply against
+   the streamed engine's (atol 1e-13 / rtol 1e-12), 7 applies timed (host
+   wall and device time) and one profiled, Lanczos (E0 within 1e-8
+   relative of the recorded value and 1e-10 of the full leg's); the
+   low-memory build forced by a small budget, ``torch.equal`` to the
+   one-pass tables; ``compact`` mode built, timed and solved to the same
+   E0; one ``fused`` apply against the ell apply, timed.  ``plain_work``
+   holds each apply's bytes and byte bound at 3.35 TB/s.
+7. ``cross_sector``: the same ring in the translation-only k = 0 sector
    (18 784 170 states: no reflection, no spin inversion, so other orbits,
    norms and plan) must give the same E0 as the full leg to 1e-9.
+8. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
+   complex Hermitian (about 18.8 M states): the ``ell`` build takes the
+   low-memory path by itself (1.6× the full-width complex tables passes
+   the 12 GB default budget), one ``fused`` apply against the ell apply,
+   and complex128 Lanczos to a converged E0(k=1) strictly above the full
+   leg's E0(k=0), with the peak memory.
+
+``local_small`` runs after ``small``: chain_16_symm through ``LocalEngine``
+in ``ell``, ``compact`` and ``fused`` mode at ``batch_size=61`` (chunking
+and padding engage), matvec rank-1 and ``[N, 3]`` against ``matvec_host``
+(atol 1e-13 / rtol 1e-12), E0/4 against the anchor (1e-9), and a complex
+k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
+``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main path,
 largest error against the plain version, time per launch beside its bound
@@ -248,6 +272,67 @@ def small_phase(device):
             "matvec_max_abs_err": float(np.abs(y - ref).max()),
             "lanczos_iters": int(res.num_iters), "e0": e0,
             "e0_over_4": e0 / 4}
+
+
+# -- local_small --------------------------------------------------------------
+
+def assert_close(got, want, what, atol=1e-13, rtol=1e-12) -> float:
+    """Raise unless ``|got − want| ≤ atol + rtol·|want|`` everywhere (on
+    the device); returns the largest absolute difference."""
+    import torch
+
+    got = torch.as_tensor(got)
+    want = torch.as_tensor(want).to(got.device)
+    diff = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (diff > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())}")
+    return float(diff.max())
+
+
+def local_small_phase(device):
+    import numpy as np
+
+    from distributed_matvec_tpu_torch import LocalEngine, SpinBasis, lanczos
+    from distributed_matvec_tpu_torch.models.lattices import (
+        chain_edges, heisenberg_chain, heisenberg_from_edges)
+
+    op = heisenberg_chain(16, symmetric=True)
+    op.basis.build()
+    n = op.basis.number_states
+    rng = np.random.default_rng(5)
+    x = rng.random(n) - 0.5
+    X = rng.random((n, 3)) - 0.5
+    ref = op.matvec_host(x)
+    REF = np.stack([op.matvec_host(X[:, j]) for j in range(3)], axis=1)
+    out = {"n_states": n}
+    for mode in ("ell", "compact", "fused"):
+        eng = LocalEngine(op, batch_size=61, mode=mode, device=device)
+        err = max(assert_close(eng.matvec(x), ref, f"{mode} matvec"),
+                  assert_close(eng.matvec(X), REF, f"{mode} [N, 3] matvec"))
+        res = lanczos(eng.matvec, n, k=1, device=device)
+        e0 = float(res.eigenvalues[0])
+        if not (res.converged and abs(e0 / 4 - N16_E0_OVER_4) < 1e-9):
+            raise AssertionError(f"{mode}: chain_16_symm E0/4 {e0 / 4} != "
+                                 f"{N16_E0_OVER_4}")
+        out[mode] = {"matvec_max_abs_err": err, "e0_over_4": e0 / 4,
+                     "lanczos_iters": int(res.num_iters),
+                     "ell_split": eng.ell_split}
+    # a complex sector: momentum k = 1 of the 16-ring
+    basis = SpinBasis(16, 8, None, [([*range(1, 16), 0], 1)])
+    cop = heisenberg_from_edges(basis, chain_edges(16))
+    basis.build()
+    nc = basis.number_states
+    z = (rng.random(nc) - 0.5) + 1j * (rng.random(nc) - 0.5)
+    zref = cop.matvec_host(z)
+    for mode in ("ell", "fused"):
+        eng = LocalEngine(cop, batch_size=61, mode=mode, device=device)
+        if eng.real:
+            raise AssertionError("the k = 1 sector is not complex")
+        out[f"k1_{mode}_max_abs_err"] = assert_close(
+            eng.matvec(z), zref, f"k = 1 {mode} matvec")
+    out["k1_n_states"] = nc
+    return out
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -467,7 +552,8 @@ def split_phase(device, eng):
         "kernel_share_of_bound": max(t_bytes, t_ops) / kernel_ms,
         "plan_max_abs_err": err,
         "max_memory_allocated": int(torch.cuda.max_memory_allocated(device)),
-        "profile": profile_apply(eng, xh),
+        "profile": profile_apply(
+            lambda: eng._apply(xh, eng._stream_chunks())),
     }
     # the send buffer has no fill of its own: nothing in the apply fills a
     # [n_recv + 1] tensor once per chunk
@@ -478,8 +564,8 @@ def split_phase(device, eng):
     return timing
 
 
-def profile_apply(eng, xh, top=8):
-    """Device time of one streamed apply by kernel (and host → device
+def profile_apply(fn, top=8):
+    """Device time of one apply ``fn()`` by kernel (and host → device
     copy), from ``torch.profiler``: the ``top`` largest as
     ``[name, ms, calls]``, the sum over all of them, every fill kernel's
     row, and every ``aten::fill_``/``aten::zero_`` call grouped by the
@@ -490,7 +576,7 @@ def profile_apply(eng, xh, top=8):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        eng._apply(xh, eng._stream_chunks())
+        fn()
         torch.cuda.synchronize()
     rows, fills = [], []
     for e in prof.key_averages():
@@ -542,6 +628,204 @@ def cross_sector_phase(device, e0_full, n=32):
             "e0": e0, "e0_minus_full": e0 - e0_full}
 
 
+# -- local_full and local_complex ---------------------------------------------
+
+def plain_work(eng, ms, applies_per_solve):
+    """Bytes one ell or compact apply must move (each table entry, x, y and
+    the diagonal once; compact also gathers the norms and reads 1/n) and
+    the byte and operation bounds beside the measured device time."""
+    n, n_pad = eng.n_states, eng.n_padded
+    T0, S, Tmax = eng.ell_split
+    vb = 8 if eng.real else 16
+    entry_b = 4 if eng.mode == "compact" else 4 + vb
+    entries = n_pad * T0 + S * (Tmax - T0)
+    # the tables, the tail rows, x read, y written, the diagonal
+    nbytes = entries * entry_b + 4 * S + 2 * n * vb + 8 * n
+    if eng.mode == "compact":
+        nbytes += 2 * n * 8              # the norms gathered, 1/n read
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # a multiply and an add per entry: 2 flops real, 8 complex
+    t_ops = entries * (2 if eng.real else 8) / FP64_FLOP_PER_S * 1e3
+    return {"mode": eng.mode, "dtype": "f64" if eng.real else "c128",
+            "T0": T0, "S": S, "Tmax": Tmax, "n_padded": n_pad,
+            "entries": entries, "bytes": nbytes, "ms": ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": max(t_bytes, t_ops) / ms,
+            "applies_per_solve": applies_per_solve}
+
+
+def timed_build(device, make):
+    """``make()`` with its seconds and the peak device memory it added."""
+    import torch
+
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    eng = make()
+    _sync(device)
+    return eng, {"build_s": time.perf_counter() - t0,
+                 "build_peak_bytes":
+                     torch.cuda.max_memory_allocated(device) - base,
+                 "ell_split": eng.ell_split, "ell_nbytes": eng.ell_nbytes,
+                 "low_memory_build": eng.low_memory_build}
+
+
+def apply_times(device, eng, x, applies=7):
+    walls = []
+    for _ in range(applies):
+        _sync(device)
+        t0 = time.perf_counter()
+        eng.matvec(x)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"apply_ms_host": walls,
+            "apply_ms_host_median": statistics.median(walls),
+            "apply_ms_device": device_ms(device, lambda: eng.matvec(x),
+                                         reps=applies)}
+
+
+def local_full_phase(device, streamed, e0_full):
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import LocalEngine, lanczos
+
+    op = streamed.operator
+    n = op.basis.number_states
+    T = streamed.num_terms
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(n)).to(
+        device)
+    y_streamed = streamed.matvec_global(x.cpu().numpy())
+
+    eng, ell = timed_build(device, lambda: LocalEngine(op, device=device))
+    if eng.low_memory_build:
+        raise AssertionError("chain_32_symm took the low-memory build")
+    ell["full_width_bytes"] = eng.n_padded * T * 12
+    ell["reckoned_peak_bytes"] = 1.6 * ell["full_width_bytes"]
+    y = eng.matvec(x)
+    ell["vs_streamed_max_abs_err"] = assert_close(y, y_streamed,
+                                                  "ell vs streamed apply")
+    ell.update(apply_times(device, eng, x))
+    ell["profile"] = profile_apply(lambda: eng.matvec(x))
+    t0 = time.perf_counter()
+    res = lanczos(eng.matvec, n, k=1, tol=1e-10, device=device)
+    _sync(device)
+    e0 = float(res.eigenvalues[0])
+    ell.update(lanczos_s=time.perf_counter() - t0,
+               lanczos_iters=int(res.num_iters), e0=e0,
+               e0_minus_streamed=e0 - e0_full)
+    if not (res.converged and abs(e0 - CHAIN32_E0) <= 1e-8 * abs(CHAIN32_E0)
+            and abs(e0 - e0_full) < 1e-10):
+        raise AssertionError(f"ell E0 {e0}: recorded {CHAIN32_E0}, "
+                             f"streamed {e0_full}")
+    work = [plain_work(eng, ell["apply_ms_device"], int(res.num_iters))]
+
+    # the low-memory build, forced by a budget of the full-width tables'
+    # size (below their 1.6× reckoning): the same tables
+    budget = ell["full_width_bytes"] / 1e9
+    lm, lowmem = timed_build(device, lambda: LocalEngine(
+        op, build_budget_gb=budget, device=device))
+    if not lm.low_memory_build:
+        raise AssertionError(f"a {budget} GB budget did not force the "
+                             "low-memory build")
+    lowmem["build_budget_gb"] = budget
+    a, b = eng.structure_arrays(), lm.structure_arrays()
+    if sorted(a) != sorted(b) or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("low-memory ELL tables differ from one-pass")
+    lowmem["equal_to_one_pass"] = sorted(a)
+    del lm, a, b
+
+    cmp, compact = timed_build(device, lambda: LocalEngine(
+        op, mode="compact", device=device))
+    compact["vs_ell_max_abs_err"] = assert_close(cmp.matvec(x), y,
+                                                 "compact vs ell apply")
+    compact.update(apply_times(device, cmp, x))
+    t0 = time.perf_counter()
+    res = lanczos(cmp.matvec, n, k=1, tol=1e-10, device=device)
+    _sync(device)
+    e0c = float(res.eigenvalues[0])
+    compact.update(lanczos_s=time.perf_counter() - t0,
+                   lanczos_iters=int(res.num_iters), e0=e0c,
+                   e0_minus_streamed=e0c - e0_full)
+    if not (res.converged and abs(e0c - e0_full) < 1e-10
+            and abs(e0c - CHAIN32_E0) <= 1e-8 * abs(CHAIN32_E0)):
+        raise AssertionError(f"compact E0 {e0c} != streamed {e0_full}")
+    work.append(plain_work(cmp, compact["apply_ms_device"],
+                           int(res.num_iters)))
+    del cmp
+
+    fused = LocalEngine(op, mode="fused", device=device)
+    t0 = time.perf_counter()
+    yf = fused.matvec(x)                 # checks the out-of-basis count
+    _sync(device)
+    fused_info = {"vs_ell_max_abs_err": assert_close(yf, y,
+                                                     "fused vs ell apply"),
+                  "first_apply_s": time.perf_counter() - t0}
+    fused_info.update(apply_times(device, fused, x, applies=1))
+    return {"n_states": n, "ell": ell, "lowmem": lowmem, "compact": compact,
+            "fused": fused_info, "plain_work": work}
+
+
+def local_complex_phase(device, e0_full, n=32):
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import LocalEngine, lanczos
+    from distributed_matvec_tpu_torch.models.basis import SpinBasis
+    from distributed_matvec_tpu_torch.models.lattices import (
+        chain_edges, heisenberg_from_edges)
+
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    basis = SpinBasis(n, n // 2, None, [([(i + 1) % n for i in range(n)], 1)])
+    t0 = time.perf_counter()
+    basis.build()
+    enum_s = time.perf_counter() - t0
+    op = heisenberg_from_edges(basis, chain_edges(n))
+    N = basis.number_states
+    eng, ell = timed_build(device, lambda: LocalEngine(op, device=device))
+    if eng.real or not eng.low_memory_build:
+        raise AssertionError(f"k = 1: real {eng.real}, low-memory build "
+                             f"{eng.low_memory_build}")
+    ell["full_width_bytes"] = eng.n_padded * eng.num_terms * 20
+    ell["reckoned_peak_bytes"] = 1.6 * ell["full_width_bytes"]
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(N)
+                         + 1j * rng.standard_normal(N)).to(device)
+    y = eng.matvec(x)
+    ell["apply_ms_device"] = device_ms(device, lambda: eng.matvec(x), reps=3)
+
+    fused = LocalEngine(op, mode="fused", device=device)
+    t0 = time.perf_counter()
+    yf = fused.matvec(x)
+    _sync(device)
+    fused_info = {"vs_ell_max_abs_err": assert_close(yf, y,
+                                                     "fused vs ell apply"),
+                  "first_apply_s": time.perf_counter() - t0}
+    del fused, yf, y
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = lanczos(eng.matvec, N, k=1, tol=1e-10, device=device)
+    _sync(device)
+    e0 = float(res.eigenvalues[0])
+    resid = float(res.residual_norms[0])
+    if not (res.converged and resid < 1e-10 * max(1.0, abs(e0))
+            and e0 > e0_full):
+        raise AssertionError(f"k = 1 E0 {e0} (residual {resid}, converged "
+                             f"{res.converged}) not above k = 0 {e0_full}")
+    return {"n_states": N, "enumeration_s": enum_s, "ell": ell,
+            "fused": fused_info, "lanczos_s": time.perf_counter() - t0,
+            "lanczos_iters": int(res.num_iters), "e0": e0,
+            "residual": resid, "e0_minus_k0": e0 - e0_full,
+            # the default basis cap of 96 vectors, plus one, in c128
+            "krylov_bytes": 97 * N * 16,
+            "solve_peak_bytes": torch.cuda.max_memory_allocated(device),
+            "plain_work": plain_work(eng, ell["apply_ms_device"],
+                                     int(res.num_iters))}
+
+
 def main() -> int:
     try:
         import torch
@@ -564,11 +848,15 @@ def main() -> int:
     run_phase("build", build_phase)
     _, synth_err = run_phase("kernel_check", kernel_check_phase, device)
     run_phase("small", small_phase, device)
+    run_phase("local_small", local_small_phase, device)
     full, eng, launches, chunk_err = run_phase("full", full_phase, device)
     split = run_phase("split", split_phase, device, eng)
+    run_phase("local_full", local_full_phase, device, eng, full["e0"])
     del eng
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
+    torch.cuda.empty_cache()
+    run_phase("local_complex", local_complex_phase, device, full["e0"])
     emit({"kernels": [{
         "name": "fused_decode_gather_scatter",
         "route": "cuda",

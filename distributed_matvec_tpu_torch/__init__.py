@@ -13,8 +13,10 @@ top:
   enumeration/  — representative enumeration, NumPy + C++ (copied)
   ops/          — tensor kernels (diag/off-diag apply, orbit scan, lookup),
                   the plan codec and its CUDA decode kernel (csrc/)
-  parallel/     — hashed layout, the streamed matvec engine
-  solve/        — thick-restart Lanczos
+  parallel/     — the single-device engine (ell, compact, fused), the
+                  hashed layout, the streamed matvec engine
+  solve/        — thick-restart Lanczos, real and complex Hermitian
+  entry.py      — one forward step of the flagship model
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no device given and no CUDA device present they
@@ -25,7 +27,8 @@ from . import models, utils  # noqa: F401
 from .models.basis import SpinBasis
 from .models.operator import Operator
 from .parallel.distributed import DistributedEngine
+from .parallel.engine import LocalEngine
 from .solve.lanczos import LanczosResult, lanczos
 
-__all__ = ["SpinBasis", "Operator", "DistributedEngine", "LanczosResult",
-           "lanczos"]
+__all__ = ["SpinBasis", "Operator", "LocalEngine", "DistributedEngine",
+           "LanczosResult", "lanczos"]

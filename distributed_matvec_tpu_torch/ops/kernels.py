@@ -31,7 +31,7 @@ from .bits import sign_from_parity
 
 __all__ = ["DiagKernelTables", "OffDiagKernelTables", "GroupTables",
            "OperatorTables", "device_tables", "apply_diag", "apply_off_diag",
-           "gather_coefficients", "state_info"]
+           "gather_coefficients", "mask_structure", "state_info"]
 
 # Zero-norm snap tolerance for the stabilizer character sum, shared with the
 # host enumeration (models.symmetry._CHAR_TOL): sectors whose character sum
@@ -55,7 +55,7 @@ class DiagKernelTables:
 @dataclass
 class OffDiagKernelTables:
     x: torch.Tensor  # [T] int64 flip mask per group
-    v: torch.Tensor  # [T, K] f64
+    v: torch.Tensor  # [T, K] f64, or c128 in a complex sector
     s: torch.Tensor  # [T, K] int64
     m: torch.Tensor  # [T, K] int64
     r: torch.Tensor  # [T, K] int64
@@ -72,7 +72,7 @@ class GroupTables:
     cosets: List[Network]
     c_xor: List[int]              # [J] int64 bits
     elem: np.ndarray              # [J, P] element index
-    char_conj: torch.Tensor       # [G] f64 — χ*(g), real sectors
+    char_conj: torch.Tensor       # [G] χ*(g): f64, or c128 in a complex sector
     char_real: List[float]        # [G] Re χ(g) for the stabilizer sums
 
 
@@ -91,10 +91,11 @@ def _network(ls, rs, ms) -> Network:
 
 
 def device_tables(op, device) -> OperatorTables:
-    """Compile an Operator of a real sector into kernel tables on
-    ``device``."""
-    if not op.effective_is_real:
-        raise NotImplementedError("complex sectors are not in the port yet")
+    """Compile an Operator into kernel tables on ``device``.  The
+    off-diagonal values and the group characters are f64 in a real sector
+    and complex128 otherwise (``not op.effective_is_real``)."""
+    real = op.effective_is_real
+    cdtype = torch.float64 if real else torch.complex128
     dt, ot = op.diag_table, op.off_diag_table
     if np.abs(dt.v.imag).max(initial=0.0) >= 1e-12:
         raise ValueError("non-real diagonal")
@@ -102,13 +103,16 @@ def device_tables(op, device) -> OperatorTables:
     def bits(a):
         return u64.from_numpy(a, device)
 
+    def values(a):
+        return torch.as_tensor(a.real if real else a, dtype=cdtype,
+                               device=device)
+
     diag = DiagKernelTables(
         v=torch.as_tensor(dt.v.real, dtype=torch.float64, device=device),
         s=bits(dt.s), m=bits(dt.m), r=bits(dt.r))
     off = OffDiagKernelTables(
-        x=bits(ot.x),
-        v=torch.as_tensor(ot.v.real, dtype=torch.float64, device=device),
-        s=bits(ot.s), m=bits(ot.m), r=bits(ot.r))
+        x=bits(ot.x), v=values(ot.v), s=bits(ot.s), m=bits(ot.m),
+        r=bits(ot.r))
     group = None
     if op.basis.requires_projection:
         g = op.basis.group
@@ -118,8 +122,7 @@ def device_tables(op, device) -> OperatorTables:
             cosets=[_network(ls, rs, m) for ls, rs, m, _ in coset_nets],
             c_xor=[u64.as_signed(x) for _, _, _, x in coset_nets],
             elem=np.stack(elem_idx),
-            char_conj=torch.as_tensor(g.characters.real,
-                                      dtype=torch.float64, device=device),
+            char_conj=values(np.conj(g.characters)),
             char_real=[float(c) for c in g.characters.real],
         )
     return OperatorTables(diag=diag, off=off, group=group)
@@ -172,16 +175,32 @@ def gather_coefficients(t: OperatorTables, alphas: torch.Tensor,
                         norms_alpha: torch.Tensor):
     """Row-form neighbor structure of a Hermitian operator: the canonical
     target states and the row matrix elements
-    ``A[α, rep(β)] = conj(⟨β|H|α⟩·χ*(g))·n(β)/n(α)`` — real here, so the
-    conjugation is the identity.  [B] → ([B, T] int64, [B, T] f64); zero
-    amplitude marks "no matrix element"."""
-    betas, amps = apply_off_diag(t.off, alphas)
+    ``A[α, rep(β)] = conj(⟨β|H|α⟩·χ*(g))·n(β)/n(α)``.  [B] → ([B, T]
+    int64, [B, T] f64 or c128); zero amplitude marks "no matrix
+    element"."""
+    betas, amps = apply_off_diag(t.off, alphas)  # amps = ⟨β|H|α⟩
     if t.group is not None:
         rep_b, char_conj_b, norm_b = state_info(t.group, betas)
         ratio = norm_b / norms_alpha[:, None]
-        amps = (amps * char_conj_b) * ratio
+        amps = torch.conj_physical(amps * char_conj_b) * ratio
         betas = rep_b
+    else:
+        amps = torch.conj_physical(amps)
     return betas, amps
+
+
+def mask_structure(coeff: torch.Tensor, idx: torch.Tensor,
+                   found: torch.Tensor, valid_row: torch.Tensor):
+    """Zero out absent or padded entries and count out-of-basis targets.
+
+    ``valid_row`` marks the non-SENTINEL rows ([B] bool).  An entry with a
+    *structurally* nonzero coefficient (``coeff != 0``, not amplitude·x)
+    whose target is not in the basis counts as ``invalid``, so a first-call
+    check holds for every later x.  Returns (idx, coeff, invalid)."""
+    nz = (coeff != 0) & valid_row[:, None]
+    invalid = torch.sum(nz & ~found)
+    nz &= found
+    return idx.masked_fill(~nz, 0), coeff.masked_fill(~nz, 0), invalid
 
 
 def state_info(g: GroupTables, states: torch.Tensor):

@@ -13,8 +13,11 @@ arrowhead-plus-tridiagonal.
 
 Vectors are whatever ``matvec`` takes and returns (``[1, M]`` hashed for the
 streamed engine); padded slots are zero by engine invariant, so the dots
-are exact.  Checkpointing, the watchdog, tracing and the selective
-reorthogonalization policy of the JAX solver are not in the port.
+are exact.  They are float64, or complex128 for a complex-Hermitian
+operator: Gram-Schmidt and the norms then use conjugated inner products,
+and the projected matrix stays real symmetric.  Checkpointing, the
+watchdog, tracing and the selective reorthogonalization policy of the JAX
+solver are not in the port.
 """
 
 from __future__ import annotations
@@ -60,12 +63,27 @@ def _projected_matrix(alph, bet, lock_theta, lock_sigma, m):
     return T
 
 
+def _rand_like(shape, dtype, seed):
+    """The JAX solver's start vector: a real normal draw, plus ``1j·`` a
+    second draw for a complex dtype."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(shape)
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        v = v + 1j * rng.standard_normal(shape)
+    return v.astype(dtype)
+
+
+def _re_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re ⟨a, b⟩ (``a`` conjugated)."""
+    return torch.vdot(a, b).real if a.is_complex() else torch.dot(a, b)
+
+
 def _mgs_pass(w: torch.Tensor, V: torch.Tensor, m: int) -> torch.Tensor:
     """One blocked modified Gram-Schmidt pass of ``w`` against rows
     ``V[0..m]``."""
     for r0 in range(0, m + 1, _GS_BLOCK):
         Vb = V[r0:min(r0 + _GS_BLOCK, m + 1)]
-        w = w - (Vb @ w) @ Vb
+        w = w - (Vb.conj() @ w) @ Vb
     return w
 
 
@@ -75,7 +93,7 @@ def _run_steps(mv, V, alph, bet, m0: int, nsteps: int) -> None:
     for m in range(m0, m0 + nsteps):
         vm = V[m]
         w = mv(vm)
-        a = torch.dot(vm, w)
+        a = _re_dot(vm, w)
         for _ in range(2):
             w = _mgs_pass(w, V, m)
         b = torch.linalg.vector_norm(w)
@@ -97,30 +115,46 @@ def lanczos(
     min_restart_size: Optional[int] = None,
     check_every: int = 16,
     device=None,
+    dtype: Optional[torch.dtype] = None,
 ) -> LanczosResult:
-    """Lowest-``k`` eigenpairs of the real symmetric operator behind
-    ``matvec``.
+    """Lowest-``k`` eigenpairs of the Hermitian operator behind ``matvec``.
 
     ``v0`` (or ``n`` + ``seed``) fixes the start vector; convergence is the
     residual bound ``|β_m s_m,i| < tol·max(1,|θ_i|)`` for the k lowest Ritz
     pairs.  ``max_basis_size``/``min_restart_size`` bound the device
     memory at ``max_basis_size+1`` vectors via thick restarts.  ``device``
     defaults to ``cuda`` and raises when there is none.
+
+    The vectors are ``dtype`` (``torch.float64`` or ``torch.complex128``);
+    by default complex128 when ``v0`` is complex or the engine behind
+    ``matvec`` has a complex sector (``real`` False), else float64.
     """
     device = resolve_device(device)
+    if dtype is None:
+        complex_v0 = v0 is not None and (
+            v0.is_complex() if isinstance(v0, torch.Tensor)
+            else np.iscomplexobj(v0))
+        engine_real = getattr(getattr(matvec, "__self__", None), "real",
+                              True)
+        dtype = torch.complex128 if complex_v0 or engine_real is False \
+            else torch.float64
+    if dtype not in (torch.float64, torch.complex128):
+        raise ValueError(f"dtype {dtype}: the solver runs in float64 or "
+                         "complex128")
     if v0 is None:
         if n is None:
             raise ValueError("pass v0 or n")
-        v0 = np.random.default_rng(seed).standard_normal(n)
-    v = torch.as_tensor(v0, dtype=torch.float64).to(device)
+        v0 = _rand_like(n, np.complex128 if dtype.is_complex
+                        else np.float64, seed)
+    v = torch.as_tensor(v0).to(device, dtype)
     shape = v.shape
     nflat = v.numel()
 
     def mv(x):
         y = matvec(x.reshape(shape))
-        if y.dtype != torch.float64:
-            raise ValueError(f"matvec returned {y.dtype}; the solver is "
-                             "real float64")
+        if y.dtype != dtype:
+            raise ValueError(f"matvec returned {y.dtype}; the solver runs "
+                             f"in {dtype}")
         return y.reshape(nflat)
 
     mcap = max_basis_size or min(max(4 * k + 16, 96), max_iters + 1)
@@ -128,7 +162,7 @@ def lanczos(
     l_restart = min_restart_size or max(2 * k + 2, min(mcap // 3, 24))
     l_restart = int(np.clip(l_restart, k, mcap - 2))
 
-    V = torch.zeros((mcap + 1, nflat), dtype=torch.float64, device=device)
+    V = torch.zeros((mcap + 1, nflat), dtype=dtype, device=device)
     V[0] = v.reshape(nflat) / torch.linalg.vector_norm(v)
     alph_d = torch.zeros(mcap, dtype=torch.float64, device=device)
     bet_d = torch.zeros(mcap, dtype=torch.float64, device=device)
@@ -150,7 +184,7 @@ def lanczos(
             l = l_restart
             theta_all, S_all = eigh(T)
             S_l = torch.from_numpy(np.ascontiguousarray(S_all[:, :l])).to(
-                device)
+                device, dtype)
             Y = S_l.T @ V[:mcap]
             v_last = V[mcap].clone()
             V[:l] = Y
@@ -189,7 +223,8 @@ def lanczos(
     kk = min(k, m)
     evecs = None
     if compute_eigenvectors and m:
-        Sj = torch.from_numpy(np.ascontiguousarray(S[:, :kk])).to(device)
+        Sj = torch.from_numpy(np.ascontiguousarray(S[:, :kk])).to(
+            device, dtype)
         E = Sj.T @ V[:m]
         evecs = [(e / torch.linalg.vector_norm(e)).reshape(shape) for e in E]
     return LanczosResult(

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA decode kernel against its plain version,
-and the streamed engine on the card against the same engine on the CPU.
+and the streamed engine and ``LocalEngine`` on the card against the same
+engines on the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device.  Run them on a
 machine with one as ``python -m pytest --noconftest tests/test_torch_cuda.py``
@@ -8,7 +9,9 @@ machine with one as ``python -m pytest --noconftest tests/test_torch_cuda.py``
 Tolerances: the kernel is held to its plain version bit for bit
 (``torch.equal``: one product per entry, plain stores); the engine's matvec
 to the CPU engine at atol 1e-13 / rtol 1e-12, because the card's
-``index_add_`` sums with atomics in a run-dependent order.  The synthetic
+``index_add_`` sums with atomics in a run-dependent order; ``LocalEngine``
+at the same tolerance, its integer tables bit for bit and its
+coefficients within 1e-15.  The synthetic
 chunks are ``chip_smoke.py``'s.
 """
 
@@ -19,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_matvec_tpu_torch import DistributedEngine, lanczos
-from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
+from distributed_matvec_tpu_torch import (DistributedEngine, LocalEngine,
+                                          SpinBasis, lanczos)
+from distributed_matvec_tpu_torch.models.lattices import (
+    chain_edges, heisenberg_chain, heisenberg_from_edges)
 from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -92,3 +97,56 @@ def test_engine_on_card_matches_cpu(cuda):
     assert PC.fused_decode_gather_scatter.launches - before == e_gpu.nchunks
     res = lanczos(e_gpu.matvec, v0=e_gpu.random_hashed(0), k=1, device=cuda)
     assert abs(res.eigenvalues[0] / 4 - -7.1422963606) < 1e-9
+
+
+def _k1_ring(n=12):
+    basis = SpinBasis(n, n // 2, None, [([*range(1, n), 0], 1)])
+    op = heisenberg_from_edges(basis, chain_edges(n))
+    basis.build()
+    return op
+
+
+@pytest.mark.parametrize("case,mode", [
+    ("chain_16_symm", "ell"), ("chain_16_symm", "compact"),
+    ("chain_16_symm", "fused"), ("chain_12_k1", "ell"),
+    ("chain_12_k1", "fused")])
+def test_local_engine_on_card_matches_cpu(cuda, case, mode):
+    op = heisenberg_chain(16, symmetric=True) if case == "chain_16_symm" \
+        else _k1_ring()
+    e_gpu = LocalEngine(op, batch_size=61, mode=mode, device=cuda)
+    e_cpu = LocalEngine(op, batch_size=61, mode=mode, device="cpu")
+    assert e_gpu.ell_split == e_cpu.ell_split
+    want = e_cpu.structure_arrays()
+    for k, got in e_gpu.structure_arrays().items():
+        if got.dtype.is_floating_point or got.dtype.is_complex:
+            torch.testing.assert_close(got.cpu(), want[k], rtol=0,
+                                       atol=1e-15)
+        else:
+            assert torch.equal(got.cpu(), want[k]), k
+    n = op.basis.number_states
+    rng = np.random.default_rng(2)
+    for shape in ((n,), (n, 3)):
+        x = rng.random(shape) - 0.5
+        if not e_gpu.real:
+            x = x + 1j * (rng.random(shape) - 0.5)
+        y = e_gpu.matvec(x)
+        assert y.device == cuda
+        np.testing.assert_allclose(y.cpu().numpy(),
+                                   e_cpu.matvec(x).numpy(),
+                                   atol=1e-13, rtol=1e-12)
+
+
+def test_local_lanczos_on_card(cuda):
+    op = _k1_ring()
+    eng = LocalEngine(op, device=cuda)
+    got = lanczos(eng.matvec, eng.n_states, k=2, compute_eigenvectors=True,
+                  device=cuda)
+    want = lanczos(LocalEngine(op, device="cpu").matvec, eng.n_states, k=2,
+                   device="cpu")
+    assert got.converged
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=0,
+                               atol=1e-10)
+    for lam, v in zip(got.eigenvalues, got.eigenvectors):
+        assert v.dtype == torch.complex128 and v.device == cuda
+        assert float(torch.linalg.vector_norm(eng.matvec(v) - lam * v)) \
+            < 1e-8
