@@ -43,15 +43,32 @@ Phases, one JSON line each with its seconds:
    one-pass tables; ``compact`` mode built, timed and solved to the same
    E0; one ``fused`` apply against the ell apply, timed.  ``plain_work``
    holds each apply's bytes and byte bound at 3.35 TB/s.
-7. ``cross_sector``: the same ring in the translation-only k = 0 sector
+7. ``solvers``: the eager solver family on the same chain_32_symm
+   operator at full width, over ``local_full``'s ell engine:
+   ``lanczos_block(k=4, block_size=4)`` against ``lanczos(k=4)`` (1e-9)
+   and the full leg's E0 (1e-10); ``lanczos`` with ``reorth="selective"``
+   against ``"full"`` (E0 within 1e-10); ``lobpcg(k=4)`` (E0 within 1e-8
+   relative); ``kpm_moments`` (256 moments, 4 vectors: the bracket holds
+   E0, the Jackson DOS integrates to 1 ± 0.02), then the same block and
+   bounds at 128 moments through the streamed engine's ``[1, M, 4]``
+   apply (moments within 1e-10 of the ell ones; the decode kernel
+   launched 4 times per plan chunk per apply, counted from 0 around this
+   run); ``krylov_evolve`` of the ground state to t = 1 (``e^{−iE0 t}ψ0``
+   within 1e-9, norm drift below 1e-10); ``expectations([H])`` (E0
+   within 1e-9).  Each solver's seconds, applies and the time inside
+   them, ms per apply per column at R = 1 and R = 4 on both engines, and
+   a ``torch.profiler`` breakdown of the ell R = 4 apply.
+8. ``cross_sector``: the same ring in the translation-only k = 0 sector
    (18 784 170 states: no reflection, no spin inversion, so other orbits,
    norms and plan) must give the same E0 as the full leg to 1e-9.
-8. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
+9. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
    complex Hermitian (about 18.8 M states): the ``ell`` build takes the
    low-memory path by itself (1.6× the full-width complex tables passes
    the 12 GB default budget), one ``fused`` apply against the ell apply,
-   and complex128 Lanczos to a converged E0(k=1) strictly above the full
-   leg's E0(k=0), with the peak memory.
+   complex128 Lanczos to a converged E0(k=1) strictly above the full
+   leg's E0(k=0), with the peak memory, and a native-complex
+   ``krylov_evolve`` of a random state to t = 0.25 (norm drift below
+   1e-10).
 
 ``local_small`` runs after ``small``: chain_16_symm through ``LocalEngine``
 in ``ell``, ``compact`` and ``fused`` mode at ``batch_size=61`` (chunking
@@ -60,9 +77,10 @@ and padding engage), matvec rank-1 and ``[N, 3]`` against ``matvec_host``
 k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
-Then the kernels line ``{"kernels": [...]}`` (launches on the main path,
-largest error against the plain version, time per launch beside its bound
-and the plain version's time), the card's name and power limit as
+Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
+of ``full`` and ``solvers``, largest error against the plain version, time
+per launch beside its bound and the plain version's time), the card's
+name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 device; without one it exits with code 2 and prints no result.
@@ -77,6 +95,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -765,14 +784,170 @@ def local_full_phase(device, streamed, e0_full):
                   "first_apply_s": time.perf_counter() - t0}
     fused_info.update(apply_times(device, fused, x, applies=1))
     return {"n_states": n, "ell": ell, "lowmem": lowmem, "compact": compact,
-            "fused": fused_info, "plain_work": work}
+            "fused": fused_info, "plain_work": work}, eng
+
+
+def solve_timed(device, eng, fn):
+    """``fn(eng.matvec)`` with its seconds, applies, the seconds inside the
+    applies, and the share outside them (the solver's own algebra).  For
+    the run, ``eng.matvec`` is a bound wrapper that synchronizes around
+    each apply and times it; the solvers still see the engine behind it as
+    ``matvec.__self__``."""
+    acc = {"apply_s": 0.0, "applies": 0}
+
+    def matvec(self, x, *args, **kwargs):
+        _sync(device)
+        t0 = time.perf_counter()
+        y = type(self).matvec(self, x, *args, **kwargs)
+        _sync(device)
+        acc["apply_s"] += time.perf_counter() - t0
+        acc["applies"] += 1
+        return y
+
+    eng.matvec = types.MethodType(matvec, eng)
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        res = fn(eng.matvec)
+        _sync(device)
+        sec = time.perf_counter() - t0
+    finally:
+        del eng.matvec
+    return res, {"seconds": sec, "applies": acc["applies"],
+                 "apply_seconds": acc["apply_s"],
+                 "seconds_per_apply": sec / max(acc["applies"], 1),
+                 "share_outside_applies": 1.0 - acc["apply_s"] / sec}
+
+
+def solvers_phase(device, streamed, eng, e0_full):
+    """The eager solvers over ``LocalEngine`` ell at chain_32_symm, and KPM
+    through the streamed engine's multi-column apply; see the module
+    docstring for the checks."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import (
+        kpm_moments, krylov_evolve, lanczos, lanczos_block, lobpcg,
+        reconstruct_dos)
+    from distributed_matvec_tpu_torch.models.observables import expectations
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    n = eng.n_states
+    out = {"n_states": n}
+
+    rk, out["lanczos_k4"] = solve_timed(device, eng, lambda mv: lanczos(
+        mv, n, k=4, tol=1e-10, device=device))
+    rb, out["lanczos_block"] = solve_timed(device, eng, lambda mv:
+                                           lanczos_block(
+        mv, n, k=4, block_size=4, max_iters=800, tol=1e-10, device=device))
+    dk = float(np.abs(rb.eigenvalues - rk.eigenvalues).max())
+    out["lanczos_block"].update(
+        eigenvalues=rb.eigenvalues.tolist(), columns=rb.num_iters,
+        max_abs_diff_vs_lanczos_k4=dk,
+        e0_minus_full=float(rb.eigenvalues[0]) - e0_full)
+    out["lanczos_k4"].update(eigenvalues=rk.eigenvalues.tolist(),
+                             iters=rk.num_iters)
+    if not (rb.converged and rk.converged and dk < 1e-9
+            and abs(rb.eigenvalues[0] - e0_full) < 1e-10):
+        raise AssertionError(f"lanczos_block {rb.eigenvalues} vs lanczos "
+                             f"{rk.eigenvalues}, full leg E0 {e0_full}")
+
+    rs, out["lanczos_selective"] = solve_timed(
+        device, eng, lambda mv: lanczos(mv, n, k=1, tol=1e-12,
+                                        reorth="selective", device=device))
+    rf, out["lanczos_full"] = solve_timed(
+        device, eng, lambda mv: lanczos(mv, n, k=1, tol=1e-12, reorth="full",
+                                        compute_eigenvectors=True,
+                                        device=device))
+    e0 = float(rf.eigenvalues[0])
+    for name, r in (("lanczos_selective", rs), ("lanczos_full", rf)):
+        out[name].update(e0=float(r.eigenvalues[0]), iters=r.num_iters,
+                         full_sweeps=r.full_sweeps)
+    if not (rs.converged and rf.converged
+            and abs(float(rs.eigenvalues[0]) - e0) < 1e-10):
+        raise AssertionError(f"selective E0 {rs.eigenvalues} != full {e0}")
+
+    (ev, _, it), out["lobpcg"] = solve_timed(device, eng, lambda mv: lobpcg(
+        mv, n, k=4, tol=1e-15, max_iters=400, device=device))
+    out["lobpcg"].update(eigenvalues=ev.tolist(), iters=it,
+                         e0_rel_diff=abs(ev[0] - e0) / abs(e0))
+    if not abs(ev[0] - e0) < 1e-8 * abs(e0):
+        raise AssertionError(f"lobpcg E0 {ev[0]} != lanczos {e0}")
+
+    # KPM: one seeded block of 4 normalized columns, in block order
+    V0 = np.random.default_rng(0).standard_normal((n, 4))
+    V0 /= np.linalg.norm(V0, axis=0, keepdims=True)
+    km, out["kpm_ell"] = solve_timed(device, eng, lambda mv: kpm_moments(
+        mv, 256, V0=torch.from_numpy(V0).to(device)))
+    energies, rho = reconstruct_dos(km.moments, km.scale)
+    mass = float(np.trapezoid(rho, energies))
+    out["kpm_ell"].update(bounds=list(km.bounds), dos_mass=mass,
+                          moments=256, vectors=4)
+    if not (km.bounds[0] < e0 < km.bounds[1] and abs(mass - 1.0) < 0.02):
+        raise AssertionError(f"KPM bracket {km.bounds} (E0 {e0}), DOS "
+                             f"mass {mass}")
+
+    # ms per apply per column, R = 1 and R = 4, both engines (outside the
+    # counted run below)
+    x4 = torch.from_numpy(V0).to(device)
+    xh4 = streamed.to_hashed(V0)
+    per_col = {}
+    for name, e, x1, xr, reps in (
+            ("ell", eng, x4[:, 0].contiguous(), x4, 5),
+            ("streamed", streamed, xh4[..., 0].contiguous(), xh4, 3)):
+        ms1 = device_ms(device, lambda: e.matvec(x1), reps=reps)
+        ms4 = device_ms(device, lambda: e.matvec(xr), reps=reps)
+        per_col[name] = {"r1_ms": ms1, "r4_ms": ms4,
+                         "r4_ms_per_column": ms4 / 4,
+                         "r4_over_r1_per_column": ms4 / 4 / ms1}
+    per_col["ell"]["r4_profile"] = profile_apply(lambda: eng.matvec(x4))
+    out["ms_per_apply"] = per_col
+
+    # the streamed [1, M, 4] path, launch counts set to 0 just before it
+    PC.fused_decode_gather_scatter.launches = 0
+    streamed.n_applies = 0
+    ks, out["kpm_streamed"] = solve_timed(
+        device, streamed, lambda mv: kpm_moments(mv, 128, V0=xh4,
+                                                 bounds=km.bounds))
+    launches = PC.fused_decode_gather_scatter.launches
+    dmu = float(np.abs(ks.moments - km.moments[:128]).max())
+    out["kpm_streamed"].update(moments=128, vectors=4, launches=launches,
+                               max_abs_diff_vs_ell=dmu)
+    if not (dmu < 1e-10 and streamed.n_applies == 64
+            and launches == streamed.nchunks * 4 * streamed.n_applies):
+        raise AssertionError(
+            f"streamed moments differ by {dmu}, or {launches} launches for "
+            f"{streamed.n_applies} applies of {streamed.nchunks} chunks")
+
+    psi0 = rf.eigenvectors[0]
+    evo, out["krylov_evolve"] = solve_timed(device, eng, lambda mv:
+                                            krylov_evolve(
+        mv, psi0=psi0, t_final=1.0, device=device))
+    want = np.exp(-1j * e0) * psi0.to(torch.complex128)
+    err = float(torch.linalg.vector_norm(evo.psi - want))
+    out["krylov_evolve"].update(steps=evo.num_steps, norm_drift=evo.norm_drift,
+                                energy_drift=evo.energy_drift,
+                                err_vs_phase=err)
+    if not (err < 1e-9 and evo.norm_drift < 1e-10
+            and abs(evo.times[-1] - 1.0) < 1e-12):
+        raise AssertionError(f"evolved ground state off by {err}, norm "
+                             f"drift {evo.norm_drift}")
+
+    t0 = time.perf_counter()
+    [(_, val)] = expectations([eng.operator], eng, psi0)
+    out["expectations"] = {"seconds": time.perf_counter() - t0,
+                           "value": val, "minus_e0": val - e0}
+    if not abs(val - e0) < 1e-9:
+        raise AssertionError(f"<H> {val} != E0 {e0}")
+    return out, launches
 
 
 def local_complex_phase(device, e0_full, n=32):
     import numpy as np
     import torch
 
-    from distributed_matvec_tpu_torch import LocalEngine, lanczos
+    from distributed_matvec_tpu_torch import (LocalEngine, krylov_evolve,
+                                              lanczos)
     from distributed_matvec_tpu_torch.models.basis import SpinBasis
     from distributed_matvec_tpu_torch.models.lattices import (
         chain_edges, heisenberg_from_edges)
@@ -811,19 +986,30 @@ def local_complex_phase(device, e0_full, n=32):
     _sync(device)
     e0 = float(res.eigenvalues[0])
     resid = float(res.residual_norms[0])
+    iters = int(res.num_iters)
     if not (res.converged and resid < 1e-10 * max(1.0, abs(e0))
             and e0 > e0_full):
         raise AssertionError(f"k = 1 E0 {e0} (residual {resid}, converged "
                              f"{res.converged}) not above k = 0 {e0_full}")
-    return {"n_states": N, "enumeration_s": enum_s, "ell": ell,
+    info = {"n_states": N, "enumeration_s": enum_s, "ell": ell,
             "fused": fused_info, "lanczos_s": time.perf_counter() - t0,
-            "lanczos_iters": int(res.num_iters), "e0": e0,
+            "lanczos_iters": iters, "e0": e0,
             "residual": resid, "e0_minus_k0": e0 - e0_full,
             # the default basis cap of 96 vectors, plus one, in c128
             "krylov_bytes": 97 * N * 16,
             "solve_peak_bytes": torch.cuda.max_memory_allocated(device),
-            "plain_work": plain_work(eng, ell["apply_ms_device"],
-                                     int(res.num_iters))}
+            "plain_work": plain_work(eng, ell["apply_ms_device"], iters)}
+    del res
+    # native complex128 time evolution of a seeded random state
+    evo, info["krylov_evolve"] = solve_timed(device, eng, lambda mv:
+                                             krylov_evolve(
+        mv, n=N, t_final=0.25, seed=3, device=device))
+    info["krylov_evolve"].update(steps=evo.num_steps,
+                                 norm_drift=evo.norm_drift,
+                                 energy_drift=evo.energy_drift)
+    if not (evo.norm_drift < 1e-10 and abs(evo.times[-1] - 0.25) < 1e-12):
+        raise AssertionError(f"k = 1 evolve norm drift {evo.norm_drift}")
+    return info
 
 
 def main() -> int:
@@ -851,8 +1037,11 @@ def main() -> int:
     run_phase("local_small", local_small_phase, device)
     full, eng, launches, chunk_err = run_phase("full", full_phase, device)
     split = run_phase("split", split_phase, device, eng)
-    run_phase("local_full", local_full_phase, device, eng, full["e0"])
-    del eng
+    _, ell = run_phase("local_full", local_full_phase, device, eng,
+                       full["e0"])
+    _, solver_launches = run_phase("solvers", solvers_phase, device, eng,
+                                   ell, full["e0"])
+    del eng, ell
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
     torch.cuda.empty_cache()
@@ -862,7 +1051,7 @@ def main() -> int:
         "route": "cuda",
         "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
-        "launches": launches,
+        "launches": launches + solver_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"]),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],

@@ -9,13 +9,17 @@ top:
   utils/        — unsigned 64-bit arithmetic on int64 tensors, the device
                   choice, the native build directory
   models/       — expressions → nonbranching terms, symmetry groups, bases,
-                  operators, lattice constructors (copied)
+                  operators, lattice constructors (copied); bound
+                  observables (expectation values over an engine's basis)
   enumeration/  — representative enumeration, NumPy + C++ (copied)
   ops/          — tensor kernels (diag/off-diag apply, orbit scan, lookup),
                   the plan codec and its CUDA decode kernel (csrc/)
   parallel/     — the single-device engine (ell, compact, fused), the
-                  hashed layout, the streamed matvec engine
-  solve/        — thick-restart Lanczos, real and complex Hermitian
+                  hashed layout, the streamed matvec engine (single- and
+                  multi-column applies)
+  solve/        — thick-restart Lanczos (selective or full
+                  reorthogonalization) and block Lanczos, LOBPCG,
+                  KPM spectral densities, Krylov time evolution
   entry.py      — one forward step of the flagship model
 
 Entry points run on the CUDA device unless the caller passes
@@ -28,7 +32,15 @@ from .models.basis import SpinBasis
 from .models.operator import Operator
 from .parallel.distributed import DistributedEngine
 from .parallel.engine import LocalEngine
-from .solve.lanczos import LanczosResult, lanczos
+from .solve import (EvolveResult, KPMResult, LanczosResult,
+                    exact_moments, jackson_kernel, kpm_dos, kpm_moments,
+                    kpm_spectral_function, krylov_evolve, lanczos,
+                    lanczos_block, lobpcg, lorentz_kernel, reconstruct_dos,
+                    spectral_bounds)
 
 __all__ = ["SpinBasis", "Operator", "LocalEngine", "DistributedEngine",
-           "LanczosResult", "lanczos"]
+           "LanczosResult", "lanczos", "lanczos_block", "lobpcg",
+           "KPMResult", "spectral_bounds", "kpm_moments", "kpm_dos",
+           "kpm_spectral_function", "jackson_kernel", "lorentz_kernel",
+           "reconstruct_dos", "exact_moments", "EvolveResult",
+           "krylov_evolve"]

@@ -1,4 +1,5 @@
 """Models layer, copied from ``distributed_matvec_tpu/models`` (without the
-YAML loader)."""
+YAML loader), and the bound observables (``observables.py``)."""
 
-from . import basis, expression, lattices, operator, symmetry  # noqa: F401
+from . import (basis, expression, lattices, observables,  # noqa: F401
+               operator, symmetry)

@@ -17,11 +17,17 @@ the send buffer is the receive buffer.
 
 Vectors live in the *hashed* layout ``[D, M]`` (here ``[1, M]``, pad slots
 zero); :class:`~.shuffle.HashedLayout` converts to and from the sorted
-(*block*) order.
+(*block*) order.  A block of R columns is ``[1, M, R]``: the eager solvers
+(``lanczos_block``, LOBPCG, KPM, Krylov evolution) apply H to R vectors at
+once.  Each plan chunk is still streamed host → device once per apply; the
+decode kernel is launched once per column on that column's chunk rows, and
+the receive side adds the ``[n_recv, R]`` block with one ``index_add_``.
+(The JAX engine decodes a multi-column chunk through XLA ops, not its
+Pallas kernel, which covers the single-column stream only.)
 
-Scope: one device, a real sector, single-column vectors, the ``lossless``
-tier with dictionary-coded coefficients — the scope of the CUDA kernel.
-Anything else raises ``NotImplementedError``.
+Scope: one device, a real sector, the ``lossless`` tier with
+dictionary-coded coefficients — the scope of the CUDA kernel.  Anything
+else raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -109,7 +115,8 @@ class DistributedEngine:
         self.stream_compress = stream_compress
         #: seconds of each construction phase
         self.timings: Dict[str, float] = {}
-        #: matvec calls so far (each launches one decode kernel per chunk)
+        #: matvec calls so far (each launches one decode kernel per chunk
+        #: and column)
         self.n_applies = 0
 
         basis = operator.basis
@@ -350,14 +357,15 @@ class DistributedEngine:
     # -- apply -----------------------------------------------------------------
 
     def matvec(self, xh: torch.Tensor) -> torch.Tensor:
-        """y = H·x in the hashed layout ([1, M] f64 on the engine's
-        device)."""
+        """y = H·x in the hashed layout: ``[1, M]`` or a block of R columns
+        ``[1, M, R]``, float64 on the engine's device."""
         M = self.shard_size
-        if (xh.shape != (1, M) or xh.dtype != torch.float64
-                or xh.device != self.device):
+        if (xh.shape[:2] != (1, M) or xh.dim() not in (2, 3)
+                or xh.dtype != torch.float64 or xh.device != self.device):
             raise ValueError(
-                f"matvec takes a float64 [1, {M}] tensor on {self.device}, "
-                f"got {xh.dtype} {tuple(xh.shape)} on {xh.device}")
+                f"matvec takes a float64 [1, {M}] or [1, {M}, R] tensor on "
+                f"{self.device}, got {xh.dtype} {tuple(xh.shape)} on "
+                f"{xh.device}")
         y = self._apply(xh, self._stream_chunks())
         self.n_applies += 1
         return y
@@ -365,44 +373,63 @@ class DistributedEngine:
     def _apply(self, xh: torch.Tensor, chunks) -> torch.Tensor:
         """The apply over ``chunks``, an iterable of the plan's chunk views
         on the device in chunk order (:meth:`_stream_chunks` streams them
-        from host memory)."""
+        from host memory).  Columns are applied side by side: per chunk one
+        decode launch per column, then one ``index_add_`` of the block."""
         M, B = self.shard_size, self.batch_size
         spec = self._codec.spec
         n_recv, w_ridx = spec["n_recv"], spec["w_ridx"]
-        x = xh[0]
-        xp = torch.zeros(self.nchunks * B, dtype=torch.float64,
+        x = xh[0].reshape(M, -1)                       # [M, R]
+        R = x.shape[1]
+        # column-major copy: each column's chunk rows are contiguous, as
+        # the kernel takes them
+        xp = torch.zeros((R, self.nchunks * B), dtype=torch.float64,
                          device=self.device)
-        xp[:M] = x
-        y = torch.zeros(M, dtype=torch.float64, device=self.device)
+        xp[:, :M] = x.T
+        y = torch.zeros((M, R), dtype=torch.float64, device=self.device)
         for ci, (edest, codes, ridx_w, rok_w) in enumerate(chunks):
-            send = PC.fused_decode_gather_scatter(
+            sends = [PC.fused_decode_gather_scatter(
                 spec, edest, codes, rok_w, self._cdict,
-                xp[ci * B:(ci + 1) * B])
+                xp[r, ci * B:(ci + 1) * B]) for r in range(R)]
+            send = sends[0][:, None] if R == 1 else torch.stack(sends, 1)
             ridx = PC.unpack_bits(ridx_w, n_recv, w_ridx)
             rok = PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)
-            y.index_add_(0, ridx, torch.where(rok, send[:n_recv], 0.0))
-        return (y + self._diag * x)[None]
+            y.index_add_(0, ridx, torch.where(rok[:, None], send[:n_recv],
+                                              0.0))
+        return (y + self._diag[:, None] * x).reshape(xh.shape)
 
     # -- layouts ---------------------------------------------------------------
 
     def to_hashed(self, x) -> torch.Tensor:
-        """Block (global sorted) [N] → hashed [1, M] f64 on the device."""
+        """Block (global sorted) [N] or [N, R] → hashed [1, M] or
+        [1, M, R] f64 on the device."""
         xh = self.layout.to_hashed(np.asarray(x, dtype=np.float64), fill=0)
         return torch.from_numpy(xh).to(self.device)
 
     def from_hashed(self, xh: torch.Tensor) -> np.ndarray:
-        """Hashed [1, M] → block [N] NumPy."""
+        """Hashed [1, M] or [1, M, R] → block [N] or [N, R] NumPy."""
         return self.layout.from_hashed(xh.detach().cpu().numpy())
 
     def matvec_global(self, x) -> np.ndarray:
         """Block-layout in/out convenience: shuffle → matvec → unshuffle."""
         return self.from_hashed(self.matvec(self.to_hashed(x)))
 
-    def random_hashed(self, seed: int = 0) -> torch.Tensor:
-        """A normalized random vector in hashed layout (pads zero), seeded
-        per shard as the JAX engine seeds it (``SeedSequence((seed, d))``)."""
+    def random_hashed(self, seed: int = 0,
+                      cols: Optional[int] = None) -> torch.Tensor:
+        """A normalized random vector in hashed layout (pads zero) — or,
+        with ``cols``, a ``[1, M, cols]`` block of per-column-normalized
+        vectors — seeded per shard as the JAX engine seeds it
+        (``SeedSequence((seed, d))``, draws of shape ``(count, cols)``)."""
+        tail = (cols,) if cols else ()
+        c = int(self.counts[0])
         rng = np.random.default_rng(np.random.SeedSequence((seed, 0)))
-        x = np.zeros((1, self.shard_size))
-        x[0, : int(self.counts[0])] = rng.standard_normal(int(self.counts[0]))
+        x = np.zeros((1, self.shard_size) + tail)
+        x[0, :c] = rng.standard_normal((c,) + tail)
         xh = torch.from_numpy(x).to(self.device)
-        return xh / torch.linalg.vector_norm(xh)
+        if cols is None:
+            return xh / torch.linalg.vector_norm(xh)
+        return xh / torch.linalg.vector_norm(xh, dim=(0, 1), keepdim=True)
+
+    def dot(self, ah: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+        """⟨a, b⟩ over hashed vectors or blocks (``a`` conjugated; pad
+        slots are zero by invariant), as a 0-d tensor."""
+        return torch.vdot(ah.reshape(-1), bh.reshape(-1))

@@ -468,45 +468,45 @@ class LocalEngine:
 
     def _apply_ell(self, x: torch.Tensor) -> torch.Tensor:
         """``y = diag·x``, then term by term ``y += coeff[t]·x[idx[t]]``, then
-        the tail's rows (unique, so the add is deterministic)."""
+        the tail's rows (unique, so the add is deterministic).  The state
+        axis of ``x`` is its last: ``[N]`` or a batch ``[k, N]``."""
         n = self.n_states
         T0 = self.ell_split[0]
-        col = (slice(None),) + (None,) * (x.ndim - 1)
-        y = self._diag[:n].to(self._dtype)[col] * x
+        y = self._diag[:n].to(self._dtype) * x
         for t in range(T0):
-            g = torch.index_select(x, 0, self._ell_idx[t, :n])
-            y += self._ell_coeff[t, :n][col] * g
+            g = torch.index_select(x, -1, self._ell_idx[t, :n])
+            y += self._ell_coeff[t, :n] * g
         if self._ell_tail is not None:
             rows, idx_t, cf_t = self._ell_tail
-            acc = self._zeros(rows.shape + x.shape[1:], self._dtype)
+            acc = self._zeros(x.shape[:-1] + rows.shape, self._dtype)
             for t in range(idx_t.shape[0]):
-                acc += cf_t[t][col] * torch.index_select(x, 0, idx_t[t])
-            y[rows.long()] += acc
+                acc += cf_t[t] * torch.index_select(x, -1, idx_t[t])
+            y[..., rows.long()] += acc
         return y
 
-    def _compact_terms(self, acc, idxt, x, col):
+    def _compact_terms(self, acc, idxt, x):
         for t in range(idxt.shape[0]):
             v = idxt[t]
             i = (v.abs() - 1).clamp_(min=0)
             w = torch.sign(v).to(torch.float64) * torch.index_select(
                 self._norms, 0, i)
-            acc += w[col] * torch.index_select(x, 0, i)
+            acc += w * torch.index_select(x, -1, i)
         return acc
 
     def _apply_compact(self, x: torch.Tensor) -> torch.Tensor:
         """Sign-tagged gathers: ``acc = Σ_t s·n(j)·x(j)``, then
-        ``y = diag·x + W/n(i)·acc``, and the tail's rows alike."""
+        ``y = diag·x + W/n(i)·acc``, and the tail's rows alike.  The state
+        axis of ``x`` is its last, as in :meth:`_apply_ell`."""
         n, T0, W = self.n_states, self.ell_split[0], self._c_W
-        col = (slice(None),) + (None,) * (x.ndim - 1)
-        acc = self._zeros((self.n_padded,) + x.shape[1:], torch.float64)
-        acc = self._compact_terms(acc, self._c_idx[:T0], x, col)[:n]
-        y = self._diag[:n][col] * x + (W * self._c_inv_n[:n])[col] * acc
+        acc = self._zeros(x.shape[:-1] + (self.n_padded,), torch.float64)
+        acc = self._compact_terms(acc, self._c_idx[:T0], x)[..., :n]
+        y = self._diag[:n] * x + (W * self._c_inv_n[:n]) * acc
         if self._c_tail is not None:
             rows, idx_t = self._c_tail
-            acc_t = self._zeros(rows.shape + x.shape[1:], torch.float64)
-            acc_t = self._compact_terms(acc_t, idx_t, x, col)
+            acc_t = self._zeros(x.shape[:-1] + rows.shape, torch.float64)
+            acc_t = self._compact_terms(acc_t, idx_t, x)
             rows = rows.long()
-            y[rows] += (W * self._c_inv_n[rows])[col] * acc_t
+            y[..., rows] += (W * self._c_inv_n[rows]) * acc_t
         return y
 
     def _apply_fused(self, x: torch.Tensor):
@@ -538,15 +538,21 @@ class LocalEngine:
         :113-118); ``check=False`` skips it.  In ell and compact mode that
         check ran at build time.
         """
-        x = torch.as_tensor(x).to(self.device, self._dtype).contiguous()
+        x = torch.as_tensor(x).to(self.device, self._dtype)
         if x.ndim not in (1, 2) or x.shape[0] != self.n_states:
             raise ValueError(f"expected [{self.n_states}] or "
                              f"[{self.n_states}, k], got {tuple(x.shape)}")
-        if self.mode == "ell":
-            return self._apply_ell(x)
-        if self.mode == "compact":
-            return self._apply_compact(x)
-        y, bad = self._apply_fused(x)
+        if self.mode in ("ell", "compact"):
+            # a batch runs columns-first: gathering a term's entries from
+            # [k, N] is k contiguous gathers; gathering k-wide rows of
+            # [N, k] made the chain_32_symm apply at k = 4 take 23× the
+            # k = 1 time on an H100
+            xc = x.T.contiguous() if x.ndim == 2 else x.contiguous()
+            apply = self._apply_ell if self.mode == "ell" \
+                else self._apply_compact
+            y = apply(xc)
+            return y.T.contiguous() if x.ndim == 2 else y
+        y, bad = self._apply_fused(x.contiguous())
         if check or (check is None and not self._checked):
             self._validate_counter(int(bad))
             self._checked = True

@@ -11,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "start_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -30,3 +30,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def start_device(start=None, device: Optional[Union[str, torch.device]] = None
+                 ) -> torch.device:
+    """The device a solver runs on: ``device`` when given, else the device
+    of its start vector or block ``start`` when that is already a tensor,
+    else :func:`resolve_device`'s default (``cuda``, raising without
+    one)."""
+    if device is None and isinstance(start, torch.Tensor):
+        return start.device
+    return resolve_device(device)

@@ -11,8 +11,12 @@ Tolerances: the kernel is held to its plain version bit for bit
 to the CPU engine at atol 1e-13 / rtol 1e-12, because the card's
 ``index_add_`` sums with atomics in a run-dependent order; ``LocalEngine``
 at the same tolerance, its integer tables bit for bit and its
-coefficients within 1e-15.  The synthetic
-chunks are ``chip_smoke.py``'s.
+coefficients within 1e-15.  The streamed engine's multi-column apply is
+held column by column to its rank-1 applies at atol 1e-13 (the same
+per-column decode launches; the atomic adds of two applies need not run
+in the same order), and the block solvers on the card to the same solvers
+on the CPU: eigenvalues within 1e-10, KPM moments within 1e-11.  The
+synthetic chunks are ``chip_smoke.py``'s.
 """
 
 import os
@@ -23,7 +27,8 @@ import pytest
 import torch
 
 from distributed_matvec_tpu_torch import (DistributedEngine, LocalEngine,
-                                          SpinBasis, lanczos)
+                                          SpinBasis, kpm_moments, lanczos,
+                                          lanczos_block)
 from distributed_matvec_tpu_torch.models.lattices import (
     chain_edges, heisenberg_chain, heisenberg_from_edges)
 from distributed_matvec_tpu_torch.ops import plan_codec as PC
@@ -150,3 +155,39 @@ def test_local_lanczos_on_card(cuda):
         assert v.dtype == torch.complex128 and v.device == cuda
         assert float(torch.linalg.vector_norm(eng.matvec(v) - lam * v)) \
             < 1e-8
+
+
+def test_streamed_block_apply_on_card(cuda):
+    """A [1, M, 4] apply launches the decode kernel once per column per
+    chunk, and each column equals a rank-1 apply of that column."""
+    op = heisenberg_chain(16, symmetric=True)
+    e_gpu = DistributedEngine(op, batch_size=64, device=cuda)
+    e_cpu = DistributedEngine(op, batch_size=64, device="cpu")
+    X = e_gpu.random_hashed(3, cols=4)
+    before = PC.fused_decode_gather_scatter.launches
+    Y = e_gpu.matvec(X)
+    torch.cuda.synchronize()
+    assert PC.fused_decode_gather_scatter.launches - before == \
+        4 * e_gpu.nchunks
+    for r in range(4):
+        y = e_gpu.matvec(X[..., r].contiguous())
+        torch.testing.assert_close(Y[..., r], y, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(Y.cpu().numpy(),
+                               e_cpu.matvec(X.cpu()).numpy(),
+                               atol=1e-13, rtol=1e-12)
+
+
+def test_block_solvers_on_card_match_cpu(cuda):
+    op = heisenberg_chain(16, symmetric=True)
+    e_gpu = DistributedEngine(op, batch_size=64, device=cuda)
+    e_cpu = DistributedEngine(op, batch_size=64, device="cpu")
+    got = lanczos_block(e_gpu.matvec, k=2, tol=1e-11, max_iters=400)
+    want = lanczos_block(e_cpu.matvec, k=2, tol=1e-11, max_iters=400)
+    assert got.converged and want.converged
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=0,
+                               atol=1e-10)
+    bounds = (-40.0, 20.0)
+    m_gpu = kpm_moments(e_gpu.matvec, 64, n_vectors=3, bounds=bounds)
+    m_cpu = kpm_moments(e_cpu.matvec, 64, n_vectors=3, bounds=bounds)
+    np.testing.assert_allclose(m_gpu.moments, m_cpu.moments, rtol=0,
+                               atol=1e-11)

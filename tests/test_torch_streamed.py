@@ -112,8 +112,10 @@ def test_n16_anchor_end_to_end():
     Lanczos reproduces the N=16 ring ground state."""
     op = heisenberg_chain(16, symmetric=True)
     eng = DistributedEngine(op, batch_size=64, device="cpu")
+    # "full": one apply per iteration (the selective default redoes a
+    # block whose ω estimate crosses √ε, applying its steps again)
     res = lanczos(eng.matvec, v0=eng.random_hashed(1), k=1, device="cpu",
-                  compute_eigenvectors=True)
+                  compute_eigenvectors=True, reorth="full")
     assert res.converged
     assert abs(res.eigenvalues[0] / 4 - N16_E0_OVER_4) < 1e-9
     v = res.eigenvectors[0]
