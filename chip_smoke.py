@@ -12,8 +12,10 @@ Phases, one JSON line each with its seconds:
    card (``torch.equal``), on synthetic chunks (``KERNEL_CASES``) — u8 and
    u16 codes, small and large dictionaries, 1- to 32-bit fields that
    straddle u32 words, no padding, all padding, entry counts beside the
-   kernel's tile, holes anywhere in the send buffer, and one device's
-   identity layout at chain_32_symm's size.
+   kernel's tile, entries in random order over the bucket prefixes of 2–4
+   shards, D = 4 chunks whose receive-side rok differs from the send
+   occupancy both ways, and one device's identity layout at
+   chain_32_symm's size.
 3. ``small``: chain_16_symm through the streamed engine and Lanczos: the
    matvec against the host NumPy ``matvec_host`` (atol 1e-13 / rtol 1e-12;
    the receive-side ``index_add_`` uses atomics, so sums run in another
@@ -61,7 +63,22 @@ Phases, one JSON line each with its seconds:
 8. ``cross_sector``: the same ring in the translation-only k = 0 sector
    (18 784 170 states: no reflection, no spin inversion, so other orbits,
    norms and plan) must give the same E0 as the full leg to 1e-9.
-9. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
+9. ``sharded``: the same chain_32_symm operator (enumerated once, by the
+   full leg) through ``DistributedEngine(op, n_devices=4, mode=m)`` — four
+   hash shards on the one card, row chunk 16 384 — in every mode:
+   ``streamed``, ``ell``, ``compact`` and ``fused``.  Each build's seconds,
+   peak device memory and plan or table bytes; the apply, through
+   ``from_hashed``, against ``local_full``'s ell apply (atol 1e-13 / rtol
+   1e-12); 7 timed applies (host wall and CUDA events; one for fused);
+   for streamed and ell, a ``torch.profiler`` breakdown of one apply and
+   Lanczos E0 within 1e-10 of the full leg's and 1e-8 relative of the
+   recorded value.  For streamed, the decode kernel
+   on real D = 4 chunks: every chunk of shard 0 and the middle chunk of
+   every shard against the plain version (``torch.equal``), its time per
+   launch over every (chunk, shard) beside the byte bound, and its
+   launches counted from 0 around the main path: 4 × 72 per apply.  Times
+   here are one card running four shards, not a four-card result.
+10. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
    complex Hermitian (about 18.8 M states): the ``ell`` build takes the
    low-memory path by itself (1.6× the full-width complex tables passes
    the 12 GB default budget), one ``fused`` apply against the ell apply,
@@ -78,8 +95,9 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full`` and ``solvers``, largest error against the plain version, time
-per launch beside its bound and the plain version's time), the card's
+of ``full``, ``solvers`` and ``sharded``, and apart at one shard and at
+four, largest error against the plain version, time per launch beside its
+bound and the plain version's time, at one shard and at four), the card's
 name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero.  It needs one CUDA
@@ -146,42 +164,60 @@ def build_phase():
 # -- phase 2 ------------------------------------------------------------------
 
 def synthetic_chunk(device, B, n_recv, n_live, n_real, code_bits, ndict,
-                    seed, identity=False, w_dest=None, w_row=None):
-    """One encoded chunk as the codec writes it: unique live destinations
-    (``0 … n_real−1`` in order with ``identity``, as at one device; else
-    random slots of ``[0, n_recv)`` with holes anywhere), then padding
-    entries at the drop sentinel with one pad code and row 0, and a rok
-    stream whose bits are exactly the written slots.  ``w_dest``/``w_row``
-    widen the fields beyond the bits their values need."""
+                    seed, identity=False, w_dest=None, w_row=None, D=None,
+                    rok_differs=False):
+    """One encoded chunk as the codec writes it: ``n_recv`` send slots in D
+    buckets (D = 1 with ``identity``, else the largest of 4, 3, 2, 1 that
+    divides ``n_recv``, unless given), ``n_real`` live entries filling a
+    random prefix of each bucket — in order with ``identity``, as at one
+    device, else in random order — then padding entries at the drop
+    sentinel with one pad code and row 0; and the per-bucket fill counts.
+    ``w_dest``/``w_row`` widen the fields beyond the bits their values
+    need.  With ``rok_differs`` the chunk's receive side gets other bucket
+    counts, so its rok flags and the send occupancy differ in both
+    directions (the trap of taking rok for the send side; raises if the
+    draw does not show it).  Returns the kernel's arguments."""
     import numpy as np
     import torch
 
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
     rng = np.random.default_rng(seed)
-    spec = {"n_live": n_live, "n_recv": n_recv,
+    if D is None:
+        D = 1 if identity else next(k for k in (4, 3, 2, 1)
+                                    if n_recv % k == 0)
+    cap = n_recv // D
+    spec = {"n_live": n_live, "n_recv": n_recv, "D": D, "cap_eff": cap,
             "w_dest": w_dest or PC.bits_for(n_recv),
             "w_row": w_row or PC.bits_for(B - 1),
             "code_bits": code_bits, "ndict": ndict, "coeff": "dict",
             "cshape": [B, 32]}
+    slot = np.arange(n_recv)
+    fill = np.bincount(rng.permutation(n_recv)[:n_real] // cap,
+                       minlength=D).astype(np.int32)
+    occupied = slot % cap < fill[slot // cap]
+    if rok_differs:
+        recv = np.bincount(rng.permutation(n_recv)[:n_real] // cap,
+                           minlength=D)
+        rok = slot % cap < recv[slot // cap]
+        if not ((rok & ~occupied).any() and (occupied & ~rok).any()):
+            raise AssertionError("rok and the send occupancy do not differ "
+                                 "both ways")
     dest = np.full(n_live, n_recv, np.int64)
-    dest[:n_real] = (np.arange(n_real) if identity
-                     else rng.permutation(n_recv)[:n_real])
+    dest[:n_real] = (np.flatnonzero(occupied) if identity
+                     else rng.permutation(np.flatnonzero(occupied)))
     rows = np.zeros(n_live, np.int64)
     rows[:n_real] = np.sort(rng.integers(0, B, n_real)) if identity \
         else rng.integers(0, B, n_real)
     code_np = np.uint8 if code_bits == 8 else np.uint16
     codes = np.full(n_live, ndict - 1, code_np)
     codes[:n_real] = rng.integers(0, ndict, n_real)
-    rok = np.zeros(n_recv, bool)
-    rok[dest[:n_real]] = True
     words = np.concatenate([PC.pack_bits(dest, spec["w_dest"]),
                             PC.pack_bits(rows, spec["w_row"])])
     ecodes = torch.from_numpy(codes if code_bits == 8
                               else codes.view(np.int16))
     return (spec, torch.from_numpy(words.view(np.int32)).to(device),
-            ecodes.to(device),
-            torch.from_numpy(PC.pack_bits(rok, 1).view(np.int32)).to(device),
+            ecodes.to(device), torch.from_numpy(fill).to(device),
             torch.from_numpy(rng.standard_normal(ndict)).to(device),
             torch.from_numpy(rng.standard_normal(B)).to(device))
 
@@ -215,8 +251,8 @@ def check_kernel(args) -> float:
 
 def per_entry_launch(spec, edest, ecodes, cdict, x_c, out) -> None:
     """The earlier design of the decode kernel (one thread per entry, no
-    rok, ``out`` zero-filled by the caller), for timing beside the kernel;
-    the main path never calls it."""
+    fill counts, ``out`` zero-filled by the caller), for timing beside the
+    kernel; the main path never calls it."""
     import torch
 
     from distributed_matvec_tpu_torch.ops import cuda_kernels
@@ -235,7 +271,9 @@ def per_entry_launch(spec, edest, ecodes, cdict, x_c, out) -> None:
 
 
 #: kernel_check's synthetic chunks: (B, n_recv, n_live, n_real, code_bits,
-#: ndict, keyword options).  The kernel's tile is 1024 entries.
+#: ndict, keyword options).  The kernel's tile is 1024 entries.  Unless a
+#: case says otherwise, the live entries sit in random order over the
+#: prefixes of 4, 3 or 2 buckets.
 KERNEL_CASES = [
     (96, 150, 136, 121, 8, 200, {}),
     (5000, 9000, 8000, 7000, 8, 13, {}),
@@ -258,6 +296,13 @@ KERNEL_CASES = [
     # 1-bit fields: one slot, two rows
     (2, 1, 8, 1, 8, 4, {}),
     (2, 1, 1, 1, 8, 4, {}),
+    # D = 4 shards, the receive side's rok unlike the send occupancy in
+    # both directions: at the sharded leg's shape (16 384 rows, ~85 k
+    # entries per bucket), buckets smaller than a tile, and u16 codes
+    (16384, 344_000, 340_008, 339_000, 8, 200,
+     {"D": 4, "rok_differs": True}),
+    (700, 1200, 1000, 990, 8, 30, {"D": 4, "rok_differs": True}),
+    (300, 2400, 2200, 2100, 16, 700, {"D": 4, "rok_differs": True}),
 ]
 
 
@@ -265,7 +310,10 @@ def kernel_check_phase(device):
     errs = [check_kernel(synthetic_chunk(device, *case[:6], seed=i,
                                          **case[6]))
             for i, case in enumerate(KERNEL_CASES)]
-    return {"cases": len(errs), "max_abs_err": max(errs)}, max(errs)
+    return {"cases": len(errs),
+            "rok_differs_cases": sum(bool(c[6].get("rok_differs"))
+                                     for c in KERNEL_CASES),
+            "max_abs_err": max(errs)}, max(errs)
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -388,11 +436,11 @@ def full_phase(device, n=32, expect_states=CHAIN32_STATES,
 
     # one real plan chunk, kernel vs plain version
     ci = eng.nchunks // 2
-    views = eng._chunk_views(eng._plan_host[ci].to(device))
+    views = eng._chunk_views(eng._plan_host[ci, 0].to(device))
     x_c = torch.from_numpy(np.random.default_rng(9).standard_normal(
         eng.batch_size)).to(device)
-    chunk_err = check_kernel((eng._codec.spec, views[0], views[1], views[3],
-                              eng._cdict, x_c))
+    chunk_err = check_kernel((eng._codec.spec, views[0], views[1], views[4],
+                              eng._cdict[0], x_c))
 
     # the main path, with the launch counts set to 0 just before it
     PC.fused_decode_gather_scatter.launches = 0
@@ -492,11 +540,11 @@ def split_phase(device, eng):
     spec = eng._codec.spec
     n_recv = spec["n_recv"]
     dev_plan = eng._plan_host.to(device)
-    views = [eng._chunk_views(dev_plan[ci]) for ci in range(n)]
+    views = [eng._chunk_views(dev_plan[ci, 0]) for ci in range(n)]
     B = eng.batch_size
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         n * B)).to(device)
-    args = [(spec, v[0], v[1], v[3], eng._cdict, x[ci * B:(ci + 1) * B])
+    args = [(spec, v[0], v[1], v[4], eng._cdict[0], x[ci * B:(ci + 1) * B])
             for ci, v in enumerate(views)]
 
     def h2d():
@@ -539,10 +587,7 @@ def split_phase(device, eng):
         if not torch.equal(out, PC._fused_decode_gather_scatter_plain(*a)):
             raise AssertionError("the per-entry design differs from the "
                                  "plain version")
-    e = views[0]
-    bytes_no_rok = (e[0].numel() * 4 + e[1].numel() * e[1].element_size()
-                    + eng._cdict.numel() * 8 + B * 8 + (n_recv + 1) * 8)
-    bytes_per_launch = bytes_no_rok + e[3].numel() * 4
+    bytes_per_launch = decode_bytes(spec, B)
     t_bytes = bytes_per_launch / HBM_BYTES_PER_S * 1e3
     t_ops = spec["n_live"] / FP64_FLOP_PER_S * 1e3
     turns = {"kernel": [], "per_entry": []}
@@ -553,7 +598,7 @@ def split_phase(device, eng):
     timing = {
         "h2d_ms_per_apply": device_ms(device, h2d),
         "device_plan_apply_ms": device_ms(
-            device, lambda: eng._apply(xh, views)),
+            device, lambda: eng._apply(xh, [[v] for v in views])),
         "kernel_ms_per_launch": kernel_ms,
         "kernel_ms_turns": turns["kernel"],
         "per_entry_ms_per_launch": statistics.median(turns["per_entry"]),
@@ -565,8 +610,6 @@ def split_phase(device, eng):
         "bound_ms_per_launch": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_per_launch": bytes_per_launch,
-        "bytes_per_launch_without_rok": bytes_no_rok,
-        "bound_ms_without_rok": bytes_no_rok / HBM_BYTES_PER_S * 1e3,
         "kernel_bytes_per_s": bytes_per_launch / (kernel_ms * 1e-3),
         "kernel_share_of_bound": max(t_bytes, t_ops) / kernel_ms,
         "plan_max_abs_err": err,
@@ -581,6 +624,19 @@ def split_phase(device, eng):
     if fills:
         raise AssertionError(f"the send buffer is filled per chunk: {fills}")
     return timing
+
+
+def decode_bytes(spec, B) -> int:
+    """Bytes one decode launch must move: the dest and row word streams,
+    the codes, the fill counts, the dictionary and the chunk's x read once,
+    the send buffer written once."""
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    nl = spec["n_live"]
+    words = (PC.packed_words(nl, spec["w_dest"])
+             + PC.packed_words(nl, spec["w_row"]))
+    return (4 * words + nl * spec["code_bits"] // 8 + 4 * spec["D"]
+            + 8 * spec["ndict"] + 8 * B + 8 * (spec["n_recv"] + 1))
 
 
 def profile_apply(fn, top=8):
@@ -675,20 +731,30 @@ def plain_work(eng, ms, applies_per_solve):
 
 
 def timed_build(device, make):
-    """``make()`` with its seconds and the peak device memory it added."""
+    """``make()`` (a ``LocalEngine``) with its seconds, the peak device
+    memory it added and its table split and bytes."""
+    eng, build_s, peak = build_timed(device, make)
+    return eng, {"build_s": build_s, "build_peak_bytes": peak,
+                 "ell_split": eng.ell_split, "ell_nbytes": eng.ell_nbytes,
+                 "low_memory_build": eng.low_memory_build}
+
+
+def build_timed(device, make):
+    """``make()`` with its seconds and the peak device memory it added
+    (None off the card)."""
     import torch
 
     _sync(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    base = torch.cuda.memory_allocated(device)
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     t0 = time.perf_counter()
-    eng = make()
+    out = make()
     _sync(device)
-    return eng, {"build_s": time.perf_counter() - t0,
-                 "build_peak_bytes":
-                     torch.cuda.max_memory_allocated(device) - base,
-                 "ell_split": eng.ell_split, "ell_nbytes": eng.ell_nbytes,
-                 "low_memory_build": eng.low_memory_build}
+    peak = (torch.cuda.max_memory_allocated(device) - base
+            if device.type == "cuda" else None)
+    return out, time.perf_counter() - t0, peak
 
 
 def apply_times(device, eng, x, applies=7):
@@ -942,6 +1008,140 @@ def solvers_phase(device, streamed, eng, e0_full):
     return out, launches
 
 
+#: the sharded leg: shards on the one card, and the row chunk that keeps a
+#: chunk's ~85 k live entries per bucket under the 150 000 default (the
+#: default B = 65 536 would put ~339 k in each and overflow)
+SHARDS = 4
+SHARDED_BATCH = 16384
+
+
+def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
+                  D=SHARDS, B=SHARDED_BATCH, applies=7):
+    """``DistributedEngine(op, n_devices=D, mode=m)`` in every ported mode
+    on the one card; see the module docstring for the checks."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    n = op.basis.number_states
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(n)).to(
+        device)
+    y_ref = ell_ref.matvec(x)
+    x_np = x.cpu().numpy()
+    out = {"n_states": n, "n_shards": D, "batch_size": B}
+    kernel = {}
+    for mode in ("streamed", "ell", "compact", "fused"):
+        eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+            op, n_devices=D, mode=mode, batch_size=B, device=device))
+        info = {"build_s": build_s, "build_peak_bytes": peak,
+                "timings": eng.timings, "shard_size": eng.shard_size,
+                "counts": [int(c) for c in eng.counts]}
+        if mode == "streamed":
+            info.update(plan_bytes=int(eng.plan_bytes),
+                        plan_bytes_raw=int(eng.plan_bytes_raw),
+                        nchunks=eng.nchunks, spec=eng._codec.spec)
+            kernel = sharded_kernel_check(device, eng)
+        elif mode in ("ell", "compact"):
+            info.update(table_bytes=eng.ell_nbytes,
+                        ell_split=eng.ell_split,
+                        query_capacity=eng.query_capacity)
+        if mode == "streamed":
+            PC.fused_decode_gather_scatter.launches = 0
+            eng.n_applies = 0
+        t0 = time.perf_counter()
+        y = torch.from_numpy(eng.matvec_global(x_np)).to(device)
+        _sync(device)
+        info["first_apply_s"] = time.perf_counter() - t0
+        info["vs_local_ell_max_abs_err"] = assert_close(
+            y, y_ref, f"D = {D} {mode} vs LocalEngine ell apply")
+        xh = eng.to_hashed(x_np)
+        if mode == "fused":
+            info.update(apply_times(device, eng, xh, applies=1))
+        else:
+            info.update(apply_times(device, eng, xh, applies=applies))
+        if mode in ("streamed", "ell") and device.type == "cuda":
+            info["profile"] = profile_apply(lambda: eng.matvec(xh))
+        if mode in ("streamed", "ell"):
+            t0 = time.perf_counter()
+            res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1,
+                          tol=1e-10, device=device)
+            _sync(device)
+            e0 = float(res.eigenvalues[0])
+            info.update(lanczos_s=time.perf_counter() - t0,
+                        lanczos_iters=int(res.num_iters), e0=e0,
+                        e0_minus_full=e0 - e0_full)
+            if not (res.converged and abs(e0 - e0_full) < 1e-10
+                    and (expect_e0 is None or abs(e0 - expect_e0)
+                         <= 1e-8 * abs(expect_e0))):
+                raise AssertionError(f"D = {D} {mode} E0 {e0}: full leg "
+                                     f"{e0_full}, recorded {expect_e0}")
+        if mode == "streamed":
+            launches = PC.fused_decode_gather_scatter.launches
+            per_apply = D * eng.nchunks
+            if launches == 0 or launches != per_apply * eng.n_applies:
+                raise AssertionError(
+                    f"{launches} decode launches for {eng.n_applies} "
+                    f"applies of {D} × {eng.nchunks} chunks")
+            info.update(applies=eng.n_applies, launches=launches,
+                        launches_per_apply=per_apply)
+            kernel["launches"] = launches
+        out[mode] = info
+        del eng
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out, kernel
+
+
+def sharded_kernel_check(device, eng):
+    """The decode kernel on real D-shard chunks: every chunk of shard 0 and
+    the middle chunk of every shard against the plain version
+    (``torch.equal``, also into a NaN-filled buffer), then its time per
+    launch over every (chunk, shard) of the plan from a device-resident
+    copy, beside the byte bound and the plain version's time."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    D, B, n = eng.n_devices, eng.batch_size, eng.nchunks
+    spec = eng._codec.spec
+    dev_plan = eng._plan_host.to(device)
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (D, n * B))).to(device)
+
+    def args(ci, d):
+        v = eng._chunk_views(dev_plan[ci, d])
+        return (spec, v[0], v[1], v[4], eng._cdict[d],
+                x[d, ci * B:(ci + 1) * B])
+
+    pairs = [(ci, 0) for ci in range(n)] + [(n // 2, d)
+                                            for d in range(1, D)]
+    err = max(check_kernel(args(ci, d)) for ci, d in pairs)
+    every = [args(ci, d) for ci in range(n) for d in range(D)]
+
+    def kernel():
+        for a in every:
+            PC.fused_decode_gather_scatter(*a)
+
+    def plain():
+        for a in every:
+            PC._fused_decode_gather_scatter_plain(*a)
+
+    nbytes = decode_bytes(spec, B)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = spec["n_live"] / FP64_FLOP_PER_S * 1e3
+    ms = device_ms(device, kernel, reps=5) / len(every)
+    del dev_plan
+    return {"checked_chunks": len(pairs), "max_abs_err": err,
+            "ms": ms, "plain_ms": device_ms(device, plain) / len(every),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_per_launch": nbytes, "share_of_bound":
+                max(t_bytes, t_ops) / ms}
+
+
 def local_complex_phase(device, e0_full, n=32):
     import numpy as np
     import torch
@@ -1041,7 +1241,12 @@ def main() -> int:
                        full["e0"])
     _, solver_launches = run_phase("solvers", solvers_phase, device, eng,
                                    ell, full["e0"])
-    del eng, ell
+    op = eng.operator
+    del eng
+    torch.cuda.empty_cache()
+    _, sharded = run_phase("sharded", sharded_phase, device, op, ell,
+                           full["e0"])
+    del ell, op
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
     torch.cuda.empty_cache()
@@ -1051,13 +1256,20 @@ def main() -> int:
         "route": "cuda",
         "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
-        "launches": launches + solver_launches,
-        "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"]),
+        "launches": launches + solver_launches + sharded["launches"],
+        "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
+                           sharded["max_abs_err"]),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
         "bound_ms": split["bound_ms_per_launch"],
         "bound_by": split["bound_by"],
         "library_ms": None,
+        # the one-shard legs (full, solvers) and the D = 4 leg apart
+        "launches_d1": launches + solver_launches,
+        "launches_d4": sharded["launches"],
+        "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
+        "bound_ms_d4": sharded["bound_ms"],
+        "bound_by_d4": sharded["bound_by"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

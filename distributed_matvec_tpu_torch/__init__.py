@@ -15,7 +15,8 @@ top:
   ops/          — tensor kernels (diag/off-diag apply, orbit scan, lookup),
                   the plan codec and its CUDA decode kernel (csrc/)
   parallel/     — the single-device engine (ell, compact, fused), the
-                  hashed layout, the streamed matvec engine (single- and
+                  hashed layout, the hash-sharded engine (D shards on one
+                  device: streamed, ell, compact, fused; single- and
                   multi-column applies)
   solve/        — thick-restart Lanczos (selective or full
                   reorthogonalization) and block Lanczos, LOBPCG,

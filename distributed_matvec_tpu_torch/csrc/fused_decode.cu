@@ -15,41 +15,52 @@
 //
 // What bounds it on an H100: bytes.  Per launch it reads the two packed
 // streams ((w_dest + w_row) bits per live entry), the codes (1 or 2 bytes
-// per entry), the rok bits (1 bit per slot), the dictionary and x (B
-// doubles, gathered), and writes the send buffer ((n_recv + 1) doubles);
-// it does one multiply per entry, one FLOP per ~14 bytes, so no tensor-core
-// f64 path is worth using.  The send buffer is most of the bytes.
+// per entry), the D bucket fill counts, the dictionary and x (B doubles,
+// gathered), and writes the send buffer ((n_recv + 1) doubles); it does
+// one multiply per entry, one FLOP per ~14 bytes, so no tensor-core f64
+// path is worth using.  The send buffer is most of the bytes.
 //
 // Design (fused_decode_kernel):
 // - The send buffer is written exactly once, in this one launch, with no
-//   separate zero fill.  Precondition, from the plan build: the rok bit of
-//   slot s is set iff a live entry writes s (the build raises on any live
-//   amplitude it cannot place).  So a slot with rok clear gets 0.0 and
-//   every other slot gets its entry's amplitude.  Padding entries form the
-//   tail of the live stream: the thread of entry n_live - 1 writes the drop
-//   slot n_recv, with the padding value when that entry is padding and
-//   0.0 when the chunk has none.  Other padding entries store nothing.
+//   separate zero fill.  It is D buckets of cap = n_recv / D slots, one per
+//   destination shard.  The entries routed to bucket k take the in-bucket
+//   ranks 0 ... fill[k] - 1, so the occupied slots of bucket k are the
+//   prefix [k*cap, k*cap + fill[k]) (the plan build raises on any live
+//   amplitude it cannot place).  A slot at or above its bucket's fill gets
+//   0.0 and every other slot gets its entry's amplitude.  The fill counts
+//   are the SEND side's occupancy: the chunk's rok stream describes the
+//   receive buffer after the exchange, which equals the send buffer only
+//   at D = 1.  Padding entries form the tail of the live stream: the
+//   thread of entry n_live - 1 writes the drop slot n_recv, with the
+//   padding value when that entry is padding and 0.0 when the chunk has
+//   none.  Other padding entries store nothing.
 // - One block per tile of kTile = kThreads * kEntries consecutive entries
 //   and the same range of slots.  The block stages the tile's span of the
-//   dest stream, the row stream and the codes, and the rok words of its
-//   slots, into shared memory: every thread first issues its 16-byte loads,
-//   marked evict-first (__ldcs: the plan is read once), then stores them,
-//   and one barrier later the block decodes.  That is at most 10 448
-//   bytes of shared memory a block (48 KB is the limit without an
-//   attribute).  Several blocks per SM overlap one block's staging with
-//   another's stores.
-// - The dictionary (256 doubles for u8 codes, up to 64 K for u16) is read
-//   with __ldg: it stays in L1, and staging it in shared memory as well
-//   measured slower on the H100.
+//   dest stream, the row stream and the codes into shared memory: every
+//   thread first issues its 16-byte loads, marked evict-first (__ldcs: the
+//   plan is read once), then stores them, and one barrier later the block
+//   decodes.  That is at most 10 320 bytes of shared memory a block (48 KB
+//   is the limit without an attribute).  Several blocks per SM overlap one
+//   block's staging with another's stores.
+// - The dictionary (256 doubles for u8 codes, up to 64 K for u16) and the
+//   fill counts are read with __ldg: they stay in L1, and staging the
+//   dictionary in shared memory as well measured slower on the H100.
+// - D = 1 has its own instantiation (kBuckets false): its slot rule is one
+//   compare against fill[0], with no bucket bookkeeping in registers.  So
+//   it measured no slower on the H100 than the rok-taking design it
+//   replaced, which one instantiation for every D did not
+//   (tools/torch_decode_bench.py times the two in turns).
 // - Thread t takes entries e0 + t + kThreads*r, r < kEntries: neighbouring
 //   threads hold neighbouring entries, so shared-memory reads of the bit
 //   fields are conflict-free and, where dest is the identity (one device),
-//   the stores coalesce.  Any unique dest is correct, in any order, with
-//   empty slots anywhere.
+//   the stores coalesce.  Any unique dest inside the bucket prefixes is
+//   correct, in any order.
 // - Bit offsets are 64-bit (n * width exceeds 2^32 at chain_32 sizes).  A
 //   field is read as a funnel shift of its word and the next: each packed
 //   stream carries one spare word, so the next word always exists, and no
-//   shift by 32 is ever issued.
+//   shift by 32 is ever issued.  Slot indices are below 2^31 (the wrapper
+//   checks).  A thread finds the bucket of its first slot with one 32-bit
+//   division (none at D = 1) and steps it along its later slots.
 // - The send buffer is written with default stores, so it stays in L2 for
 //   the receive side, which reads it next.
 // Build with --fmad=false; the one product per entry has nothing to contract.
@@ -149,7 +160,7 @@ __device__ __forceinline__ uint32_t field(const uint8_t* s, int64_t origin,
 }
 
 struct Smem {
-  int dest, row, code, rok, total;  // byte offsets into the block's buffer
+  int dest, row, code, total;  // byte offsets into the block's buffer
 };
 
 template <typename Code>
@@ -158,17 +169,18 @@ Smem smem_layout(int w_dest, int w_row) {
   s.dest = 0;
   s.row = s.dest + static_cast<int>(stage_bytes(field_span(w_dest)));
   s.code = s.row + static_cast<int>(stage_bytes(field_span(w_row)));
-  s.rok = s.code + static_cast<int>(stage_bytes(kTile * sizeof(Code)));
-  s.total = s.rok + static_cast<int>(kTile / 8);
+  s.total = s.code + static_cast<int>(stage_bytes(kTile * sizeof(Code)));
   return s;
 }
 
-template <typename Code>
+// kBuckets: D > 1.  At D = 1 the one bucket is the whole buffer, and the
+// slot rule is a compare against fill[0].
+template <typename Code, bool kBuckets>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_kernel(const uint32_t* __restrict__ dest_words, int64_t nwd,
                     const uint32_t* __restrict__ row_words, int64_t nwr,
                     const Code* __restrict__ codes,
-                    const uint32_t* __restrict__ rok_words,
+                    const int32_t* __restrict__ fill, uint32_t cap,
                     const double* __restrict__ cdict,
                     const double* __restrict__ x, double* __restrict__ out,
                     int64_t n_live, int w_dest, int w_row, int64_t n_recv,
@@ -177,6 +189,16 @@ fused_decode_kernel(const uint32_t* __restrict__ dest_words, int64_t nwd,
   const int64_t e0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int64_t e1 = e0 + kTile < n_live ? e0 + kTile : n_live;
   constexpr int64_t cb = sizeof(Code);
+  // the bucket [lo, hi) of this thread's first slot and its fill,
+  // advanced along the thread's slots below: one division per thread,
+  // none at D = 1
+  uint32_t k = 0, lo = 0, hi = cap;
+  if (kBuckets && e0 + threadIdx.x < n_recv) {
+    k = static_cast<uint32_t>(e0 + threadIdx.x) / cap;
+    lo = k * cap;
+    hi = lo + cap;
+  }
+  auto f = static_cast<uint32_t>(__ldg(fill + k));
 
   Span<kFieldGranules> sd, sr;
   Span<kCodeGranules> sc;
@@ -192,15 +214,9 @@ fused_decode_kernel(const uint32_t* __restrict__ dest_words, int64_t nwd,
     sc.load(reinterpret_cast<const uint8_t*>(codes), e0 * cb, e1 * cb,
             n_live * cb);
   }
-  // the block's rok words: slots [e0, e0 + kTile)
-  uint32_t rok = 0;
-  const bool rok_lane = threadIdx.x < kTile / 32 && e0 + 32 * threadIdx.x < n_recv;
-  if (rok_lane) rok = __ldcs(rok_words + (e0 >> 5) + threadIdx.x);
   sd.store(smem + lay.dest);
   sr.store(smem + lay.row);
   sc.store(smem + lay.code);
-  auto* srok = reinterpret_cast<uint32_t*>(smem + lay.rok);
-  if (rok_lane) srok[threadIdx.x] = rok;
   __syncthreads();
 
 #pragma unroll
@@ -216,24 +232,40 @@ fused_decode_kernel(const uint32_t* __restrict__ dest_words, int64_t nwd,
       if (dest < n_recv) out[dest] = amp;
       if (i == n_live - 1) out[n_recv] = dest < n_recv ? 0.0 : amp;
     }
-    // i doubles as a slot index: the block's slots are its entries' range
-    if (i < n_recv && !((srok[t >> 5] >> (t & 31)) & 1u)) out[i] = 0.0;
+    // i doubles as a slot index: the block's slots are its entries' range.
+    // Slot i is empty iff its in-bucket index is at or above its bucket's
+    // fill.
+    if (i < n_recv) {
+      const auto slot = static_cast<uint32_t>(i);
+      if (kBuckets) {
+        while (slot >= hi) {
+          ++k;
+          lo = hi;
+          hi += cap;
+          f = static_cast<uint32_t>(__ldg(fill + k));
+        }
+      }
+      if (slot - lo >= f) out[i] = 0.0;
+    }
   }
   if (n_live == 0 && blockIdx.x == 0 && threadIdx.x == 0) out[n_recv] = 0.0;
 }
 
 template <typename Code>
 int launch(const uint32_t* dest_words, int64_t nwd, const uint32_t* row_words,
-           int64_t nwr, const void* codes, const uint32_t* rok_words,
-           const double* cdict, const double* x, double* out, int64_t n_live,
-           int w_dest, int w_row, int64_t n_recv, cudaStream_t s) {
+           int64_t nwr, const void* codes, const int32_t* fill, uint32_t cap,
+           int64_t n_buckets, const double* cdict, const double* x,
+           double* out, int64_t n_live, int w_dest, int w_row,
+           int64_t n_recv, cudaStream_t s) {
   const int64_t span = n_live > n_recv ? n_live : n_recv;
   const auto blocks =
       static_cast<unsigned int>(span > 0 ? (span + kTile - 1) / kTile : 1);
   const Smem lay = smem_layout<Code>(w_dest, w_row);
-  fused_decode_kernel<Code><<<blocks, kThreads, lay.total, s>>>(
+  auto* kernel = n_buckets > 1 ? fused_decode_kernel<Code, true>
+                               : fused_decode_kernel<Code, false>;
+  kernel<<<blocks, kThreads, lay.total, s>>>(
       dest_words, nwd, row_words, nwr, static_cast<const Code*>(codes),
-      rok_words, cdict, x, out, n_live, w_dest, w_row, n_recv, lay);
+      fill, cap, cdict, x, out, n_live, w_dest, w_row, n_recv, lay);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -276,36 +308,41 @@ bool widths_ok(int w_dest, int w_row) {
 }  // namespace
 
 // edest: the chunk's dest stream (nwd words) followed by its row stream
-// (nwr words).  erok: the chunk's rok stream (1 bit per slot).
-// code_bits: 8 (uint8 codes) or 16 (uint16 codes).  Writes every slot of
-// out [n_recv + 1]; see the precondition on rok above.
+// (nwr words).  fill: the D per-bucket fill counts of the send buffer,
+// whose n_recv = D * cap slots are D buckets of cap.  code_bits: 8 (uint8
+// codes) or 16 (uint16 codes).  Writes every slot of out [n_recv + 1]; see
+// the precondition on the fill counts above.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int dmt_fused_decode_gather_scatter(
     const void* edest, int64_t nwd, int64_t nwr, const void* codes,
-    int code_bits, const void* erok, const double* cdict, const double* x,
-    double* out, int64_t n_live, int w_dest, int w_row, int64_t n_recv,
-    void* stream) {
-  if (!widths_ok(w_dest, w_row) || n_live < 0 || n_recv < 0) {
+    int code_bits, const void* fill, int64_t n_buckets, const double* cdict,
+    const double* x, double* out, int64_t n_live, int w_dest, int w_row,
+    int64_t n_recv, void* stream) {
+  if (!widths_ok(w_dest, w_row) || n_live < 0 || n_recv < 0 ||
+      n_recv >= (int64_t{1} << 31) || n_buckets < 1 ||
+      n_recv % n_buckets != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* dest_words = static_cast<const uint32_t*>(edest);
-  const auto* rok_words = static_cast<const uint32_t*>(erok);
+  const auto* fills = static_cast<const int32_t*>(fill);
+  // an empty buffer has no slot to place; any nonzero divisor serves
+  const auto cap = static_cast<uint32_t>(n_recv > 0 ? n_recv / n_buckets : 1);
   auto s = static_cast<cudaStream_t>(stream);
   if (code_bits == 8) {
     return launch<uint8_t>(dest_words, nwd, dest_words + nwd, nwr, codes,
-                           rok_words, cdict, x, out, n_live, w_dest, w_row,
-                           n_recv, s);
+                           fills, cap, n_buckets, cdict, x, out, n_live,
+                           w_dest, w_row, n_recv, s);
   }
   if (code_bits == 16) {
     return launch<uint16_t>(dest_words, nwd, dest_words + nwd, nwr, codes,
-                            rok_words, cdict, x, out, n_live, w_dest, w_row,
-                            n_recv, s);
+                            fills, cap, n_buckets, cdict, x, out, n_live,
+                            w_dest, w_row, n_recv, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The earlier design, for timing beside the kernel above: same streams, no
-// rok; out must be zero-filled by the caller.
+// fill counts; out must be zero-filled by the caller.
 extern "C" int dmt_fused_decode_per_entry(
     const void* edest, int64_t nwd, const void* codes, int code_bits,
     const double* cdict, const double* x, double* out, int64_t n_live,

@@ -43,8 +43,8 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "fused_decode": {
         "dmt_fused_decode_gather_scatter": (
-            _int, [_vp, _i64, _i64, _vp, _int, _vp, _vp, _vp, _vp, _i64,
-                   _int, _int, _i64, _vp]),
+            _int, [_vp, _i64, _i64, _vp, _int, _vp, _i64, _vp, _vp, _vp,
+                   _i64, _int, _int, _i64, _vp]),
         # the earlier one-thread-per-entry design, timed beside it by
         # chip_smoke.py; the main path never calls it
         "dmt_fused_decode_per_entry": (

@@ -23,7 +23,11 @@ Per (row chunk, shard) the streamed plan holds four arrays, encoded as:
 
 Dead entries (coefficient 0) are dropped on the host and the exchange slots
 are re-based to the true maximum bucket fill, so the decoded arithmetic is
-value-identical and order-identical to the raw plan's.
+value-identical and order-identical to the raw plan's.  Beside the encoded
+streams the port keeps each chunk's per-bucket fill counts
+(:func:`send_fill`): the send buffer's occupancy, which the decode kernel
+needs to zero the empty slots and which ``rok`` (the receive side) gives
+only at D = 1.
 
 On the device, u32 word streams travel as int32 tensors with the same bits
 and u16 codes as int16 tensors; both are widened and masked before use.
@@ -47,6 +51,7 @@ __all__ = [
     "unpack_bits",
     "PlanCodec",
     "decode_plan_shard",
+    "send_fill",
     "fused_decode_gather_scatter",
 ]
 
@@ -354,14 +359,29 @@ def _decode_coeff_vals(spec: Dict, coeff, cdict):
     return coeff.to(torch.float64)
 
 
-def _fused_decode_gather_scatter_plain(spec: Dict, edest, ecodes, erok,
+def send_fill(dest, n_buckets: int, cap: int) -> np.ndarray:
+    """The send buffer's per-bucket fill counts of one chunk: [D] int32,
+    the number of live entries routed to each destination shard.  ``dest``
+    holds the chunk's destinations ``bucket·cap + rank`` (the raw plan's at
+    ``cap_build``, or the compacted stream's at ``cap_eff``), dropped and
+    padding entries at ``D·cap`` or above.  The entries of bucket k hold
+    the in-bucket ranks ``0 … fill[k]−1``, so its occupied slots are
+    exactly that prefix — the send side's occupancy, which the chunk's
+    ``rok`` stream (the receive buffer, after the exchange) equals only at
+    D = 1."""
+    dest = np.asarray(dest, np.int64).reshape(-1)
+    live = dest[dest < n_buckets * cap]
+    return np.bincount(live // cap, minlength=n_buckets).astype(np.int32)
+
+
+def _fused_decode_gather_scatter_plain(spec: Dict, edest, ecodes, fill,
                                        cdict, x_c):
     """The plain PyTorch version of :func:`fused_decode_gather_scatter`,
     with the JAX kernel's semantics: zero-fill the send buffer, unpack,
-    dictionary gather × ``x[row]``, scatter.  It takes ``erok`` for the
+    dictionary gather × ``x[row]``, scatter.  It takes ``fill`` for the
     kernel's signature and does not read it, so comparing the two on a real
-    plan also checks the kernel's precondition on ``rok``."""
-    del erok
+    plan also checks the kernel's precondition on the fill counts."""
+    del fill
     nl, n_recv = spec["n_live"], spec["n_recv"]
     nwd = packed_words(nl, spec["w_dest"])
     dest = unpack_bits(edest[:nwd], nl, spec["w_dest"])
@@ -374,7 +394,8 @@ def _fused_decode_gather_scatter_plain(spec: Dict, edest, ecodes, erok,
     return out
 
 
-def _check_fused_operands(spec, edest, ecodes, erok, cdict, x_c) -> None:
+def _check_fused_operands(spec, edest, ecodes, fill, cdict, x_c,
+                          out=None) -> None:
     nl = spec["n_live"]
     if spec["coeff"] != "dict":
         raise NotImplementedError(
@@ -382,25 +403,32 @@ def _check_fused_operands(spec, edest, ecodes, erok, cdict, x_c) -> None:
     code_dtype = {8: torch.uint8, 16: torch.int16}.get(spec["code_bits"])
     words = packed_words(nl, spec["w_dest"]) + packed_words(nl,
                                                              spec["w_row"])
-    rok_words = packed_words(spec["n_recv"], 1)
+    D, n_recv = spec["D"], spec["n_recv"]
     checks = [
         (edest.dtype == torch.int32 and edest.dim() == 1
          and edest.numel() == words, f"edest: int32 [{words}]"),
         (ecodes.dtype == code_dtype and ecodes.dim() == 1
          and ecodes.numel() == nl, f"ecodes: {code_dtype} [{nl}]"),
-        (erok.dtype == torch.int32 and erok.dim() == 1
-         and erok.numel() == rok_words, f"erok: int32 [{rok_words}]"),
+        (fill.dtype == torch.int32 and fill.dim() == 1
+         and fill.numel() == D and D * spec["cap_eff"] == n_recv
+         and n_recv < 1 << 31,
+         f"fill: int32 [{D}] over {D} buckets of cap_eff slots, "
+         f"n_recv = D·cap_eff < 2^31"),
         (cdict.dtype == torch.float64 and cdict.dim() == 1
          and cdict.numel() == spec["ndict"],
          f"cdict: float64 [{spec['ndict']}]"),
         (x_c.dtype == torch.float64 and x_c.dim() == 1
          and x_c.numel() == spec["cshape"][0],
          f"x_c: float64 [{spec['cshape'][0]}]"),
+        (out is None or (out.dtype == torch.float64 and out.dim() == 1
+                         and out.numel() == n_recv + 1),
+         f"out: float64 [{n_recv + 1}]"),
     ]
     for ok, want in checks:
         if not ok:
             raise ValueError(f"fused_decode_gather_scatter operand {want}")
-    operands = (edest, ecodes, erok, cdict, x_c)
+    operands = (edest, ecodes, fill, cdict, x_c) + (
+        () if out is None else (out,))
     devices = {t.device for t in operands}
     if len(devices) != 1:
         raise ValueError(
@@ -411,33 +439,40 @@ def _check_fused_operands(spec, edest, ecodes, erok, cdict, x_c) -> None:
                          "contiguous")
 
 
-def fused_decode_gather_scatter(spec: Dict, edest, ecodes, erok, cdict, x_c):
+def fused_decode_gather_scatter(spec: Dict, edest, ecodes, fill, cdict, x_c,
+                                out=None):
     """The fused decode + gather + multiply + scatter of one encoded chunk:
     unpack the bitpacked destination and row streams, decode the
     coefficient codes through the dictionary, gather each live entry's
     ``x`` row, multiply, and write the amplitude into the send buffer.
     Returns the ``[D·cap_eff + 1]`` f64 send buffer (the trailing slot
     collects the padding entries); every slot no live entry writes is 0.
+    With ``out`` (a contiguous float64 ``[D·cap_eff + 1]`` tensor) the
+    buffer is written there and ``out`` is returned.
 
-    ``erok`` is the chunk's ``rok`` word stream (1 bit per slot).  The
-    kernel writes the buffer once, without a separate zero fill, and takes
-    the precondition the plan build guarantees: a slot's ``rok`` bit is set
-    iff a live entry writes it, and padding entries form the tail of the
-    live stream.
+    ``fill`` is the chunk's [D] int32 per-bucket fill counts
+    (:func:`send_fill`).  The kernel writes the buffer once, without a
+    separate zero fill, and takes the precondition the plan build
+    guarantees: the live entries of bucket k occupy exactly its slots
+    ``[k·cap_eff, k·cap_eff + fill[k])``, and padding entries form the tail
+    of the live stream.
 
     Scope: real sector, single column, dictionary-coded coefficients.
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     ``csrc/fused_decode.cu`` on the current stream (``launches`` counts
     them) or raise."""
-    _check_fused_operands(spec, edest, ecodes, erok, cdict, x_c)
+    _check_fused_operands(spec, edest, ecodes, fill, cdict, x_c, out)
     device = x_c.device
     if device.type == "cpu":
-        return _fused_decode_gather_scatter_plain(spec, edest, ecodes, erok,
-                                                  cdict, x_c)
+        y = _fused_decode_gather_scatter_plain(spec, edest, ecodes, fill,
+                                               cdict, x_c)
+        return y if out is None else out.copy_(y)
     if device.type != "cuda":
         raise ValueError(f"no fused decode kernel for device {device}")
-    out = torch.empty(spec["n_recv"] + 1, dtype=torch.float64, device=device)
-    _launch_fused_decode(spec, edest, ecodes, erok, cdict, x_c, out)
+    if out is None:
+        out = torch.empty(spec["n_recv"] + 1, dtype=torch.float64,
+                          device=device)
+    _launch_fused_decode(spec, edest, ecodes, fill, cdict, x_c, out)
     fused_decode_gather_scatter.launches += 1
     return out
 
@@ -445,7 +480,7 @@ def fused_decode_gather_scatter(spec: Dict, edest, ecodes, erok, cdict, x_c):
 fused_decode_gather_scatter.launches = 0
 
 
-def _launch_fused_decode(spec: Dict, edest, ecodes, erok, cdict, x_c,
+def _launch_fused_decode(spec: Dict, edest, ecodes, fill, cdict, x_c,
                          out) -> None:
     """Launch the kernel of ``csrc/fused_decode.cu`` on checked CUDA
     operands, writing every slot of ``out`` (float64 [n_recv + 1]) on the
@@ -459,7 +494,7 @@ def _launch_fused_decode(spec: Dict, edest, ecodes, erok, cdict, x_c,
     rc = lib.dmt_fused_decode_gather_scatter(
         edest.data_ptr(), packed_words(nl, spec["w_dest"]),
         packed_words(nl, spec["w_row"]), ecodes.data_ptr(),
-        spec["code_bits"], erok.data_ptr(), cdict.data_ptr(),
+        spec["code_bits"], fill.data_ptr(), spec["D"], cdict.data_ptr(),
         x_c.data_ptr(), out.data_ptr(), nl, spec["w_dest"], spec["w_row"],
         spec["n_recv"], stream)
     if rc:

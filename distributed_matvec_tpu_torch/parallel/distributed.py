@@ -1,39 +1,65 @@
-"""Streamed matvec engine: y = H·x from a precomputed, compressed plan.
+"""Hash-sharded matvec engine: y = H·x over D shards of the basis.
 
-PyTorch counterpart of ``distributed_matvec_tpu/parallel/distributed.py``
-``DistributedEngine`` in ``mode="streamed"`` on one device.  The build
-resolves every row chunk's structure once — kernels and orbit scan, bucket
-routing, the receive-side basis lookup — into a host-RAM plan, encodes it
-with the ``lossless`` codec (``ops/plan_codec.py``), and keeps it in pinned
-host memory.  Every apply then streams the encoded chunks host → device,
-double-buffered on a side stream, and per chunk
+PyTorch counterpart of ``distributed_matvec_tpu/parallel/distributed.py``'s
+``DistributedEngine`` in its four non-hybrid modes.  State σ lives on shard
+``hash64(σ) % D``; vectors live in the *hashed* layout ``[D, M]`` (pad slots
+zero), or ``[D, M, R]`` for a block of R columns, and
+:class:`~.shuffle.HashedLayout` converts to and from the sorted (*block*)
+order.
 
-    send = fused_decode_gather_scatter(chunk, x[chunk rows])   (CUDA kernel)
-    y[ridx] += rok ? send : 0                                  (index_add_)
+All D shards live in one process, on the engine's ``device``: the
+counterpart of the JAX engine on a single-process mesh (how its tests run
+D = 2 … 8 on virtual CPU devices).  Per-shard work runs shard by shard —
+each shard's program is what one rank runs — and shards meet only in
+:func:`all_to_all`, the one exchange function: send buffers
+``[D_src, D_dst, C, …]`` in, receive buffers ``[D_dst, D_src, C, …]`` out,
+JAX's ``all_to_all(sb, axis, 0, 0, tiled=True)``.  On one device it is a
+transpose.
 
-followed by the diagonal epilogue ``y += diag·x``.  The orbit scan never
-runs again after the build.  At one device the exchange is the identity, so
-the send buffer is the receive buffer.
+Modes (``mode=``):
 
-Vectors live in the *hashed* layout ``[D, M]`` (here ``[1, M]``, pad slots
-zero); :class:`~.shuffle.HashedLayout` converts to and from the sorted
-(*block*) order.  A block of R columns is ``[1, M, R]``: the eager solvers
-(``lanczos_block``, LOBPCG, KPM, Krylov evolution) apply H to R vectors at
-once.  Each plan chunk is still streamed host → device once per apply; the
-decode kernel is launched once per column on that column's chunk rows, and
-the receive side adds the ``[n_recv, R]`` block with one ``index_add_``.
-(The JAX engine decodes a multi-column chunk through XLA ops, not its
-Pallas kernel, which covers the single-column stream only.)
+* ``"streamed"`` (the default): a build pass resolves every row chunk's
+  structure once — kernels and orbit scan, bucket routing, one exchange of
+  the target states, the receive-side basis lookup — into a host-RAM plan,
+  encoded with the ``lossless`` codec (``ops/plan_codec.py``) and kept in
+  pinned host memory.  Every apply streams the encoded chunks host → device,
+  double-buffered on a side stream, and per chunk
 
-Scope: one device, a real sector, the ``lossless`` tier with
-dictionary-coded coefficients — the scope of the CUDA kernel.  Anything
-else raises ``NotImplementedError``.
+      send[s] = fused_decode_gather_scatter(chunk[s], x[s] rows)  (CUDA)
+      recv = all_to_all(send)
+      y[d][ridx] += rok ? recv[d] : 0                             (index_add_)
+
+  followed by the diagonal epilogue ``y += diag·x``.  The decode kernel runs
+  once per shard per chunk per column; it zeroes the send slots no entry
+  writes from the chunk's per-bucket fill counts (the send side's
+  occupancy), which ride beside the encoded streams.  Real sectors, the
+  ``lossless`` tier, dictionary-coded coefficients.
+* ``"ell"``: the static routing plan.  The build deduplicates each shard's
+  remote targets per peer into query lists ``qin``; every apply is
+  ``x[qin]`` → exchange → ``[x; R]`` → a per-term ELL gather·multiply·add
+  (plus a tail over the rows wider than T0).  Real and complex128 sectors.
+* ``"compact"``: the ELL routing plan with 4-byte sign-tagged indices for
+  real sectors with one off-diagonal magnitude W; the coefficient is
+  ``W·s·n(j)/n(i)``, the remote norms exchanged once at build time.
+* ``"fused"``: no table; every apply re-runs the kernels per row chunk,
+  routes the amplitudes and their target states through fixed-capacity
+  buckets, exchanges both, and looks the targets up on the receive side.
+  Overflow and out-of-basis targets are counted and checked on the first
+  apply of each row-chunk size.  Real and complex128 sectors.
+
+The JAX engine's multi-process paths, ``_staged_all_to_all`` and
+pipelining, ``hybrid``, ``from_shards``, the structure and plan caches and
+autotuning are not in the port.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import time
-from typing import Dict, Iterator, Optional, Tuple
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +73,7 @@ from ..utils import u64
 from ..utils.device import resolve_device
 from .shuffle import HashedLayout
 
-__all__ = ["DistributedEngine", "SENTINEL_STATE"]
+__all__ = ["DistributedEngine", "SENTINEL_STATE", "all_to_all"]
 
 #: Padding state of the hashed layout: the all-ones u64, as int64 bits.
 SENTINEL_STATE = -1
@@ -57,8 +83,20 @@ _SENTINEL_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 #: ``matvec_batch_size`` default).
 DEFAULT_BATCH_SIZE = 1 << 16
 
-#: The host plan's per-chunk stride is a multiple of this many bytes.
+#: The JAX config's ``all_to_all_capacity_factor`` and
+#: ``remote_buffer_size`` defaults (``utils/config.py``): a bucket of the
+#: chunked modes' exchange holds ``min(max(⌈factor·B·T/D⌉, 64), B·T,
+#: remote_buffer_size)`` entries.
+ALL_TO_ALL_CAPACITY_FACTOR = 1.25
+REMOTE_BUFFER_SIZE = 150_000
+
+MODES = ("streamed", "ell", "compact", "fused")
+
+#: The host plan's per-record stride is a multiple of this many bytes.
 _ALIGN = 16
+
+_OUT_OF_BASIS = ("generated matrix elements map outside the basis — "
+                 "operator does not preserve the chosen sector")
 
 
 def _round_up(n: int, b: int) -> int:
@@ -67,125 +105,253 @@ def _round_up(n: int, b: int) -> int:
 
 def _bucket_positions(key: torch.Tensor, D: int) -> torch.Tensor:
     """Rank of each entry within its ``key`` bucket (keys in [0, D]; D marks
-    dead entries): the one-hot cumsum form the JAX engine uses for D ≤ 16,
-    bit-identical to a stable sort's positions."""
-    onehot = key[:, None] == torch.arange(D, device=key.device)[None, :]
-    pos_all = torch.cumsum(onehot.to(torch.int64), dim=0) - 1
-    return torch.take_along_dim(
-        pos_all, torch.clamp(key, 0, D - 1)[:, None], dim=1)[:, 0]
+    dead entries), bit-identical to the JAX engine's, dead entries
+    included.  For D ≤ 16 the JAX engine takes a one-hot cumsum over
+    ``[N, D]``; here each bucket is one 1-D cumsum over its mask (a
+    ``[N, D]`` cumsum along N runs as D sequential scans on the card), and
+    a dead entry takes bucket D−1's running rank, as the one-hot form's
+    clamped gather gives it.  Beyond 16 buckets both take a stable sort."""
+    if D <= 16:
+        pos = torch.zeros_like(key)
+        for k in range(D):
+            m = key == k
+            rank = torch.cumsum(m, 0) - 1
+            pos = torch.where(m | (key == D) if k == D - 1 else m, rank,
+                              pos)
+        return pos
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    starts = torch.searchsorted(
+        key_s, torch.arange(D + 1, dtype=key.dtype, device=key.device))
+    pos_s = (torch.arange(key_s.shape[0], device=key.device)
+             - starts[torch.clamp(key_s, 0, D)])
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=key.device)
+    return pos_s[inv]
+
+
+def all_to_all(send: torch.Tensor) -> torch.Tensor:
+    """The exchange: shard d's receive block s is shard s's send block d.
+    ``send`` is ``[D_src, D_dst, C, …]``; returns ``[D_dst, D_src, C, …]``,
+    contiguous.  All shards live on one device here, so it is a
+    transpose (no copy at D = 1)."""
+    return send.transpose(0, 1).contiguous()
 
 
 class DistributedEngine:
-    """Streamed matvec over the hashed layout of a built basis.
+    """Hash-sharded matvec over a built basis, D shards on one device.
 
     Usage::
 
-        eng = DistributedEngine(op)           # on the card
-        xh = eng.to_hashed(x)                 # block [N] → hashed [1, M]
+        eng = DistributedEngine(op, n_devices=4, mode="ell")   # on the card
+        xh = eng.to_hashed(x)                 # block [N] → hashed [D, M]
         yh = eng.matvec(xh)
         y = eng.from_hashed(yh)
 
-    ``batch_size`` is the plan's row chunk B (default 65536);
-    ``stream_compress`` the codec tier.  ``device`` defaults to ``cuda``
-    and raises when there is none.
+    ``n_devices`` is the shard count D.  ``batch_size`` is the row chunk B
+    of the plan builds and the chunked applies (default 65536, at most M);
+    ``stream_compress`` the streamed codec tier.
+    ``all_to_all_capacity_factor`` and ``remote_buffer_size`` size the
+    chunked modes' exchange buckets as the JAX config does.  ``device``
+    defaults to ``cuda`` and raises when there is none.
     """
 
     def __init__(self, operator: Operator, n_devices: int = 1,
                  batch_size: Optional[int] = None, mode: str = "streamed",
-                 stream_compress: str = "lossless", device=None):
-        self.device = resolve_device(device)
-        if mode != "streamed":
+                 stream_compress: str = "lossless", device=None,
+                 all_to_all_capacity_factor: float =
+                 ALL_TO_ALL_CAPACITY_FACTOR,
+                 remote_buffer_size: int = REMOTE_BUFFER_SIZE):
+        self.device = dev = resolve_device(device)
+        if mode == "hybrid":
             raise NotImplementedError(
-                f"engine mode {mode!r}: the port has mode='streamed' only")
-        if n_devices != 1:
-            raise NotImplementedError(
-                f"n_devices={n_devices}: the port runs on one device")
-        if stream_compress not in PC.TIERS:
-            raise NotImplementedError(
-                f"stream_compress={stream_compress!r}: the port has "
-                f"{'|'.join(PC.TIERS)} only")
+                "engine mode 'hybrid': the port has "
+                f"{'|'.join(MODES)}")
+        if mode not in MODES:
+            raise ValueError(f"unknown engine mode {mode!r}")
+        D = int(n_devices)
+        if D < 1:
+            raise ValueError(f"n_devices={n_devices}: need at least 1")
         if not operator.is_hermitian:
             raise ValueError("the engine requires a Hermitian operator")
-        if not operator.effective_is_real:
-            raise NotImplementedError(
-                "complex sectors are not in the port yet")
+        self.real = operator.effective_is_real
+        if mode == "streamed":
+            if stream_compress not in PC.TIERS:
+                raise NotImplementedError(
+                    f"stream_compress={stream_compress!r}: the port has "
+                    f"{'|'.join(PC.TIERS)} only")
+            if not self.real:
+                raise NotImplementedError(
+                    "complex sectors are not in the port's streamed engine "
+                    "yet (use mode='ell' or 'fused')")
+        if mode == "compact" and not self.real:
+            raise ValueError(
+                "compact mode requires a real sector (use mode='ell' "
+                "for complex-character momentum sectors)")
         self.operator = operator
         self.mode = mode
-        self.n_devices = 1
+        self.n_devices = D
         self.stream_compress = stream_compress
+        self.all_to_all_capacity_factor = float(all_to_all_capacity_factor)
+        self.remote_buffer_size = int(remote_buffer_size)
+        self._dtype = torch.float64 if self.real else torch.complex128
         #: seconds of each construction phase
         self.timings: Dict[str, float] = {}
-        #: matvec calls so far (each launches one decode kernel per chunk
-        #: and column)
+        #: matvec calls so far
         self.n_applies = 0
+        #: fused mode: row-chunk sizes whose overflow and out-of-basis
+        #: counters were checked (the other modes check them at build)
+        self._checked: set = set()
 
         basis = operator.basis
         if not basis.is_built:
             basis.build()
         reps, norms = basis.representatives, basis.norms
-        self.layout = HashedLayout(reps, 1)
+        self.layout = HashedLayout(reps, D)
         self.n_states = int(reps.size)
         self.shard_size = M = self.layout.shard_size
         self.counts = self.layout.counts
-        count = int(self.counts[0])
-        alphas_np = self.layout.to_hashed(reps, fill=_SENTINEL_U64)[0]
-        norms_np = self.layout.to_hashed(norms, fill=1.0)[0]
+        alphas_np = self.layout.to_hashed(reps, fill=_SENTINEL_U64)
+        norms_np = self.layout.to_hashed(norms, fill=1.0)
 
-        dev = self.device
         self.tables = K.device_tables(operator, dev)
         self.num_terms = int(self.tables.off.x.shape[0])
-        self._alphas = u64.from_numpy(alphas_np, dev)
-        self._norms = torch.from_numpy(norms_np).to(dev)
-        dd = K.apply_diag(self.tables.diag, self._alphas)
-        self._diag = torch.where(self._alphas != SENTINEL_STATE, dd,
-                                 torch.zeros_like(dd))
+        self._alphas = u64.from_numpy(alphas_np, dev)          # [D, M]
+        self._norms = torch.from_numpy(norms_np).to(dev)      # [D, M]
+        self._diag = torch.empty((D, M), dtype=torch.float64, device=dev)
+        for d in range(D):
+            dd = K.apply_diag(self.tables.diag, self._alphas[d])
+            self._diag[d] = torch.where(self._alphas[d] != SENTINEL_STATE,
+                                        dd, torch.zeros_like(dd))
 
         b = min(batch_size or DEFAULT_BATCH_SIZE, M)
         self.batch_size = _round_up(min(b, M), 8)
 
-        # bucketed lookup over the shard's real prefix; pad rows repeat the
-        # last real row so a probe clamping past the prefix cannot match a
-        # SENTINEL query
-        n_bits = basis.number_bits
-        lk = build_sorted_lookup(alphas_np[:count], n_bits,
-                                 dir_bits=choose_dir_bits(count, n_bits))
-        pr = np.full((M, 2), 0xFFFFFFFF, np.uint32)
-        pr[:count] = lk[0]
-        if 0 < count < M:
-            pr[count:] = lk[0][-1]
-        self._lk_pair = torch.from_numpy(pr.astype(np.int64)).to(dev)
-        self._lk_dir = torch.from_numpy(lk[1]).to(dev)
-        self._lk_shift, self._lk_probes = lk[2], lk[3]
-        # one device: the whole chunk's entries fit one bucket
-        self._capacity = _round_up(self.batch_size * self.num_terms, 8)
-
         t0 = time.perf_counter()
+        if mode in ("ell", "compact"):
+            if mode == "compact":
+                self._c_W = self._compact_W(alphas_np)
+            self._plan_stream(compact=mode == "compact")
+            self.timings["plan_build_s"] = time.perf_counter() - t0
+            return
+        self._init_lookup(alphas_np, basis.number_bits)
+        self._capacity = self._fused_capacity()
+        if mode == "fused":
+            return
         raw = self._build_stream_plan()
         self.timings["plan_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self._encode_stream_plan(raw)
         self.timings["plan_encode_s"] = time.perf_counter() - t0
-        self._cdict = torch.from_numpy(
-            self._codec.dict_device_row(0)).to(dev)
+        self._cdict = torch.from_numpy(np.stack(
+            [self._codec.dict_device_row(d) for d in range(D)])).to(dev)
         if dev.type == "cuda":
             self._copy_stream = torch.cuda.Stream(dev)
             self._dev_bufs = torch.empty(
-                (2, self._chunk_stride), dtype=torch.uint8, device=dev)
+                (2, D, self._chunk_stride), dtype=torch.uint8, device=dev)
             self._ready = [torch.cuda.Event(), torch.cuda.Event()]
             self._free = [torch.cuda.Event(), torch.cuda.Event()]
 
-    # -- plan build ----------------------------------------------------------
+    # -- shared set-up ---------------------------------------------------------
+
+    def _init_lookup(self, alphas_np: np.ndarray, n_bits: int) -> None:
+        """Per-shard bucketed lookup over each shard's real prefix, with one
+        directory width for all shards (from the largest) so the stacked
+        tables are uniform; pad rows repeat the last real row so a probe
+        clamping past the prefix cannot match a SENTINEL query."""
+        D, M = self.n_devices, self.shard_size
+        counts = self.counts
+        b_global = choose_dir_bits(int(counts.max()), n_bits)
+        pairs = np.full((D, M, 2), 0xFFFFFFFF, np.uint32)
+        dirs = []
+        probes, shift = 0, None
+        for d in range(D):
+            c = int(counts[d])
+            lk = build_sorted_lookup(alphas_np[d, :c], n_bits,
+                                     dir_bits=b_global)
+            shift, probes = lk[2], max(probes, lk[3])
+            pairs[d, :c] = lk[0]
+            if 0 < c < M:
+                pairs[d, c:] = lk[0][-1]
+            dirs.append(lk[1])
+        self._lk_pair = torch.from_numpy(pairs.astype(np.int64)).to(
+            self.device)                                       # [D, M, 2]
+        self._lk_dir = torch.from_numpy(np.stack(dirs)).to(self.device)
+        self._lk_shift, self._lk_probes = shift, probes
+
+    def _lookup(self, d: int, states: torch.Tensor):
+        """(index, found) of ``states`` on shard d."""
+        return state_index_bucketed(
+            self._lk_pair[d], self._lk_dir[d], states, shift=self._lk_shift,
+            probes=self._lk_probes)
+
+    def _fused_capacity(self, batch_rows: Optional[int] = None) -> int:
+        """Entries per exchange bucket of one row chunk: all of them at
+        D = 1, else ``min(max(⌈factor·B·T/D⌉, 64), B·T,
+        remote_buffer_size)`` (warning when that is below the mean bucket
+        size), rounded up to 8."""
+        D, T = self.n_devices, self.num_terms
+        B = batch_rows or self.batch_size
+        total = B * max(T, 1)
+        if D == 1:
+            return _round_up(total, 8)
+        mean = total / D
+        cap = int(math.ceil(mean * max(self.all_to_all_capacity_factor,
+                                       1.0)))
+        cap = min(max(cap, 64), total, self.remote_buffer_size)
+        if cap < mean:
+            # a cap below the per-chunk mean bucket size makes overflow
+            # near-certain for any balanced hash; kept a warning, not an
+            # error, as tiny caps are how the overflow check is exercised
+            warnings.warn(
+                f"fused-mode exchange capacity {cap} is below the mean "
+                f"per-peer bucket size {mean:.0f} (batch {B} × {T} terms "
+                f"on {D} shards) — the first apply will almost surely "
+                "overflow; raise remote_buffer_size or lower batch_size",
+                RuntimeWarning, stacklevel=3)
+        return _round_up(cap, 8)
+
+    @staticmethod
+    def _validate_counters(overflow: int, invalid: int, key,
+                           cap: int) -> None:
+        """Raise when the counters report lost amplitudes."""
+        if overflow:
+            raise RuntimeError(
+                f"{overflow} amplitudes overflowed the all_to_all "
+                f"capacity {cap} (program chunk {key}); raise "
+                "remote_buffer_size or all_to_all_capacity_factor")
+        if invalid:
+            raise RuntimeError(
+                f"{invalid} generated amplitudes map outside the "
+                "basis — operator does not preserve the chosen sector")
+
+    def _route(self, betas: torch.Tensor, live: torch.Tensor, cap: int):
+        """Bucket routing of one shard's chunk: ``dest`` [n] (``key·cap +
+        rank``, or the drop slot ``D·cap`` for dead and overflowed
+        entries) and the overflow count."""
+        D = self.n_devices
+        owner = shard_index(betas, D).to(torch.int64)
+        key = torch.where(live, owner, D)
+        pos = _bucket_positions(key, D)
+        in_cap = (pos < cap) & (key < D)
+        overflow = ((pos >= cap) & (key < D)).sum()
+        return torch.where(in_cap, key * cap + pos, D * cap), overflow
+
+    # -- streamed: plan build ------------------------------------------------
 
     @property
     def nchunks(self) -> int:
+        """Row chunks per shard (streamed and fused modes)."""
         B = self.batch_size
         return (self.shard_size + B - 1) // B
 
-    def _chunk_rows(self, ci: int):
-        """Row chunk ``ci`` padded to B (SENTINEL rows, unit norms)."""
-        B, M = self.batch_size, self.shard_size
+    def _chunk_rows(self, d: int, ci: int, B: Optional[int] = None):
+        """Shard d's row chunk ``ci`` padded to B (SENTINEL rows, unit
+        norms)."""
+        B = B or self.batch_size
+        M = self.shard_size
         s, e = ci * B, min((ci + 1) * B, M)
-        a, nn = self._alphas[s:e], self._norms[s:e]
+        a, nn = self._alphas[d, s:e], self._norms[d, s:e]
         if e - s < B:
             pad = B - (e - s)
             a = torch.cat([a, torch.full((pad,), SENTINEL_STATE,
@@ -194,69 +360,66 @@ class DistributedEngine:
                                            device=nn.device)])
         return a, nn
 
-    def _build_chunk(self, a: torch.Tensor, nn: torch.Tensor):
-        """One row chunk's raw plan: kernels + orbit scan, bucket routing,
-        and the receive-side lookup.  Returns the host arrays ``dest``
-        [B·T] i32, ``coeff`` [B, T] f64, ``ridx`` [Cap] i32, ``rok`` [Cap]
-        bool, and the chunk's overflow and invalid counts."""
+    def _build_chunk(self, ci: int):
+        """Row chunk ``ci`` of every shard, as the JAX build program runs
+        it: each shard's kernels + orbit scan and bucket routing, one
+        exchange of the target states, each shard's receive-side lookup.
+        Returns ``({shard: raw chunk}, overflow, invalid)``, a raw chunk
+        being the host arrays ``dest`` [B·T] i32, ``coeff`` [B, T] f64,
+        ``ridx`` [D·Cap] i32 and ``rok`` [D·Cap] bool."""
         D, Cap = self.n_devices, self._capacity
-        betas, gcoeff = K.gather_coefficients(self.tables, a, nn)
-        valid_row = (a != SENTINEL_STATE)[:, None]
-        nz = (gcoeff != 0) & valid_row
-        cf = torch.where(nz, gcoeff, torch.zeros_like(gcoeff))
-        flat_b = betas.reshape(-1)
-        live = nz.reshape(-1)
-        owner = shard_index(flat_b, D).to(torch.int64)
-        key = torch.where(live, owner, D)
-        pos = _bucket_positions(key, D)
-        in_cap = (pos < Cap) & (key < D)
-        overflow = int(((pos >= Cap) & (key < D)).sum())
-        dest = torch.where(in_cap, key * Cap + pos, D * Cap)
-        # the trailing slot takes the dropped (dead) entries
-        send_b = torch.full((D * Cap + 1,), SENTINEL_STATE,
-                            dtype=torch.int64, device=a.device)
-        send_b[dest] = flat_b
-        recv_b = send_b[:D * Cap]          # one device: no exchange
-        idx, found = state_index_bucketed(
-            self._lk_pair, self._lk_dir, recv_b, shift=self._lk_shift,
-            probes=self._lk_probes)
-        live_r = recv_b != SENTINEL_STATE
-        okc = found & live_r
-        invalid = int((live_r & ~found).sum())
-        ridx = torch.where(okc, idx, 0)
-        return ({"dest": dest.to(torch.int32).cpu().numpy(),
-                 "coeff": cf.cpu().numpy(),
-                 "ridx": ridx.to(torch.int32).cpu().numpy(),
-                 "rok": okc.cpu().numpy()}, overflow, invalid)
+        send_b = torch.full((D, D * Cap + 1), SENTINEL_STATE,
+                            dtype=torch.int64, device=self.device)
+        per, overflow = {}, 0
+        for s in range(D):
+            a, nn = self._chunk_rows(s, ci)
+            betas, gcoeff = K.gather_coefficients(self.tables, a, nn)
+            nz = (gcoeff != 0) & (a != SENTINEL_STATE)[:, None]
+            flat_b = betas.reshape(-1)
+            dest, ov = self._route(flat_b, nz.reshape(-1), Cap)
+            overflow += int(ov)
+            # the trailing slot takes the dropped (dead) entries
+            send_b[s, dest] = flat_b
+            per[s] = {"dest": dest.to(torch.int32).cpu().numpy(),
+                      "coeff": torch.where(nz, gcoeff,
+                                           torch.zeros_like(gcoeff))
+                      .cpu().numpy()}
+        recv_b = all_to_all(send_b[:, :D * Cap].reshape(D, D, Cap))
+        invalid = 0
+        for d in range(D):
+            rb = recv_b[d].reshape(-1)
+            idx, found = self._lookup(d, rb)
+            live_r = rb != SENTINEL_STATE
+            okc = found & live_r
+            invalid += int((live_r & ~found).sum())
+            per[d]["ridx"] = torch.where(okc, idx, 0).to(
+                torch.int32).cpu().numpy()
+            per[d]["rok"] = okc.cpu().numpy()
+        return per, overflow, invalid
 
     def _build_stream_plan(self):
         """Resolve every row chunk's structure once into host arrays,
-        ``[{shard: raw chunk}]`` as the JAX engine keeps them."""
+        ``[{shard: raw chunk}]`` as the JAX engine keeps them; raises on
+        overflow or out-of-basis targets."""
         chunks = []
         overflow = invalid = 0
         for ci in range(self.nchunks):
-            pc, ov, iv = self._build_chunk(*self._chunk_rows(ci))
-            chunks.append({0: pc})
+            per, ov, iv = self._build_chunk(ci)
+            chunks.append(per)
             overflow += ov
             invalid += iv
-        if overflow:
-            raise RuntimeError(
-                f"{overflow} amplitudes overflowed the exchange capacity "
-                f"{self._capacity}")
-        if invalid:
-            raise RuntimeError(
-                f"{invalid} generated amplitudes map outside the basis — "
-                "operator does not preserve the chosen sector")
+        self._validate_counters(overflow, invalid, "streamed",
+                                self._capacity)
         return chunks
 
     def _encode_stream_plan(self, raw) -> None:
         """Encode the raw chunks with the codec and pack them into one host
-        buffer (pinned on CUDA) of ``nchunks`` equal-stride records:
-        dest+row words | ridx words | rok words | codes."""
-        B, T = self.batch_size, self.num_terms
+        buffer (pinned on CUDA) of ``[nchunks, D]`` equal-stride records:
+        dest+row words | ridx words | rok words | codes | fill counts."""
+        D, B, T = self.n_devices, self.batch_size, self.num_terms
         self._codec = codec = PC.PlanCodec.build(
             self.stream_compress, raw, n_dest=B * T,
-            cap_build=self._capacity, n_devices=1,
+            cap_build=self._capacity, n_devices=D,
             shard_size=self.shard_size, cshape=(B, T), ckind="real")
         spec = codec.spec
         if spec["coeff"] != "dict":
@@ -265,42 +428,57 @@ class DistributedEngine:
                 "dictionary: raw coefficient streams are not in the port "
                 "yet")
         nl, n_recv = spec["n_live"], spec["n_recv"]
-        words = {"dest": PC.packed_words(nl, spec["w_dest"])
-                 + PC.packed_words(nl, spec["w_row"]),
-                 "ridx": PC.packed_words(n_recv, spec["w_ridx"]),
-                 "rok": PC.packed_words(n_recv, 1)}
-        code_bytes = nl * spec["code_bits"] // 8
+        sizes = {"dest": 4 * (PC.packed_words(nl, spec["w_dest"])
+                              + PC.packed_words(nl, spec["w_row"])),
+                 "ridx": 4 * PC.packed_words(n_recv, spec["w_ridx"]),
+                 "rok": 4 * PC.packed_words(n_recv, 1),
+                 "coeff": nl * spec["code_bits"] // 8,
+                 "fill": 4 * D}
         layout, off = {}, 0
-        for k in ("dest", "ridx", "rok"):
-            layout[k] = (off, words[k] * 4)
-            off += words[k] * 4
-        layout["coeff"] = (off, code_bytes)
-        self._chunk_stride = _round_up(off + code_bytes, _ALIGN)
+        # every size is a multiple of 4 bytes (n_live is a multiple of 8)
+        for k in ("dest", "ridx", "rok", "coeff", "fill"):
+            layout[k] = (off, sizes[k])
+            off += sizes[k]
+        self._chunk_stride = _round_up(off, _ALIGN)
         self._chunk_layout = layout
         n = self.nchunks
         self._plan_host = torch.zeros(
-            (n, self._chunk_stride), dtype=torch.uint8,
+            (n, D, self._chunk_stride), dtype=torch.uint8,
             pin_memory=self.device.type == "cuda")
         host = self._plan_host.numpy()
-        enc_bytes = 0
-        for ci in range(n):
-            enc = codec.encode_chunk(raw[ci][0], 0)
-            raw[ci] = None                       # free the raw chunk
-            for k, (o, nb) in layout.items():
-                a = np.ascontiguousarray(enc[k]).view(np.uint8)
-                if a.size != nb:
-                    raise ValueError(f"encoded {k} has {a.size} bytes, the "
-                                     f"chunk layout {nb}")
-                host[ci, o:o + nb] = a
-            enc_bytes += PC.PlanCodec.encoded_bytes(enc)
-        self.plan_bytes = enc_bytes
-        self.plan_bytes_raw = codec.raw_chunk_bytes() * n
 
-    # -- plan access -----------------------------------------------------------
+        def encode(ci: int) -> int:
+            """Encode chunk ci's records into the host buffer; returns the
+            encoded streams' bytes, as the JAX engine counts them."""
+            nbytes = 0
+            for d in range(D):
+                pc = raw[ci][d]
+                enc = codec.encode_chunk(pc, d)
+                enc["fill"] = PC.send_fill(pc["dest"], D, self._capacity)
+                for k, (o, nb) in layout.items():
+                    a = np.ascontiguousarray(enc[k]).view(np.uint8)
+                    if a.size != nb:
+                        raise ValueError(f"encoded {k} has {a.size} bytes, "
+                                         f"the chunk layout {nb}")
+                    host[ci, d, o:o + nb] = a
+                del enc["fill"]
+                nbytes += PC.PlanCodec.encoded_bytes(enc)
+            raw[ci] = None                       # free the raw chunk
+            return nbytes
+
+        # chunks encode independently into their own records; NumPy's
+        # large-array kernels release the GIL, so threads overlap them
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            enc_bytes = sum(pool.map(encode, range(n)))
+        self.plan_bytes = enc_bytes
+        self.plan_bytes_raw = codec.raw_chunk_bytes() * n * D
+
+    # -- streamed: plan access ------------------------------------------------
 
     def _chunk_views(self, buf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """(dest+row words, codes, ridx words, rok words) of one chunk
-        record, as int32 / uint8-or-int16 views of its bytes."""
+        """(dest+row words, codes, ridx words, rok words, fill counts) of
+        one (chunk, shard) record, as int32 / uint8-or-int16 views of its
+        bytes."""
         def view(k, dtype):
             o, nb = self._chunk_layout[k]
             return buf[o:o + nb].view(dtype)
@@ -308,29 +486,34 @@ class DistributedEngine:
         code_dtype = torch.uint8 if self._codec.spec["code_bits"] == 8 \
             else torch.int16
         return (view("dest", torch.int32), view("coeff", code_dtype),
-                view("ridx", torch.int32), view("rok", torch.int32))
+                view("ridx", torch.int32), view("rok", torch.int32),
+                view("fill", torch.int32))
 
-    def plan_chunk(self, ci: int) -> Dict[str, np.ndarray]:
-        """Encoded chunk ``ci`` as NumPy arrays in the JAX engine's form:
-        ``dest``/``ridx``/``rok`` u32 word streams, ``coeff`` u8/u16
-        codes."""
-        dest, codes, ridx, rok = self._chunk_views(self._plan_host[ci])
+    def plan_chunk(self, ci: int, d: int = 0) -> Dict[str, np.ndarray]:
+        """Shard d's encoded chunk ``ci`` as NumPy arrays in the JAX
+        engine's form (``dest``/``ridx``/``rok`` u32 word streams,
+        ``coeff`` u8/u16 codes), plus its ``fill`` counts [D] int32."""
+        dest, codes, ridx, rok, fill = self._chunk_views(
+            self._plan_host[ci, d])
         code_np = np.uint8 if codes.dtype == torch.uint8 else np.uint16
         return {"dest": dest.numpy().view(np.uint32),
                 "coeff": codes.numpy().view(code_np),
                 "ridx": ridx.numpy().view(np.uint32),
-                "rok": rok.numpy().view(np.uint32)}
+                "rok": rok.numpy().view(np.uint32),
+                "fill": fill.numpy().copy()}
 
-    def _stream_chunks(self) -> Iterator[Tuple[torch.Tensor, ...]]:
-        """The plan's chunks as device views, in order.  On CUDA each chunk
-        is copied host → device on a side stream into one of two buffers,
+    def _stream_chunks(self) -> Iterator[List[Tuple[torch.Tensor, ...]]]:
+        """The plan's chunks as device views, in order: per chunk, the D
+        shards' record views.  On CUDA each chunk's records are copied host
+        → device in one copy on a side stream, into one of two buffers,
         one chunk ahead of its use; the compute stream waits for the copy,
         and the copy into a buffer waits for the compute that last read
         it."""
-        n = self.nchunks
+        n, D = self.nchunks, self.n_devices
         if self.device.type != "cuda":
             for ci in range(n):
-                yield self._chunk_views(self._plan_host[ci])
+                yield [self._chunk_views(self._plan_host[ci, d])
+                       for d in range(D)]
             return
         compute = torch.cuda.current_stream(self.device)
         copy = self._copy_stream
@@ -351,62 +534,489 @@ class DistributedEngine:
                 issue(ci + 1)
             slot = ci % 2
             compute.wait_event(self._ready[slot])
-            yield self._chunk_views(self._dev_bufs[slot])
+            yield [self._chunk_views(self._dev_bufs[slot, d])
+                   for d in range(D)]
             self._free[slot].record(compute)
+
+    # -- streamed: apply -----------------------------------------------------
+
+    def _apply(self, xh: torch.Tensor, chunks) -> torch.Tensor:
+        """The streamed apply over ``chunks``, an iterable of the plan's
+        per-chunk shard views on the device in chunk order
+        (:meth:`_stream_chunks` streams them from host memory).  Columns
+        are applied side by side: per chunk one decode launch per shard
+        and column into one ``[D, R, D·cap + 1]`` send buffer, the
+        exchange, then per shard one ``index_add_`` of its ``[n_recv, R]``
+        receive block."""
+        D, M, B = self.n_devices, self.shard_size, self.batch_size
+        spec = self._codec.spec
+        n_recv, w_ridx, cap = spec["n_recv"], spec["w_ridx"], spec["cap_eff"]
+        x = xh.reshape(D, M, -1)                       # [D, M, R]
+        R = x.shape[2]
+        # column-major copy: each column's chunk rows are contiguous, as
+        # the kernel takes them
+        xp = torch.zeros((D, R, self.nchunks * B), dtype=torch.float64,
+                         device=self.device)
+        xp[:, :, :M] = x.transpose(1, 2)
+        y = torch.zeros((D, M, R), dtype=torch.float64, device=self.device)
+        for ci, views in enumerate(chunks):
+            send = torch.empty((D, R, n_recv + 1), dtype=torch.float64,
+                               device=self.device)
+            for s in range(D):
+                edest, codes, _, _, fill = views[s]
+                for r in range(R):
+                    PC.fused_decode_gather_scatter(
+                        spec, edest, codes, fill, self._cdict[s],
+                        xp[s, r, ci * B:(ci + 1) * B], out=send[s, r])
+            recv = all_to_all(send[:, :, :n_recv].reshape(
+                D, R, D, cap).permute(0, 2, 3, 1))     # [D, D, cap, R]
+            for d in range(D):
+                _, _, ridx_w, rok_w, _ = views[d]
+                ridx = PC.unpack_bits(ridx_w, n_recv, w_ridx)
+                rok = PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)
+                y[d].index_add_(0, ridx, torch.where(
+                    rok[:, None], recv[d].reshape(n_recv, R), 0.0))
+        return (y + self._diag[:, :, None] * x).reshape(xh.shape)
+
+    # -- fused ---------------------------------------------------------------
+
+    def _apply_fused(self, x: torch.Tensor, B: int, cap: int):
+        """Per row chunk: each shard re-runs the kernels, routes its
+        amplitudes and their target states into ``[D, cap]`` buckets; both
+        are exchanged; each shard looks the targets up and adds.  ``x`` is
+        ``[D, M, R]``.  Returns (y, overflow, invalid) as tensors."""
+        D, M = self.n_devices, self.shard_size
+        R = x.shape[2]
+        nchunks = (M + B - 1) // B
+        dev, dtype = self.device, self._dtype
+        xp = torch.zeros((D, nchunks * B, R), dtype=dtype, device=dev)
+        xp[:, :M] = x
+        y = torch.zeros((D, M, R), dtype=dtype, device=dev)
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        invalid = torch.zeros((), dtype=torch.int64, device=dev)
+        for ci in range(nchunks):
+            send_b = torch.full((D, D * cap + 1), SENTINEL_STATE,
+                                dtype=torch.int64, device=dev)
+            send_a = torch.zeros((D, D * cap + 1, R), dtype=dtype,
+                                 device=dev)
+            for s in range(D):
+                a_c, n_c = self._chunk_rows(s, ci, B)
+                x_c = xp[s, ci * B:(ci + 1) * B]              # [B, R]
+                betas, gcoeff = K.gather_coefficients(self.tables, a_c, n_c)
+                # scatter form: conj(row form)·x[α]; liveness is structural
+                nz = (gcoeff != 0) & (a_c != SENTINEL_STATE)[:, None]
+                amps = torch.where(nz[..., None],
+                                   gcoeff.conj()[..., None] * x_c[:, None],
+                                   0)
+                flat_b = betas.reshape(-1)
+                dest, ov = self._route(flat_b, nz.reshape(-1), cap)
+                overflow += ov
+                send_b[s, dest] = flat_b
+                send_a[s, dest] = amps.reshape(-1, R)
+            recv_b = all_to_all(send_b[:, :D * cap].reshape(D, D, cap))
+            recv_a = all_to_all(send_a[:, :D * cap].reshape(D, D, cap, R))
+            for d in range(D):
+                rb = recv_b[d].reshape(-1)
+                idx, found = self._lookup(d, rb)
+                live_r = rb != SENTINEL_STATE
+                okc = found & live_r
+                invalid += (live_r & ~found).sum()
+                y[d].index_add_(0, torch.where(okc, idx, 0), torch.where(
+                    okc[:, None], recv_a[d].reshape(-1, R), 0))
+        return y, overflow, invalid
+
+    # -- ell / compact: the static routing plan -----------------------------
+
+    def _compact_W(self, alphas_np: np.ndarray) -> float:
+        """The single off-diagonal magnitude W, from a sample strided across
+        the shards' real rows (the hash partition makes every shard an
+        unbiased sample); raises when the sample shows more than one."""
+        from .engine import compact_magnitudes
+
+        D = self.n_devices
+        per = max(1, 4096 // D)
+        smp = [alphas_np[d][np.linspace(
+            0, int(c) - 1, min(per, int(c))).astype(np.int64)]
+            for d, c in enumerate(self.counts) if c]
+        vals = compact_magnitudes(
+            self.operator, sample_states=np.concatenate(smp) if smp
+            else np.zeros(0, np.uint64))
+        if vals.size > 1:
+            raise ValueError(
+                f"compact mode needs a single off-diagonal magnitude, "
+                f"found {vals[:5]}; use mode='ell'")
+        return float(vals[0]) if vals.size else 0.0
+
+    def _structure_chunks(self, d: int, Bc: int):
+        """Yield ``(s, e, n_c, betas, cf, nz)`` per row chunk of shard d,
+        padded to ``Bc`` rows (SENTINEL rows carry cf == 0), as tensors on
+        the device."""
+        M = self.shard_size
+        for ci in range((M + Bc - 1) // Bc):
+            s, e = ci * Bc, min((ci + 1) * Bc, M)
+            a_c, n_c = self._chunk_rows(d, ci, Bc)
+            betas, cf = K.gather_coefficients(self.tables, a_c, n_c)
+            nz = (cf != 0) & (a_c != SENTINEL_STATE)[:, None]
+            yield s, e, n_c, betas, cf, nz
+
+    def _plan_stream(self, compact: bool) -> None:
+        """The two-pass routing-plan build of the JAX engine (ELL and
+        compact), bit for bit, on the device over row chunks.
+
+        Pass 1 walks each shard's row chunks keeping per-row nnz counts and
+        each peer's UNIQUE remote target states (deduplicated: entries
+        reading the same remote x share one exchange slot), and checks the
+        local targets; pass 1b resolves the unique targets against each
+        peer's rows into the query lists ``qin``; pass 2 packs each shard's
+        entries into its tables — local index, or ``M + p·C + slot`` for a
+        remote one — with the stable left-pack and the two-level split.
+
+        States are searched and sorted as ``σ ^ 2⁶³``: int64 order of those
+        keys is the unsigned order of the states (the JAX engine's host
+        NumPy sorts u64), so positions and unique lists match it."""
+        from .engine import choose_ell_split
+
+        D, M, T = self.n_devices, self.shard_size, self.num_terms
+        dev = self.device
+        Bc = min(M, max(self.batch_size, 8))
+        flip = -(1 << 63)
+        # per shard: sorted search keys of its rows (SENTINEL pads last)
+        akey = self._alphas ^ flip                             # [D, M]
+
+        def rank(keys: torch.Tensor, sorted_keys: torch.Tensor):
+            """``np.searchsorted`` (left), clipped to the last index."""
+            ip = torch.searchsorted(sorted_keys, keys)
+            return ip.clamp_(0, max(sorted_keys.shape[0] - 1, 0))
+
+        # -- pass 1: row-nnz counts, per-peer unique remote targets, local
+        #    sector check
+        nnz = torch.zeros((D, M), dtype=torch.int64, device=dev)
+        uniq = [[None] * D for _ in range(D)]     # flipped keys, sorted
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for d in range(D):
+            pend = [[] for _ in range(D)]
+            for s, e, n_c, betas, cf, nz in self._structure_chunks(d, Bc):
+                nnz[d, s:e] = nz.sum(dim=1)[: e - s]
+                flat_b = betas[nz]
+                owner = shard_index(flat_b, D)
+                lk = flat_b[owner == d] ^ flip
+                bad += (akey[d][rank(lk, akey[d])] != lk).sum()
+                for p in range(D):
+                    if p != d:
+                        pend[p].append(torch.unique(flat_b[owner == p]
+                                                    ^ flip))
+            for p in range(D):
+                if p != d and pend[p]:
+                    uniq[d][p] = torch.unique(torch.cat(pend[p]))
+            del pend
+
+        # -- pass 1b: resolve unique targets against each peer's rows
+        empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
+        queries = [[empty_i] * D for _ in range(D)]
+        qstate = [[empty_i] * D for _ in range(D)]     # flipped keys
+        qnorm = [[torch.zeros(0, dtype=torch.float64, device=dev)] * D
+                 for _ in range(D)]
+        for d in range(D):
+            for p in range(D):
+                ub = uniq[d][p]
+                if ub is None:
+                    continue
+                ip = rank(ub, akey[p])
+                ok = akey[p][ip] == ub
+                bad += (~ok).sum()
+                queries[d][p] = ip[ok]
+                qstate[d][p] = ub[ok]
+                qnorm[d][p] = self._norms[p][ip[ok]]
+        del uniq
+        if int(bad):
+            raise RuntimeError(f"{int(bad)} {_OUT_OF_BASIS}")
+
+        hist = torch.bincount(nnz.reshape(-1), minlength=T + 1).cpu().numpy()
+        cap = max(q.numel() for row in queries for q in row)
+        T0, S, Tmax = choose_ell_split(hist, D * M, T,
+                                       real_rows=self.n_states)
+        self._ell_T0 = T0
+        self.ell_split = (T0, S, Tmax)
+        Tw = Tmax - T0 if S else 0
+        C = _round_up(cap, 8)
+        self.query_capacity = C
+
+        # qin[d, q] = the local indices peer q reads from shard d (0-padded)
+        self._qin = torch.zeros((D, D, C), dtype=torch.int32, device=dev)
+        for d in range(D):
+            for q in range(D):
+                if q != d:
+                    ql = queries[q][d]
+                    self._qin[d, q, : ql.numel()] = ql.to(torch.int32)
+        del queries
+
+        W = self._c_W if compact else 0.0
+        cdtype = self._dtype
+        S_max = int((nnz > T0).sum(dim=1).max()) if S else 0
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        # -- pass 2: pack per-shard tables
+        main, tails, n_all = [], [], []
+        badw = torch.zeros((), dtype=torch.int64, device=dev)
+        for d in range(D):
+            g_main = None if compact else zeros((T0, M), torch.int32)
+            v_main = zeros((T0, M), torch.int32 if compact else cdtype)
+            rows_t = zeros(S_max, torch.int32)
+            v_tail = zeros((Tw, S_max), torch.int32 if compact else cdtype)
+            i_tail = None if compact else zeros((Tw, S_max), torch.int32)
+            t_cursor = 0
+            for s, e, n_c, betas, cf, nz in self._structure_chunks(d, Bc):
+                flat_b = betas[nz]
+                owner = shard_index(flat_b, D)
+                gflat = torch.zeros(flat_b.shape, dtype=torch.int64,
+                                    device=dev)
+                nflat = torch.ones(flat_b.shape, dtype=torch.float64,
+                                   device=dev)
+                loc = owner == d
+                ip = rank(flat_b[loc] ^ flip, akey[d])
+                gflat[loc] = ip
+                if compact:
+                    nflat[loc] = self._norms[d][ip]
+                for p in range(D):
+                    if p == d:
+                        continue
+                    sel = owner == p
+                    if not bool(sel.any()):
+                        continue
+                    pos = rank(flat_b[sel] ^ flip, qstate[d][p])
+                    gflat[sel] = M + p * C + pos
+                    if compact:
+                        nflat[sel] = qnorm[d][p][pos]
+                g = torch.zeros(betas.shape, dtype=torch.int64, device=dev)
+                g[nz] = gflat
+                cfz = torch.where(nz, cf, 0)
+                if compact:
+                    n_b = torch.ones(betas.shape, dtype=torch.float64,
+                                     device=dev)
+                    n_b[nz] = nflat
+                    ratio = cfz.abs() * n_c[:, None] / n_b
+                    badw += (nz & ((ratio - W).abs() > 1e-9 * W)).sum()
+                # the stable left-pack: live entries first, in term order
+                order = torch.argsort((~nz).to(torch.uint8), dim=1,
+                                      stable=True)
+                g_p = torch.where(nz, g, 0).gather(1, order)
+                c_p = cfz.gather(1, order)
+                r = e - s
+
+                def pack(gg, cc):
+                    if compact:
+                        return torch.where(
+                            cc != 0, torch.sign(cc).to(torch.int32)
+                            * (gg.to(torch.int32) + 1), 0)
+                    return cc
+
+                if not compact:
+                    g_main[:, s:e] = g_p[:r, :T0].T
+                v_main[:, s:e] = pack(g_p[:r, :T0], c_p[:r, :T0]).T
+                if S:
+                    rd = torch.nonzero(nnz[d, s:e] > T0).reshape(-1)
+                    k = rd.numel()
+                    if k:
+                        tsl = slice(t_cursor, t_cursor + k)
+                        rows_t[tsl] = (s + rd).to(torch.int32)
+                        if not compact:
+                            i_tail[:, tsl] = g_p[rd, T0:Tmax].T
+                        v_tail[:, tsl] = pack(g_p[rd, T0:Tmax],
+                                              c_p[rd, T0:Tmax]).T
+                        t_cursor += k
+            main.append((v_main, g_main))
+            if S:
+                tails.append((rows_t, i_tail, v_tail))
+            if compact:
+                n_all_d = torch.ones(M + D * C if D > 1 else M,
+                                     dtype=torch.float64, device=dev)
+                n_all_d[:M] = self._norms[d]
+                for p in range(D):
+                    qn = qnorm[d][p]
+                    if p != d and qn.numel():
+                        n_all_d[M + p * C: M + p * C + qn.numel()] = qn
+                n_all.append(n_all_d)
+        if int(badw):
+            raise RuntimeError(
+                f"{int(badw)} matrix elements violate the ±W·n(j)/n(i) form "
+                f"(W={W}); the operator does not qualify for compact mode "
+                "— use mode='ell'")
+
+        if compact:
+            self._c_idx = torch.stack([m[0] for m in main])   # [D, T0, M]
+            self._c_tail = None
+            if S:
+                self._c_tail = (torch.stack([t[0] for t in tails]),
+                                torch.stack([t[2] for t in tails]))
+            self._c_norms = torch.stack(n_all)                 # [D, M+DC]
+            self._c_inv_n = torch.reciprocal(self._norms)      # [D, M]
+        else:
+            self._ell_coeff = torch.stack([m[0] for m in main])
+            self._ell_idx = torch.stack([m[1] for m in main])
+            self._ell_tail = None
+            if S:
+                self._ell_tail = tuple(torch.stack([t[i] for t in tails])
+                                       for i in range(3))
+
+    def _exchange_x(self, x: torch.Tensor) -> torch.Tensor:
+        """The routing plan's exchange: ``[D, M, R]`` → ``[D, R, M + D·C]``
+        (``[x; R]`` per shard, columns first: state axis last).  At D = 1
+        there is nothing to receive."""
+        D, C = self.n_devices, self.query_capacity
+        if D == 1:
+            return x.transpose(1, 2)
+        send = torch.stack([x[s][self._qin[s].long()] for s in range(D)])
+        recv = all_to_all(send)                          # [D, D, C, R]
+        xx = torch.cat([x, recv.reshape(D, D * C, -1)], dim=1)
+        return xx.transpose(1, 2)
+
+    def _apply_ell(self, x: torch.Tensor) -> torch.Tensor:
+        """Per shard: ``y = diag·x``, then term by term ``y += coeff[t]·
+        xx[idx[t]]`` over ``xx = [x; R]``, then the tail's rows
+        (``index_add_``: the pad entries add 0 to row 0).  ``x`` is
+        ``[D, M, R]``; the terms gather along the state axis of ``[R, ·]``
+        (columns first)."""
+        from .engine import ell_terms
+
+        D, M, R = x.shape
+        T0 = self._ell_T0
+        xx = self._exchange_x(x)
+        y = torch.empty((D, R, M), dtype=self._dtype, device=self.device)
+        for d in range(D):
+            xd = xx[d].contiguous()                          # [R, M + DC]
+            yd = ell_terms(self._diag[d].to(self._dtype) * xd[:, :M], xd,
+                           self._ell_idx[d, :T0], self._ell_coeff[d, :T0])
+            if self._ell_tail is not None:
+                rows, idx_t, cf_t = (a[d] for a in self._ell_tail)
+                acc = ell_terms(torch.zeros((R, rows.shape[0]),
+                                            dtype=self._dtype,
+                                            device=self.device),
+                                xd, idx_t, cf_t)
+                yd.index_add_(1, rows, acc)
+            y[d] = yd
+        return y.transpose(1, 2)
+
+    def _apply_compact(self, x: torch.Tensor) -> torch.Tensor:
+        """Per shard: sign-tagged gathers ``acc = Σ_t s·n(j)·xx(j)``, then
+        ``y = diag·x + W/n(i)·acc``, and the tail's rows alike."""
+        from .engine import compact_terms
+
+        D, M, R = x.shape
+        T0, W = self._ell_T0, self._c_W
+        xx = self._exchange_x(x)
+        y = torch.empty((D, R, M), dtype=torch.float64, device=self.device)
+        for d in range(D):
+            xd = xx[d].contiguous()
+            n_all = self._c_norms[d]
+            acc = compact_terms(
+                torch.zeros((R, M), dtype=torch.float64, device=self.device),
+                self._c_idx[d, :T0], xd, n_all)
+            sc = W * self._c_inv_n[d]
+            yd = self._diag[d] * xd[:, :M] + sc * acc
+            if self._c_tail is not None:
+                rows, tags = (a[d] for a in self._c_tail)
+                acc_t = compact_terms(
+                    torch.zeros((R, rows.shape[0]), dtype=torch.float64,
+                                device=self.device), tags, xd, n_all)
+                yd.index_add_(1, rows, sc[rows.long()] * acc_t)
+            y[d] = yd
+        return y.transpose(1, 2)
+
+    def structure_arrays(self) -> Dict[str, torch.Tensor]:
+        """The precomputed plan tensors by name, each ``[D, …]`` (empty in
+        streamed and fused mode): ``idx``, ``coeff``, ``qin`` and the
+        tail's ``tail_rows``/``tail_idx``/``tail_coeff`` in ell mode;
+        ``idx`` (sign tags), ``qin``, ``inv_n``, ``norms_all`` and the
+        tail's ``tail_rows``/``tail_idx`` in compact mode."""
+        if self.mode == "ell":
+            out = {"idx": self._ell_idx, "coeff": self._ell_coeff,
+                   "qin": self._qin}
+            if self._ell_tail is not None:
+                rows, t_idx, t_cf = self._ell_tail
+                out.update(tail_rows=rows, tail_idx=t_idx, tail_coeff=t_cf)
+            return out
+        if self.mode == "compact":
+            out = {"idx": self._c_idx, "qin": self._qin,
+                   "inv_n": self._c_inv_n, "norms_all": self._c_norms}
+            if self._c_tail is not None:
+                rows, t_idx = self._c_tail
+                out.update(tail_rows=rows, tail_idx=t_idx)
+            return out
+        return {}
+
+    @property
+    def ell_nbytes(self) -> int:
+        """Device memory held by the precomputed plan (0 in streamed and
+        fused mode): the summed bytes of :meth:`structure_arrays`."""
+        return sum(a.numel() * a.element_size()
+                   for a in self.structure_arrays().values())
 
     # -- apply -----------------------------------------------------------------
 
-    def matvec(self, xh: torch.Tensor) -> torch.Tensor:
-        """y = H·x in the hashed layout: ``[1, M]`` or a block of R columns
-        ``[1, M, R]``, float64 on the engine's device."""
-        M = self.shard_size
-        if (xh.shape[:2] != (1, M) or xh.dim() not in (2, 3)
-                or xh.dtype != torch.float64 or xh.device != self.device):
-            raise ValueError(
-                f"matvec takes a float64 [1, {M}] or [1, {M}, R] tensor on "
-                f"{self.device}, got {xh.dtype} {tuple(xh.shape)} on "
-                f"{xh.device}")
-        y = self._apply(xh, self._stream_chunks())
-        self.n_applies += 1
-        return y
+    def matvec(self, xh: torch.Tensor, check: Optional[bool] = None
+               ) -> torch.Tensor:
+        """y = H·x in the hashed layout: ``[D, M]`` or a block of R columns
+        ``[D, M, R]`` on the engine's device, float64 (complex128 in a
+        complex sector; a real tensor is promoted there).
 
-    def _apply(self, xh: torch.Tensor, chunks) -> torch.Tensor:
-        """The apply over ``chunks``, an iterable of the plan's chunk views
-        on the device in chunk order (:meth:`_stream_chunks` streams them
-        from host memory).  Columns are applied side by side: per chunk one
-        decode launch per column, then one ``index_add_`` of the block."""
-        M, B = self.shard_size, self.batch_size
-        spec = self._codec.spec
-        n_recv, w_ridx = spec["n_recv"], spec["w_ridx"]
-        x = xh[0].reshape(M, -1)                       # [M, R]
-        R = x.shape[1]
-        # column-major copy: each column's chunk rows are contiguous, as
-        # the kernel takes them
-        xp = torch.zeros((R, self.nchunks * B), dtype=torch.float64,
-                         device=self.device)
-        xp[:, :M] = x.T
-        y = torch.zeros((M, R), dtype=torch.float64, device=self.device)
-        for ci, (edest, codes, ridx_w, rok_w) in enumerate(chunks):
-            sends = [PC.fused_decode_gather_scatter(
-                spec, edest, codes, rok_w, self._cdict,
-                xp[r, ci * B:(ci + 1) * B]) for r in range(R)]
-            send = sends[0][:, None] if R == 1 else torch.stack(sends, 1)
-            ridx = PC.unpack_bits(ridx_w, n_recv, w_ridx)
-            rok = PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)
-            y.index_add_(0, ridx, torch.where(rok[:, None], send[:n_recv],
-                                              0.0))
-        return (y + self._diag[:, None] * x).reshape(xh.shape)
+        In fused mode the first apply of each row-chunk size (or
+        ``check=True``) checks the overflow and out-of-basis counters and
+        raises if an amplitude was lost; ``check=False`` skips it.  The
+        other modes checked them at build time."""
+        D, M = self.n_devices, self.shard_size
+        if not self.real and xh.dtype == torch.float64:
+            xh = xh.to(self._dtype)
+        if (tuple(xh.shape[:2]) != (D, M) or xh.dim() not in (2, 3)
+                or xh.dtype != self._dtype or xh.device != self.device):
+            raise ValueError(
+                f"matvec takes a {self._dtype} [{D}, {M}] or "
+                f"[{D}, {M}, R] tensor on {self.device}, got {xh.dtype} "
+                f"{tuple(xh.shape)} on {xh.device}")
+        self.n_applies += 1
+        if self.mode == "streamed":
+            return self._apply(xh, self._stream_chunks())
+        x = xh.reshape(D, M, -1)
+        if self.mode == "ell":
+            y = self._apply_ell(x)
+        elif self.mode == "compact":
+            y = self._apply_compact(x)
+        else:
+            y = self._matvec_fused(x, check)
+        return y.reshape(xh.shape)
+
+    def _matvec_fused(self, x: torch.Tensor, check: Optional[bool]):
+        # wide blocks shrink the row chunk so a chunk's working set stays
+        # near four columns' worth, as the JAX engine does
+        R = x.shape[2]
+        base = self.batch_size
+        B = base if R <= 4 else min(base, _round_up(max(8, (4 * base) // R),
+                                                    8))
+        cap = self._capacity if B == base else self._fused_capacity(B)
+        y, overflow, invalid = self._apply_fused(x, B, cap)
+        if check or (check is None and B not in self._checked):
+            self._validate_counters(int(overflow), int(invalid), B, cap)
+            self._checked.add(B)
+        return y + self._diag.to(self._dtype)[:, :, None] * x
+
+    def __call__(self, xh):
+        return self.matvec(xh)
 
     # -- layouts ---------------------------------------------------------------
 
     def to_hashed(self, x) -> torch.Tensor:
-        """Block (global sorted) [N] or [N, R] → hashed [1, M] or
-        [1, M, R] f64 on the device."""
-        xh = self.layout.to_hashed(np.asarray(x, dtype=np.float64), fill=0)
+        """Block (global sorted) [N] or [N, R] → hashed [D, M] or
+        [D, M, R] on the device, in the engine's dtype (complex input
+        stays complex)."""
+        x = np.asarray(x)
+        dt = np.complex128 if (np.iscomplexobj(x) or not self.real) \
+            else np.float64
+        xh = self.layout.to_hashed(x.astype(dt, copy=False), fill=0)
         return torch.from_numpy(xh).to(self.device)
 
     def from_hashed(self, xh: torch.Tensor) -> np.ndarray:
-        """Hashed [1, M] or [1, M, R] → block [N] or [N, R] NumPy."""
+        """Hashed [D, M] or [D, M, R] → block [N] or [N, R] NumPy."""
         return self.layout.from_hashed(xh.detach().cpu().numpy())
 
     def matvec_global(self, x) -> np.ndarray:
@@ -416,14 +1026,18 @@ class DistributedEngine:
     def random_hashed(self, seed: int = 0,
                       cols: Optional[int] = None) -> torch.Tensor:
         """A normalized random vector in hashed layout (pads zero) — or,
-        with ``cols``, a ``[1, M, cols]`` block of per-column-normalized
+        with ``cols``, a ``[D, M, cols]`` block of per-column-normalized
         vectors — seeded per shard as the JAX engine seeds it
-        (``SeedSequence((seed, d))``, draws of shape ``(count, cols)``)."""
+        (``SeedSequence((seed, d))``, draws of shape ``(count_d, cols)``).
+        Real in every sector, as the JAX engine's (native-complex) draws
+        are."""
+        D, M = self.n_devices, self.shard_size
         tail = (cols,) if cols else ()
-        c = int(self.counts[0])
-        rng = np.random.default_rng(np.random.SeedSequence((seed, 0)))
-        x = np.zeros((1, self.shard_size) + tail)
-        x[0, :c] = rng.standard_normal((c,) + tail)
+        x = np.zeros((D, M) + tail)
+        for d in range(D):
+            rng = np.random.default_rng(np.random.SeedSequence((seed, d)))
+            c = int(self.counts[d])
+            x[d, :c] = rng.standard_normal((c,) + tail)
         xh = torch.from_numpy(x).to(self.device)
         if cols is None:
             return xh / torch.linalg.vector_norm(xh)
@@ -432,4 +1046,7 @@ class DistributedEngine:
     def dot(self, ah: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
         """⟨a, b⟩ over hashed vectors or blocks (``a`` conjugated; pad
         slots are zero by invariant), as a 0-d tensor."""
+        if ah.dtype != bh.dtype:
+            dt = torch.promote_types(ah.dtype, bh.dtype)
+            ah, bh = ah.to(dt), bh.to(dt)
         return torch.vdot(ah.reshape(-1), bh.reshape(-1))

@@ -186,6 +186,28 @@ def _tail_layout(nnz: torch.Tensor, T0: int, S: int, Tmax: int):
     return Tmax - T0, int(tail_counts.max()), offs
 
 
+def ell_terms(y: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+              coeff: torch.Tensor) -> torch.Tensor:
+    """``y += Σ_t coeff[t]·x[idx[t]]`` term by term, gathering along the
+    last (state) axis of ``x``; ``idx``/``coeff`` are ``[T, n]``."""
+    for t in range(idx.shape[0]):
+        y += coeff[t] * torch.index_select(x, -1, idx[t])
+    return y
+
+
+def compact_terms(acc: torch.Tensor, tags: torch.Tensor, x: torch.Tensor,
+                  norms: torch.Tensor) -> torch.Tensor:
+    """``acc += Σ_t s·n(j)·x(j)`` over sign-tagged indices ``±(j+1)``
+    (``tags`` ``[T, n]``), gathering along the last axis of ``x`` and from
+    ``norms``."""
+    for t in range(tags.shape[0]):
+        v = tags[t]
+        i = (v.abs() - 1).clamp_(min=0)
+        w = torch.sign(v).to(torch.float64) * torch.index_select(norms, 0, i)
+        acc += w * torch.index_select(x, -1, i)
+    return acc
+
+
 class LocalEngine:
     """Single-device matvec over a built basis.
 
@@ -472,26 +494,14 @@ class LocalEngine:
         axis of ``x`` is its last: ``[N]`` or a batch ``[k, N]``."""
         n = self.n_states
         T0 = self.ell_split[0]
-        y = self._diag[:n].to(self._dtype) * x
-        for t in range(T0):
-            g = torch.index_select(x, -1, self._ell_idx[t, :n])
-            y += self._ell_coeff[t, :n] * g
+        y = ell_terms(self._diag[:n].to(self._dtype) * x, x,
+                      self._ell_idx[:T0, :n], self._ell_coeff[:T0, :n])
         if self._ell_tail is not None:
             rows, idx_t, cf_t = self._ell_tail
-            acc = self._zeros(x.shape[:-1] + rows.shape, self._dtype)
-            for t in range(idx_t.shape[0]):
-                acc += cf_t[t] * torch.index_select(x, -1, idx_t[t])
+            acc = ell_terms(self._zeros(x.shape[:-1] + rows.shape,
+                                        self._dtype), x, idx_t, cf_t)
             y[..., rows.long()] += acc
         return y
-
-    def _compact_terms(self, acc, idxt, x):
-        for t in range(idxt.shape[0]):
-            v = idxt[t]
-            i = (v.abs() - 1).clamp_(min=0)
-            w = torch.sign(v).to(torch.float64) * torch.index_select(
-                self._norms, 0, i)
-            acc += w * torch.index_select(x, -1, i)
-        return acc
 
     def _apply_compact(self, x: torch.Tensor) -> torch.Tensor:
         """Sign-tagged gathers: ``acc = Σ_t s·n(j)·x(j)``, then
@@ -499,12 +509,12 @@ class LocalEngine:
         axis of ``x`` is its last, as in :meth:`_apply_ell`."""
         n, T0, W = self.n_states, self.ell_split[0], self._c_W
         acc = self._zeros(x.shape[:-1] + (self.n_padded,), torch.float64)
-        acc = self._compact_terms(acc, self._c_idx[:T0], x)[..., :n]
+        acc = compact_terms(acc, self._c_idx[:T0], x, self._norms)[..., :n]
         y = self._diag[:n] * x + (W * self._c_inv_n[:n]) * acc
         if self._c_tail is not None:
             rows, idx_t = self._c_tail
             acc_t = self._zeros(x.shape[:-1] + rows.shape, torch.float64)
-            acc_t = self._compact_terms(acc_t, idx_t, x)
+            acc_t = compact_terms(acc_t, idx_t, x, self._norms)
             rows = rows.long()
             y[..., rows] += (W * self._c_inv_n[rows]) * acc_t
         return y

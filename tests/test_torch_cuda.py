@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA decode kernel against its plain version,
-and the streamed engine and ``LocalEngine`` on the card against the same
-engines on the CPU.
+"""The port on the card: the CUDA decode kernel against its plain version
+(synthetic chunks, and every chunk of a real D = 4 plan), and the streamed
+engine, the hash-sharded engine at D = 4 in every mode and ``LocalEngine``
+on the card against the same engines on the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device.  Run them on a
 machine with one as ``python -m pytest --noconftest tests/test_torch_cuda.py``
@@ -49,27 +50,32 @@ def cuda():
 
 @pytest.mark.parametrize("code_bits", [8, 16])
 def test_kernel_equals_plain(cuda, code_bits):
+    """Three buckets, the live entries in random order over their
+    prefixes, then padding."""
     rng = np.random.default_rng(code_bits)
-    B, n_recv, n_live, n_real = 5000, 9000, 8000, 7000
+    B, n_recv, n_live, D = 5000, 9000, 8000, 3
+    cap = n_recv // D
     ndict = 13 if code_bits == 8 else 3000
-    spec = {"n_live": n_live, "n_recv": n_recv,
+    spec = {"n_live": n_live, "n_recv": n_recv, "D": D, "cap_eff": cap,
             "w_dest": PC.bits_for(n_recv), "w_row": PC.bits_for(B - 1),
             "code_bits": code_bits, "ndict": ndict, "coeff": "dict",
             "cshape": [B, 8]}
+    fill = np.array([2500, 2300, 2200], np.int32)
+    occupied = np.concatenate([k * cap + np.arange(f)
+                               for k, f in enumerate(fill)])
+    n_real = occupied.size
     dest = np.full(n_live, n_recv, np.int64)
-    dest[:n_real] = rng.permutation(n_recv)[:n_real]
+    dest[:n_real] = rng.permutation(occupied)
     rows = np.zeros(n_live, np.int64)
     rows[:n_real] = rng.integers(0, B, n_real)
     codes = np.full(n_live, 2, np.uint8 if code_bits == 8 else np.uint16)
     codes[:n_real] = rng.integers(0, ndict, n_real)
-    rok = np.zeros(n_recv, bool)
-    rok[dest[:n_real]] = True
     words = np.concatenate([PC.pack_bits(dest, spec["w_dest"]),
                             PC.pack_bits(rows, spec["w_row"])])
     args = (spec, torch.from_numpy(words.view(np.int32)).to(cuda),
             torch.from_numpy(codes if code_bits == 8
                              else codes.view(np.int16)).to(cuda),
-            torch.from_numpy(PC.pack_bits(rok, 1).view(np.int32)).to(cuda),
+            torch.from_numpy(fill).to(cuda),
             torch.from_numpy(rng.standard_normal(ndict)).to(cuda),
             torch.from_numpy(rng.standard_normal(B)).to(cuda))
     before = PC.fused_decode_gather_scatter.launches
@@ -88,6 +94,44 @@ def test_kernel_synthetic_cases(cuda, case):
     args = chip_smoke.synthetic_chunk(cuda, B, n_recv, n_live, n_real,
                                       code_bits, ndict, seed=case, **kw)
     assert chip_smoke.check_kernel(args) == 0.0
+
+
+def test_kernel_on_sharded_plan_chunks(cuda):
+    """Every (chunk, shard) of a real D = 4 plan, whose rok streams differ
+    from the send occupancy: the kernel equals the plain version."""
+    op = heisenberg_chain(16, symmetric=True)
+    eng = DistributedEngine(op, n_devices=4, batch_size=32, device=cuda)
+    spec = eng._codec.spec
+    assert spec["D"] == 4 and eng.nchunks > 1
+    rng = np.random.default_rng(4)
+    for ci in range(eng.nchunks):
+        for d in range(4):
+            v = eng._chunk_views(eng._plan_host[ci, d].to(cuda))
+            x_c = torch.from_numpy(rng.standard_normal(eng.batch_size)).to(
+                cuda)
+            assert chip_smoke.check_kernel(
+                (spec, v[0], v[1], v[4], eng._cdict[d], x_c)) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["streamed", "ell", "compact", "fused"])
+def test_sharded_engine_on_card_matches_cpu(cuda, mode):
+    """D = 4 shards on the card against the same engine on the CPU; the
+    streamed apply launches the decode kernel once per shard per chunk."""
+    op = heisenberg_chain(16, symmetric=True)
+    e_gpu = DistributedEngine(op, n_devices=4, mode=mode, batch_size=32,
+                              device=cuda)
+    e_cpu = DistributedEngine(op, n_devices=4, mode=mode, batch_size=32,
+                              device="cpu")
+    x = np.random.default_rng(1).random(op.basis.number_states) - 0.5
+    before = PC.fused_decode_gather_scatter.launches
+    np.testing.assert_allclose(e_gpu.matvec_global(x),
+                               e_cpu.matvec_global(x),
+                               atol=1e-13, rtol=1e-12)
+    if mode == "streamed":
+        assert PC.fused_decode_gather_scatter.launches - before == \
+            4 * e_gpu.nchunks
+    res = lanczos(e_gpu.matvec, v0=e_gpu.random_hashed(0), k=1, device=cuda)
+    assert abs(res.eigenvalues[0] / 4 - -7.1422963606) < 1e-9
 
 
 def test_engine_on_card_matches_cpu(cuda):

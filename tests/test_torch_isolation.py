@@ -82,12 +82,14 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
 
 def test_out_of_scope_raises_not_implemented():
     op = heisenberg_chain(8, symmetric=True)
-    for kw in ({"n_devices": 2}, {"mode": "ell"},
-               {"stream_compress": "off"}):
+    for kw in ({"mode": "hybrid"}, {"stream_compress": "off"},
+               {"n_devices": 2, "stream_compress": "bf16"}):
         with pytest.raises(NotImplementedError):
             port.DistributedEngine(op, batch_size=64, device="cpu", **kw)
     # a k = 1 momentum sector has complex characters
     basis = port.SpinBasis(8, 4, None, [([*range(1, 8), 0], 1)])
     complex_op = heisenberg_from_edges(basis, chain_edges(8))
-    with pytest.raises(NotImplementedError, match="complex"):
-        port.DistributedEngine(complex_op, batch_size=64, device="cpu")
+    for D in (1, 2):
+        with pytest.raises(NotImplementedError, match="complex"):
+            port.DistributedEngine(complex_op, n_devices=D, batch_size=64,
+                                   device="cpu")

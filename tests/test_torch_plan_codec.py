@@ -7,11 +7,13 @@ the JAX XLA decode path all give the same send buffer bit for bit.  On the
 CPU the wrapper ``fused_decode_gather_scatter`` takes the plain version.
 
 The CUDA kernel writes the send buffer once, without a zero fill, and
-relies on two properties of the plan: a slot's ``rok`` bit is set iff a
-live entry writes it, and padding entries form the tail of the live
-stream.  ``_write_once`` models its writes in NumPy; the tests check the
-properties on every chunk of real plans (the port's and the JAX engine's)
-and that the model equals the plain version there and on synthetic chunks.
+relies on two properties of the plan: the live entries routed to bucket k
+occupy exactly its slots ``[k·cap_eff, k·cap_eff + fill[k])`` (``fill`` is
+the chunk's per-bucket fill counts, :func:`send_fill`), and padding
+entries form the tail of the live stream.  ``_write_once`` models its
+writes in NumPy; the tests check the properties on every chunk of real
+plans (the port's and the JAX engine's) and that the model equals the
+plain version there and on synthetic chunks.
 """
 
 import jax.numpy as jnp
@@ -63,49 +65,59 @@ def test_pack_unpack_match_jax(width):
 
 def _synthetic(code_bits: int, seed: int, B=96, n_recv=150, n_live=136,
                n_real=121, ndict=None, identity=False, w_dest=None,
-               w_row=None):
-    """One chunk shaped as the codec writes it: unique live destinations
-    (``0 … n_real−1`` with ``identity``, as at one device; else random
-    slots of ``[0, n_recv)`` with holes anywhere), then padding entries at
-    the drop sentinel with the pad code and row 0, and the rok flags of
-    exactly the written slots.  ``w_dest``/``w_row`` widen the fields
-    beyond the bits their values need."""
+               w_row=None, D=None):
+    """One chunk shaped as the codec writes it: ``n_recv`` send slots in D
+    buckets (D = 1 with ``identity``, else the largest of 4, 3, 2, 1 that
+    divides ``n_recv``, unless given), ``n_real`` live entries filling a
+    random prefix of each bucket — ``0 … n_real−1`` in order with
+    ``identity``, as at one device; else in random order — then padding
+    entries at the drop sentinel with the pad code and row 0.  Returns the
+    spec, the streams' values and the per-bucket fill counts.
+    ``w_dest``/``w_row`` widen the fields beyond the bits their values
+    need."""
     rng = np.random.default_rng(seed)
     if ndict is None:
         ndict = 200 if code_bits == 8 else 3000
-    spec = {"n_live": n_live, "n_recv": n_recv,
+    if D is None:
+        D = 1 if identity else next(k for k in (4, 3, 2, 1)
+                                    if n_recv % k == 0)
+    cap = n_recv // D
+    spec = {"n_live": n_live, "n_recv": n_recv, "D": D, "cap_eff": cap,
             "w_dest": w_dest or JPC.bits_for(n_recv),
             "w_row": w_row or JPC.bits_for(B - 1), "code_bits": code_bits,
             "ndict": ndict, "coeff": "dict", "cshape": [B, 7]}
+    # each bucket's fill: how many of n_real random slots land in it
+    fill = np.bincount(rng.permutation(n_recv)[:n_real] // cap,
+                       minlength=D)
+    occupied = np.flatnonzero(np.arange(n_recv) % cap
+                              < fill[np.arange(n_recv) // cap])
     dest = np.full(n_live, n_recv, np.int64)
-    dest[:n_real] = (np.arange(n_real) if identity
-                     else rng.permutation(n_recv)[:n_real])
+    dest[:n_real] = occupied if identity else rng.permutation(occupied)
     rows = np.zeros(n_live, np.int64)
     rows[:n_real] = (np.sort(rng.integers(0, B, n_real)) if identity
                      else rng.integers(0, B, n_real))
     codes = np.full(n_live, ndict - 1,
                     np.uint8 if code_bits == 8 else np.uint16)
     codes[:n_real] = rng.integers(0, ndict, n_real)
-    rok = np.zeros(n_recv, bool)
-    rok[dest[:n_real]] = True
     cdict = rng.standard_normal(ndict)
     x = rng.standard_normal(B)
-    return spec, dest, rows, codes, rok, cdict, x
+    return spec, dest, rows, codes, fill.astype(np.int32), cdict, x
 
 
-def _write_once(spec, dest, rows, codes, rok, cdict, x) -> np.ndarray:
+def _write_once(spec, dest, rows, codes, fill, cdict, x) -> np.ndarray:
     """The CUDA kernel's writes, modelled in NumPy: each live entry writes
-    its amplitude to its slot, each slot whose rok flag is clear gets 0.0,
-    and the last entry writes the drop slot (its amplitude if it is
+    its amplitude to its slot, each slot at or above its bucket's fill gets
+    0.0, and the last entry writes the drop slot (its amplitude if it is
     padding, else 0.0).  Asserts that every slot is written exactly once."""
-    nl, n_recv = spec["n_live"], spec["n_recv"]
+    nl, n_recv, cap = spec["n_live"], spec["n_recv"], spec["cap_eff"]
     amp = cdict[codes.astype(np.int64)] * x[rows]
     out = np.full(n_recv + 1, np.nan)
     writes = np.zeros(n_recv + 1, np.int64)
     live = dest < n_recv
     out[dest[live]] = amp[live]
     np.add.at(writes, dest[live], 1)
-    clear = np.flatnonzero(~rok)
+    slot = np.arange(n_recv)
+    clear = np.flatnonzero(slot % cap >= np.asarray(fill)[slot // cap])
     out[clear] = 0.0
     writes[clear] += 1
     out[n_recv] = amp[-1] if nl and dest[-1] >= n_recv else 0.0
@@ -115,17 +127,20 @@ def _write_once(spec, dest, rows, codes, rok, cdict, x) -> np.ndarray:
     return out
 
 
-def _encoded(spec, dest, rows, codes, rok, pack=TPC.pack_bits):
-    """The chunk's encoded streams: dest+row words, codes, rok words."""
+def _encoded(spec, dest, rows, codes, pack=TPC.pack_bits):
+    """The chunk's encoded streams: dest+row words and codes."""
     return (np.concatenate([pack(dest, spec["w_dest"]),
-                            pack(rows, spec["w_row"])]), codes,
-            pack(rok, 1))
+                            pack(rows, spec["w_row"])]), codes)
+
+
+def _fill(fill) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(fill, np.int32))
 
 
 @pytest.mark.parametrize("code_bits", [8, 16])
 def test_fused_plain_matches_pallas_synthetic(code_bits):
-    spec, dest, rows, codes, rok, cdict, x = _synthetic(code_bits,
-                                                        code_bits)
+    spec, dest, rows, codes, fill, cdict, x = _synthetic(code_bits,
+                                                         code_bits)
     streams = {}
     for name, pack in (("jax", JPC.pack_bits), ("torch", TPC.pack_bits)):
         streams[name] = np.concatenate([pack(dest, spec["w_dest"]),
@@ -134,9 +149,8 @@ def test_fused_plain_matches_pallas_synthetic(code_bits):
     want = np.asarray(JPC.fused_decode_gather_scatter(
         spec, jnp.asarray(streams["jax"]), jnp.asarray(codes),
         jnp.asarray(cdict), jnp.asarray(x), interpret=True))
-    args = (spec, _words(streams["torch"]), _codes(codes),
-            _words(TPC.pack_bits(rok, 1)), torch.from_numpy(cdict),
-            torch.from_numpy(x))
+    args = (spec, _words(streams["torch"]), _codes(codes), _fill(fill),
+            torch.from_numpy(cdict), torch.from_numpy(x))
     plain = TPC._fused_decode_gather_scatter_plain(*args).numpy()
     np.testing.assert_array_equal(plain, want)
     before = TPC.fused_decode_gather_scatter.launches
@@ -184,36 +198,40 @@ SYNTHETIC_CASES = {
 
 @pytest.mark.parametrize("case", sorted(SYNTHETIC_CASES))
 def test_write_once_matches_plain_and_pallas_synthetic(case):
-    spec, dest, rows, codes, rok, cdict, x = _synthetic(
+    spec, dest, rows, codes, fill, cdict, x = _synthetic(
         seed=len(case), **SYNTHETIC_CASES[case])
-    edest, ecodes, erok = _encoded(spec, dest, rows, codes, rok)
+    edest, ecodes = _encoded(spec, dest, rows, codes)
     plain = TPC._fused_decode_gather_scatter_plain(
-        spec, _words(edest), _codes(ecodes), _words(erok),
+        spec, _words(edest), _codes(ecodes), _fill(fill),
         torch.from_numpy(cdict), torch.from_numpy(x)).numpy()
     pallas = np.asarray(JPC.fused_decode_gather_scatter(
         spec, jnp.asarray(edest), jnp.asarray(ecodes), jnp.asarray(cdict),
         jnp.asarray(x), interpret=True))
     np.testing.assert_array_equal(plain, pallas)
     np.testing.assert_array_equal(
-        _write_once(spec, dest, rows, codes, rok, cdict, x), plain)
+        _write_once(spec, dest, rows, codes, fill, cdict, x), plain)
 
 
 def test_fused_checks_operands():
-    spec, dest, rows, codes, rok, cdict, x = _synthetic(8, 3)
-    edest, _, erok = _encoded(spec, dest, rows, codes, rok)
-    edest, erok = _words(edest), _words(erok)
+    spec, dest, rows, codes, fill, cdict, x = _synthetic(8, 3)
+    edest, _ = _encoded(spec, dest, rows, codes)
+    edest, fill = _words(edest), _fill(fill)
     with pytest.raises(ValueError, match="ecodes"):
         TPC.fused_decode_gather_scatter(
-            spec, edest, _codes(codes.astype(np.uint16)), erok,
+            spec, edest, _codes(codes.astype(np.uint16)), fill,
             torch.from_numpy(cdict), torch.from_numpy(x))
     with pytest.raises(ValueError, match="x_c"):
         TPC.fused_decode_gather_scatter(
-            spec, edest, _codes(codes), erok, torch.from_numpy(cdict),
+            spec, edest, _codes(codes), fill, torch.from_numpy(cdict),
             torch.from_numpy(x[:-1]))
-    with pytest.raises(ValueError, match="erok"):
+    with pytest.raises(ValueError, match="fill"):
         TPC.fused_decode_gather_scatter(
-            spec, edest, _codes(codes), erok[:-1], torch.from_numpy(cdict),
+            spec, edest, _codes(codes), fill[:-1], torch.from_numpy(cdict),
             torch.from_numpy(x))
+    with pytest.raises(ValueError, match="out"):
+        TPC.fused_decode_gather_scatter(
+            spec, edest, _codes(codes), fill, torch.from_numpy(cdict),
+            torch.from_numpy(x), out=torch.empty(spec["n_recv"]))
 
 
 @pytest.fixture(scope="module")
@@ -249,10 +267,14 @@ def test_fused_plain_matches_pallas_and_xla_on_engine_chunks(
             jnp.asarray(cdict))
         xla = np.asarray(jnp.zeros(n_recv).at[dest].set(
             cf * jnp.asarray(x)[row], mode="drop"))
+        nl, nwd = spec["n_live"], TPC.packed_words(spec["n_live"],
+                                                    spec["w_dest"])
+        fill = TPC.send_fill(TPC.unpack_bits_np(enc["dest"][:nwd], nl,
+                                                spec["w_dest"]),
+                             spec["D"], spec["cap_eff"])
         got = TPC.fused_decode_gather_scatter(
-            spec, _words(enc["dest"]), _codes(enc["coeff"]),
-            _words(enc["rok"]), torch.from_numpy(cdict),
-            torch.from_numpy(x)).numpy()
+            spec, _words(enc["dest"]), _codes(enc["coeff"]), _fill(fill),
+            torch.from_numpy(cdict), torch.from_numpy(x)).numpy()
         np.testing.assert_array_equal(got, pallas)
         np.testing.assert_array_equal(got[:n_recv], xla)
         # the port's device decode equals the JAX one field by field
@@ -285,43 +307,51 @@ def plans(request):
     return {
         "jax": (e_j._codec.spec, e_j._codec.dict_device_row(0),
                 [c[0] for c in e_j._plan_chunks]),
-        "port": (e_t._codec.spec, e_t._cdict.numpy(),
+        "port": (e_t._codec.spec, e_t._cdict[0].numpy(),
                  [e_t.plan_chunk(ci) for ci in range(e_t.nchunks)]),
     }
 
 
 @pytest.mark.parametrize("package", ["jax", "port"])
 def test_plan_honours_kernel_precondition(plans, package):
-    """On every chunk of a real plan: the rok flags are exactly the slots
-    the live entries write, padding entries form the tail, the plain
-    version (with the kernel's signature) equals the Pallas kernel bit for
-    bit, and the kernel's write-once model equals both."""
+    """On every chunk of a real plan: the live entries fill exactly the
+    prefix of their bucket that the fill counts give (the port stores them
+    beside the chunk; for the JAX plan they are derived from its dest
+    stream), which at one device is the rok flags; padding entries form
+    the tail; the plain version (with the kernel's signature) equals the
+    Pallas kernel bit for bit, and the kernel's write-once model equals
+    both."""
     spec, cdict, chunks = plans[package]
-    nl, n_recv = spec["n_live"], spec["n_recv"]
+    nl, n_recv, cap = spec["n_live"], spec["n_recv"], spec["cap_eff"]
     nwd = TPC.packed_words(nl, spec["w_dest"])
     assert len(chunks) > 1
     rng = np.random.default_rng(7)
+    slot = np.arange(n_recv)
     for enc in chunks:
         dest = TPC.unpack_bits_np(enc["dest"][:nwd], nl,
                                   spec["w_dest"]).astype(np.int64)
         rows = TPC.unpack_bits_np(enc["dest"][nwd:], nl,
                                   spec["w_row"]).astype(np.int64)
         rok = TPC.unpack_bits_np(enc["rok"], n_recv, 1).astype(bool)
+        fill = TPC.send_fill(dest, spec["D"], cap)
+        if package == "port":
+            np.testing.assert_array_equal(enc["fill"], fill)
         pad = dest >= n_recv
         assert not np.any(pad[:-1] & ~pad[1:]), "padding before a live entry"
         written = np.zeros(n_recv, np.int64)
         np.add.at(written, dest[~pad], 1)
         assert written.max(initial=0) <= 1, "two live entries share a slot"
-        np.testing.assert_array_equal(rok, written == 1)
+        np.testing.assert_array_equal(written == 1,
+                                      slot % cap < fill[slot // cap])
+        np.testing.assert_array_equal(rok, written == 1)     # D = 1
         x = rng.standard_normal(spec["cshape"][0])
         plain = TPC._fused_decode_gather_scatter_plain(
-            spec, _words(enc["dest"]), _codes(enc["coeff"]),
-            _words(enc["rok"]), torch.from_numpy(cdict),
-            torch.from_numpy(x)).numpy()
+            spec, _words(enc["dest"]), _codes(enc["coeff"]), _fill(fill),
+            torch.from_numpy(cdict), torch.from_numpy(x)).numpy()
         pallas = np.asarray(JPC.fused_decode_gather_scatter(
             spec, jnp.asarray(enc["dest"]), jnp.asarray(enc["coeff"]),
             jnp.asarray(cdict), jnp.asarray(x), interpret=True))
         np.testing.assert_array_equal(plain, pallas)
         np.testing.assert_array_equal(
-            _write_once(spec, dest, rows, enc["coeff"], rok, cdict, x),
+            _write_once(spec, dest, rows, enc["coeff"], fill, cdict, x),
             plain)

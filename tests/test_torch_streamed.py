@@ -55,7 +55,7 @@ def test_plan_bit_exact(engines):
     _, e_j, e_t = engines
     assert e_t._codec.spec == e_j._codec.spec
     np.testing.assert_array_equal(e_t._codec.dicts[0], e_j._codec.dicts[0])
-    np.testing.assert_array_equal(e_t._cdict.numpy(),
+    np.testing.assert_array_equal(e_t._cdict[0].numpy(),
                                   e_j._codec.dict_device_row(0))
     assert e_t.nchunks == len(e_j._plan_chunks)
     for ci in range(e_t.nchunks):
