@@ -78,7 +78,28 @@ Phases, one JSON line each with its seconds:
    launch over every (chunk, shard) beside the byte bound, and its
    launches counted from 0 around the main path: 4 × 72 per apply.  Times
    here are one card running four shards, not a four-card result.
-10. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
+10. ``ranks``: the rank engine, ``DistributedEngine(op, group=g)`` — one
+   hash shard per process rank, meeting only in ``torch.distributed``
+   collectives — on the same chain_32_symm operator.  (a) Two ranks share
+   the one card over gloo (spawned; each builds the basis itself): ``ell``
+   (build, apply, 3 timed applies, Lanczos to E0) and ``streamed`` at
+   B = 65 536 with 2²¹-entry buckets (build, the decode kernel on three of
+   its own chunks against the plain version, 3 timed applies with its
+   launches counted from 0: one per plan chunk per apply).  Rank 0 gathers
+   each apply, which must equal ``local_full``'s ell apply (atol 1e-13 /
+   rtol 1e-12); both ranks' E0 must be the same bits and within 1e-10 of
+   the full leg's.  Per rank: build seconds, apply ms (host wall and CUDA
+   events), the exchange's ms and bytes per apply, whether the exchange is
+   staged through host memory, and whether this torch's gloo takes CUDA
+   tensors itself.  A rank that fails or outlasts the join timeout fails
+   the phase.  Two ranks on one card are not a two-card result.  (b) A
+   one-rank NCCL group in this process: the streamed engine at D = 1 with
+   every exchange through ``all_to_all_single``; its plan must equal the
+   full leg's byte for byte and its apply the full leg's bit for bit
+   (both applies under ``torch.use_deterministic_algorithms``).  (c) With
+   two or more cards, leg (a) over NCCL, one rank per card; on one card a
+   line says it did not run and why.
+11. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
    complex Hermitian (about 18.8 M states): the ``ell`` build takes the
    low-memory path by itself (1.6× the full-width complex tables passes
    the 12 GB default budget), one ``fused`` apply against the ell apply,
@@ -95,8 +116,8 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full``, ``solvers`` and ``sharded``, and apart at one shard and at
-four, largest error against the plain version, time per launch beside its
+of ``full``, ``solvers``, ``sharded`` and ``ranks``, and apart at one
+shard, at four and on the ranks, largest error against the plain version, time per launch beside its
 bound and the plain version's time, at one shard and at four), the card's
 name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -1142,6 +1163,403 @@ def sharded_kernel_check(device, eng):
                 max(t_bytes, t_ops) / ms}
 
 
+# -- phase 10: ranks ------------------------------------------------------------
+
+#: the ranks leg: two ranks sharing the one card over gloo, each holding one
+#: hash shard.  The row chunk is the full leg's; at two shards a chunk puts
+#: ≈ 680 k live entries in each bucket, so the buckets hold 2²¹ (the
+#: default 150 000 would overflow at any B ≥ 16 384)
+RANKS = 2
+RANKS_BATCH = 1 << 16
+RANKS_REMOTE_BUFFER = 1 << 21
+#: seconds a collective may wait, and the ranks may take in all
+RANKS_COLLECTIVE_TIMEOUT_S = 300
+RANKS_JOIN_TIMEOUT_S = 480
+RANKS_APPLIES = 3
+
+
+def rank_apply_times(device, eng, xh, applies=RANKS_APPLIES):
+    """``applies`` applies on every rank together: host wall clock between
+    synchronizations, the CUDA-event time between the apply's first and
+    last work (the gaps a host-staged exchange leaves included), and the
+    bytes this rank put into the exchange per apply."""
+    import torch
+
+    walls, events = [], []
+    b0 = eng.exchange_bytes
+    for _ in range(applies):
+        _sync(device)
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        eng.matvec(xh)
+        if device.type == "cuda":
+            e1.record()
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if device.type == "cuda":
+            events.append(e0.elapsed_time(e1))
+    return {"apply_ms_host": walls,
+            "apply_ms_host_median": statistics.median(walls),
+            "apply_ms_device": events,
+            "apply_ms_device_median": statistics.median(events)
+            if events else None,
+            "exchange_bytes_per_apply": (eng.exchange_bytes - b0) / applies}
+
+
+def exchange_ms(device, group, shape, calls, reps=3):
+    """Host ms of ``calls`` exchanges of a float64 send block ``shape``
+    (one apply's worth), median of ``reps``; collective."""
+    import torch
+
+    send = torch.zeros(shape, dtype=torch.float64, device=device)
+    group.exchange(send)
+    times = []
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            group.exchange(send)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+#: the dtypes checked through a group's collectives on the card (int16 is
+#: the u16 code streams' dtype; bool and complex travel as uint8 and
+#: ``view_as_real``)
+WIRE_DTYPES = ("int16", "bool", "int32", "int64", "float64", "complex128")
+
+
+def wire_check(group, device):
+    """Every ``WIRE_DTYPES`` dtype through the group's exchange, its
+    variable-size exchange and its all-gather, on ``device``: each must
+    come back in its own dtype, on its device, with its values.  Returns
+    the dtypes checked; collective."""
+    import torch
+
+    W, r = group.world_size, group.rank
+
+    def block(src, dst, name):
+        v = torch.arange(3, dtype=torch.int64, device=device) \
+            + 100 * src + 10 * dst
+        if name == "bool":
+            return v % 3 == 0
+        if name == "complex128":
+            return v.to(torch.complex128) * (1 - 2j)
+        return v.to(getattr(torch, name))
+
+    for name in WIRE_DTYPES:
+        pairs = [(group.exchange(torch.stack([block(r, p, name)
+                                              for p in range(W)])),
+                  torch.stack([block(s, r, name) for s in range(W)])),
+                 (group.all_gather(block(r, r, name)),
+                  torch.stack([block(s, s, name) for s in range(W)])),
+                 (torch.cat(group.exchange_lists(
+                     [block(r, p, name)[:p + 1] for p in range(W)])),
+                  torch.cat([block(s, r, name)[:r + 1]
+                             for s in range(W)]))]
+        for got, want in pairs:
+            if (got.dtype != want.dtype or got.device != want.device
+                    or not torch.equal(got, want)):
+                raise AssertionError(f"{group.backend} {name}: got "
+                                     f"{got.dtype} {got.tolist()}, want "
+                                     f"{want.tolist()}")
+    return list(WIRE_DTYPES)
+
+
+def gloo_cuda_probe(device):
+    """Whether this torch's gloo runs ``all_to_all_single`` on CUDA tensors
+    itself, tried on a group of its own with a short timeout.  Reported
+    only: the engine's gloo branch stages CUDA tensors through pinned host
+    memory either way."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if device.type != "cuda":
+        return "not a CUDA rank"
+    pg = dist.new_group(backend="gloo",
+                        timeout=datetime.timedelta(seconds=60))
+    w = dist.get_world_size()
+    send = torch.arange(2 * w, dtype=torch.float64, device=device)
+    recv = torch.empty_like(send)
+    try:
+        dist.all_to_all_single(recv, send, group=pg)
+        _sync(device)
+        ok = torch.equal(recv.cpu(), torch.cat(
+            [torch.arange(2 * dist.get_rank(), 2 * dist.get_rank() + 2,
+                          dtype=torch.float64)] * w))
+        return "accepted" if ok else "accepted, wrong values"
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:160]}"
+
+
+def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
+                device_type):
+    """One rank of the ranks leg: chain_n_symm built here, then ``ell``
+    (build, apply, Lanczos) and ``streamed`` (build, the decode kernel on
+    this rank's chunks against its plain version, 3 counted and timed
+    applies), each apply gathered and saved by rank 0.  Writes
+    ``rank{rank}.json`` into ``tmp``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.parallel.mesh import init_distributed
+
+    device = torch.device("cpu") if device_type == "cpu" else \
+        torch.device("cuda", 0 if backend == "gloo" else rank)
+    g = init_distributed(backend, f"file://{tmp}/rendezvous_{backend}",
+                         world, rank, device=device,
+                         timeout_s=RANKS_COLLECTIVE_TIMEOUT_S)
+    out = {"rank": rank, "backend": backend, "device": str(g.device),
+           "host_staged": g.stages_host}
+    if backend == "gloo":
+        out["gloo_takes_cuda_tensors"] = gloo_cuda_probe(device)
+    out["wire_dtypes_checked"] = wire_check(g, device)
+    op = heisenberg_chain(n, symmetric=True)
+    t0 = time.perf_counter()
+    op.basis.build()
+    out["enumeration_s"] = time.perf_counter() - t0
+    N = op.basis.number_states
+    x = np.random.default_rng(13).standard_normal(N)
+
+    # ell: build, apply (gathered), timed applies, Lanczos
+    eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+        op, mode="ell", group=g))
+    xh = eng.to_hashed(x)
+    y = eng.from_hashed(eng.matvec(xh))
+    if rank == 0:
+        np.save(os.path.join(tmp, f"y_ell_{backend}.npy"), y)
+    info = {"build_s": build_s, "build_peak_bytes": peak,
+            "table_bytes": eng.ell_nbytes, "ell_split": eng.ell_split,
+            "query_capacity": eng.query_capacity,
+            "shard_size": eng.shard_size, "count": int(eng.counts[rank])}
+    info.update(rank_apply_times(device, eng, xh))
+    info["exchange_ms_per_apply"] = exchange_ms(
+        device, g, (world, eng.query_capacity, 1), 1)
+    t0 = time.perf_counter()
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10)
+    _sync(device)
+    info.update(lanczos_s=time.perf_counter() - t0,
+                lanczos_iters=int(res.num_iters),
+                lanczos_converged=bool(res.converged),
+                e0=float(res.eigenvalues[0]))
+    out["ell"] = info
+    del eng, res
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # streamed: build, the kernel on this rank's chunks, counted applies
+    eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+        op, mode="streamed", batch_size=batch,
+        remote_buffer_size=remote_buffer, group=g))
+    spec = eng._codec.spec
+    info = {"build_s": build_s, "build_peak_bytes": peak,
+            "timings": eng.timings, "plan_bytes": int(eng.plan_bytes),
+            "nchunks": eng.nchunks, "batch_size": eng.batch_size,
+            "spec": spec}
+    if device.type == "cuda":
+        B = eng.batch_size
+        xc = torch.from_numpy(np.random.default_rng(21 + rank)
+                              .standard_normal(eng.nchunks * B)).to(device)
+        checked = sorted({0, eng.nchunks // 2, eng.nchunks - 1})
+        errs = []
+        for ci in checked:
+            v = eng._chunk_views(eng._plan_host[ci, 0].to(device))
+            errs.append(check_kernel((spec, v[0], v[1], v[4], eng._cdict[0],
+                                      xc[ci * B:(ci + 1) * B])))
+        info.update(kernel_checked_chunks=checked,
+                    kernel_max_abs_err=max(errs))
+    xh = eng.to_hashed(x)
+    PC.fused_decode_gather_scatter.launches = 0
+    eng.n_applies = 0
+    y = eng.from_hashed(eng.matvec(xh))
+    info.update(rank_apply_times(device, eng, xh))
+    launches = PC.fused_decode_gather_scatter.launches
+    if device.type == "cuda" and launches != eng.nchunks * eng.n_applies:
+        raise AssertionError(f"rank {rank}: {launches} decode launches for "
+                             f"{eng.n_applies} applies of {eng.nchunks} "
+                             "chunks")
+    info.update(applies=eng.n_applies, launches=launches,
+                exchange_ms_per_apply=exchange_ms(
+                    device, g, (world, spec["cap_eff"], 1), eng.nchunks))
+    if rank == 0:
+        np.save(os.path.join(tmp, f"y_streamed_{backend}.npy"), y)
+    out["streamed"] = info
+    with open(os.path.join(tmp, f"rank{rank}_{backend}.json"), "w") as fh:
+        json.dump(out, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def spawn_ranks(backend, world, tmp, n, device_type="cuda"):
+    """Run ``rank_worker`` in ``world`` spawned processes; returns their
+    outputs in rank order.  A rank that fails, or that has not finished
+    within ``RANKS_JOIN_TIMEOUT_S``, fails the leg (the others are
+    killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(
+        rank_worker, args=(backend, world, tmp, n, RANKS_BATCH,
+                           RANKS_REMOTE_BUFFER, device_type),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANKS_JOIN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{backend} ranks did not finish in "
+                                     f"{RANKS_JOIN_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}_{backend}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs
+
+
+def check_ranks(tmp, backend, outs, y_ref, e0_full):
+    """Rank 0's gathered applies against ``y_ref`` (atol 1e-13 / rtol
+    1e-12) and every rank's E0 against the full leg's (1e-10)."""
+    import numpy as np
+
+    errs = {}
+    for mode in ("ell", "streamed"):
+        y = np.load(os.path.join(tmp, f"y_{mode}_{backend}.npy"))
+        errs[mode] = assert_close(y, y_ref, f"{backend} ranks {mode} apply "
+                                            "vs LocalEngine ell apply")
+    e0s = [o["ell"]["e0"] for o in outs]
+    if len(set(e0s)) != 1 or not all(o["ell"]["lanczos_converged"]
+                                     for o in outs) \
+            or abs(e0s[0] - e0_full) > 1e-10:
+        raise AssertionError(f"{backend} ranks E0 {e0s}, full leg "
+                             f"{e0_full}")
+    return {"vs_local_ell_max_abs_err": errs, "e0": e0s[0],
+            "e0_minus_full": e0s[0] - e0_full}
+
+
+def nccl_one_rank_leg(device, full_eng, tmp):
+    """A one-rank NCCL group in this process: the streamed engine at D = 1
+    with every exchange through ``all_to_all_single``.  Its plan must equal
+    the full leg's byte for byte, and its apply the full leg's bit for bit
+    (both under ``torch.use_deterministic_algorithms``, so the receive-side
+    ``index_add_`` sums in one order)."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_matvec_tpu_torch import DistributedEngine
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.parallel.mesh import init_distributed
+
+    g = init_distributed("nccl", f"file://{tmp}/rendezvous_nccl1", 1, 0,
+                         timeout_s=RANKS_COLLECTIVE_TIMEOUT_S)
+    try:
+        wire = wire_check(g, device)
+        eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+            full_eng.operator, batch_size=full_eng.batch_size, group=g))
+        if not torch.equal(eng._plan_host, full_eng._plan_host):
+            raise AssertionError("the one-rank NCCL plan differs from the "
+                                 "full leg's")
+        xh = full_eng.random_hashed(5)
+        torch.use_deterministic_algorithms(True)
+        try:
+            y_full = full_eng.matvec(xh)
+            PC.fused_decode_gather_scatter.launches = 0
+            eng.n_applies = 0
+            y = eng.matvec(xh)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not torch.equal(y, y_full):
+            raise AssertionError(
+                "one-rank NCCL apply differs from the full leg's: max abs "
+                f"err {float((y - y_full).abs().max())}")
+        info = {"backend": g.backend, "build_s": build_s,
+                "build_peak_bytes": peak, "nchunks": eng.nchunks,
+                "equal_to_full_bit_for_bit": True,
+                "wire_dtypes_checked": wire}
+        info.update(rank_apply_times(device, eng, xh))
+        launches = PC.fused_decode_gather_scatter.launches
+        applies = eng.n_applies
+        # the full leg's engine (the exchange a transpose) and this one in
+        # turns: full, rank, rank, full
+        turns = [rank_apply_times(device, e, xh)["apply_ms_host_median"]
+                 for e in (full_eng, eng, eng, full_eng)]
+        info.update(turns_ms_host_full_rank_rank_full=turns,
+                    profile=profile_apply(lambda: eng.matvec(xh)),
+                    profile_full=profile_apply(lambda: full_eng.matvec(xh)))
+        if launches != eng.nchunks * applies:
+            raise AssertionError(f"{launches} decode launches for "
+                                 f"{applies} applies of {eng.nchunks} "
+                                 "chunks")
+        info.update(applies=applies, launches=launches,
+                    exchange_ms_per_apply=exchange_ms(
+                        device, g, (1, eng._codec.spec["cap_eff"], 1),
+                        eng.nchunks))
+        del eng
+    finally:
+        dist.destroy_process_group()
+    return info
+
+
+def ranks_phase(device, op, ell_ref, full_eng, e0_full):
+    """The rank engine on the card; see the module docstring."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    n = op.basis.number_states
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(n)).to(
+        device)
+    y_ref = ell_ref.matvec(x).cpu().numpy()
+    out = {"n_states": n, "world_size": RANKS, "batch_size": RANKS_BATCH,
+           "remote_buffer_size": RANKS_REMOTE_BUFFER,
+           "note": "two ranks sharing one card over gloo: not a two-card "
+                   "result"}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = spawn_ranks("gloo", RANKS, tmp, 32)
+        out["gloo"] = {"seconds": time.perf_counter() - t0, "ranks": outs,
+                       **check_ranks(tmp, "gloo", outs, y_ref, e0_full)}
+        launches = sum(o["streamed"]["launches"] for o in outs)
+        cards = torch.cuda.device_count()
+        if cards >= RANKS:
+            t0 = time.perf_counter()
+            outs = spawn_ranks("nccl", RANKS, tmp, 32)
+            out["nccl"] = {"seconds": time.perf_counter() - t0,
+                           "ranks": outs,
+                           **check_ranks(tmp, "nccl", outs, y_ref, e0_full)}
+            launches += sum(o["streamed"]["launches"] for o in outs)
+        else:
+            out["nccl"] = {"ran": False, "why": (
+                f"{cards} card(s): NCCL needs one card per rank, so the "
+                f"{RANKS}-rank NCCL leg runs only where "
+                f"torch.cuda.device_count() >= {RANKS}")}
+            emit({"leg": "ranks.nccl", "ran": False,
+                  "why": out["nccl"]["why"]})
+        out["nccl_one_rank"] = nccl_one_rank_leg(device, full_eng, tmp)
+        launches += out["nccl_one_rank"]["launches"]
+    out["launches"] = launches
+    out["kernel_max_abs_err"] = max(
+        o["streamed"]["kernel_max_abs_err"]
+        for leg in ("gloo", "nccl") for o in out[leg].get("ranks", ()))
+    return out
+
+
 def local_complex_phase(device, e0_full, n=32):
     import numpy as np
     import torch
@@ -1242,11 +1660,13 @@ def main() -> int:
     _, solver_launches = run_phase("solvers", solvers_phase, device, eng,
                                    ell, full["e0"])
     op = eng.operator
-    del eng
     torch.cuda.empty_cache()
     _, sharded = run_phase("sharded", sharded_phase, device, op, ell,
                            full["e0"])
-    del ell, op
+    torch.cuda.empty_cache()
+    ranks = run_phase("ranks", ranks_phase, device, op, ell, eng,
+                      full["e0"])
+    del ell, op, eng
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
     torch.cuda.empty_cache()
@@ -1256,9 +1676,11 @@ def main() -> int:
         "route": "cuda",
         "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
-        "launches": launches + solver_launches + sharded["launches"],
+        "launches": launches + solver_launches + sharded["launches"]
+        + ranks["launches"],
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
-                           sharded["max_abs_err"]),
+                           sharded["max_abs_err"],
+                           ranks["kernel_max_abs_err"]),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
         "bound_ms": split["bound_ms_per_launch"],
@@ -1267,6 +1689,9 @@ def main() -> int:
         # the one-shard legs (full, solvers) and the D = 4 leg apart
         "launches_d1": launches + solver_launches,
         "launches_d4": sharded["launches"],
+        # each rank's own launches on its shard (gloo ranks on the card,
+        # and the one-rank NCCL group)
+        "launches_ranks": ranks["launches"],
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],

@@ -15,9 +15,10 @@ top:
   ops/          — tensor kernels (diag/off-diag apply, orbit scan, lookup),
                   the plan codec and its CUDA decode kernel (csrc/)
   parallel/     — the single-device engine (ell, compact, fused), the
-                  hashed layout, the hash-sharded engine (D shards on one
-                  device: streamed, ell, compact, fused; single- and
-                  multi-column applies)
+                  hashed layout, the hash-sharded engine (streamed, ell,
+                  compact, fused; single- and multi-column applies) with
+                  D shards on one device or one shard per process rank,
+                  and the process groups the ranks meet in (mesh.py)
   solve/        — thick-restart Lanczos (selective or full
                   reorthogonalization) and block Lanczos, LOBPCG,
                   KPM spectral densities, Krylov time evolution

@@ -6,13 +6,14 @@ Every observable becomes its own engine over the solve engine's basis, on
 the solve engine's device, so converged or evolved states are consumed in
 their own layout: no re-enumeration, no shuffle.
 
-* Over a ``LocalEngine`` the bound engines default to ``mode="fused"`` (no
-  structure build — an ELL pack per observable would cost more than the
-  expectation value; one apply and one dot each).
-* Over the streamed engine they are streamed engines (``mode="streamed"``,
-  the default there), whose hashed layout equals the solve engine's: it
-  is a function of (basis, device count).  The JAX engine's other modes on
-  ``DistributedEngine`` are not in the port.
+* The bound engines default to ``mode="fused"`` (no structure build — an
+  ELL pack per observable would cost more than the expectation value; one
+  apply and one dot each), as the JAX function's do.
+* Over a ``DistributedEngine`` they are ``DistributedEngine``s with the
+  solve engine's shard count, row chunk, exchange capacity, device, rank
+  group and hashed layout (shared, not recomputed), in any of its modes —
+  ``streamed`` for real sectors only; complex sectors take ``fused`` or
+  ``ell``.  On a rank engine every rank binds and evaluates together.
 
 State forms handled:
 
@@ -26,7 +27,7 @@ State forms handled:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -88,33 +89,32 @@ class BoundObservable:
 
 
 def bind_observables(operators: Sequence, engine,
-                     mode: Optional[str] = None) -> List[BoundObservable]:
-    """One bound engine per observable operator, on ``engine``'s basis and
-    device.  ``mode`` defaults to ``"fused"`` over a ``LocalEngine`` and
-    to ``"streamed"`` over the streamed engine, its only mode in the port.
-    Observables must commute with the basis symmetry group."""
+                     mode: str = "fused") -> List[BoundObservable]:
+    """One bound engine per observable operator, on ``engine``'s basis,
+    device and (for a ``DistributedEngine``) shards, rank group and hashed
+    layout, in ``mode`` (default ``"fused"``).  Observables must commute
+    with the basis symmetry group."""
     out = []
     for i, op in enumerate(operators):
         name = getattr(op, "name", None) or f"observable_{i}"
         if _is_distributed(engine):
             from ..parallel.distributed import DistributedEngine
-            if mode not in (None, "streamed"):
-                raise NotImplementedError(
-                    f"mode={mode!r}: the port's DistributedEngine has "
-                    "mode='streamed' only (its 'ell', 'fused', 'compact' "
-                    "and 'hybrid' modes are not ported)")
-            oeng = DistributedEngine(op, batch_size=engine.batch_size,
-                                     device=engine.device)
+            oeng = DistributedEngine(
+                op, n_devices=engine.n_devices,
+                batch_size=engine.batch_size, mode=mode,
+                device=engine.device,
+                all_to_all_capacity_factor=engine.all_to_all_capacity_factor,
+                remote_buffer_size=engine.remote_buffer_size,
+                layout=engine.layout, group=engine.group)
         else:
             from ..parallel.engine import LocalEngine
-            oeng = LocalEngine(op, mode=mode or "fused",
-                               device=engine.device)
+            oeng = LocalEngine(op, mode=mode, device=engine.device)
         out.append(BoundObservable(name=name, engine=oeng))
     return out
 
 
 def expectations(operators: Sequence, engine, psi,
-                 mode: Optional[str] = None) -> List[Tuple[str, float]]:
+                 mode: str = "fused") -> List[Tuple[str, float]]:
     """``[(name, <psi|O|psi>), ...]`` for every operator — bind + apply
     in one call."""
     return [(b.name, b.expectation(psi))

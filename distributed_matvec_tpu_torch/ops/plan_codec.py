@@ -35,7 +35,7 @@ and u16 codes as int16 tensors; both are widened and masked before use.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -178,11 +178,16 @@ class PlanCodec:
     @classmethod
     def build(cls, tier: str, chunks, n_dest: int, cap_build: int,
               n_devices: int, shard_size: int, cshape, ckind: str,
-              dict_max: int = DICT_MAX) -> "PlanCodec":
+              dict_max: int = DICT_MAX,
+              agree: Optional[Callable] = None) -> "PlanCodec":
         """Codec for a freshly built plan.  ``chunks`` is the engine's
         ``[{shard: pc}]`` raw-chunk list; the scan measures the live-entry
         census (compaction bound), the true maximum bucket fill (capacity
-        trim), and the distinct-coefficient census (dictionary decision)."""
+        trim), and the distinct-coefficient census (dictionary decision).
+        ``agree`` (one shard per rank) maps the local decisions
+        ``(use_dict, nd, fill, n_live)`` to job-wide ones — the encoded
+        shapes enter every rank's apply, so every rank must encode
+        alike."""
         D = int(n_devices)
         spec = {"version": PLAN_CODEC_VERSION, "tier": tier,
                 "n_dest": int(n_dest), "D": D,
@@ -220,6 +225,8 @@ class PlanCodec:
         use_dict = bool(uniq) and nd <= dict_max
         fill = max(fill, 1)
         n_live = max(((n_live + 7) // 8) * 8, 8)
+        if agree is not None:
+            use_dict, nd, fill, n_live = agree(use_dict, nd, fill, n_live)
         spec["cap_eff"] = int(min(fill, cap_build))
         spec["n_recv"] = D * spec["cap_eff"]
         spec["w_dest"] = bits_for(spec["n_recv"])

@@ -1,3 +1,3 @@
-"""Hashed layout and the streamed matvec engine."""
+"""Hashed layout, the matvec engines and the rank groups."""
 
-from . import distributed, shuffle  # noqa: F401
+from . import distributed, mesh, shuffle  # noqa: F401

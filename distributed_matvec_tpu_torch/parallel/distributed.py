@@ -7,14 +7,26 @@ zero), or ``[D, M, R]`` for a block of R columns, and
 :class:`~.shuffle.HashedLayout` converts to and from the sorted (*block*)
 order.
 
-All D shards live in one process, on the engine's ``device``: the
-counterpart of the JAX engine on a single-process mesh (how its tests run
-D = 2 … 8 on virtual CPU devices).  Per-shard work runs shard by shard —
-each shard's program is what one rank runs — and shards meet only in
-:func:`all_to_all`, the one exchange function: send buffers
-``[D_src, D_dst, C, …]`` in, receive buffers ``[D_dst, D_src, C, …]`` out,
-JAX's ``all_to_all(sb, axis, 0, 0, tiled=True)``.  On one device it is a
-transpose.
+Two placements of the D shards:
+
+* **One process** (no ``group``): all D shards on the engine's ``device``,
+  the counterpart of the JAX engine on a single-process mesh (how its tests
+  run D = 2 … 8 on virtual CPU devices).  Per-shard work runs shard by
+  shard, and the exchange is a transpose.
+* **One shard per rank** (``group=``, a :class:`~.mesh.ShardGroup` from
+  :func:`~.mesh.init_distributed`): D is the group's world size and rank r
+  holds shard r — its rows, tables, plan and vector row, as ``[1, M]`` /
+  ``[1, M, R]`` so the per-shard code keeps its shape.  The basis is built
+  on every rank, as the JAX engine does.  The shards meet only in
+  collectives: the exchange is ``all_to_all_single``, and every build-wide
+  value (histograms, capacities, codec decisions, overflow and
+  out-of-basis counts) is agreed by an all-reduce or all-gather before
+  anything raises, so the ranks raise together.
+
+Either way the shards meet in :func:`all_to_all`, the one exchange
+function: send buffers ``[D_src, D_dst, C, …]`` in, receive buffers
+``[D_dst, D_src, C, …]`` out, JAX's ``all_to_all(sb, axis, 0, 0,
+tiled=True)``; on a rank the leading axis is this rank's one shard.
 
 Modes (``mode=``):
 
@@ -47,9 +59,9 @@ Modes (``mode=``):
   Overflow and out-of-basis targets are counted and checked on the first
   apply of each row-chunk size.  Real and complex128 sectors.
 
-The JAX engine's multi-process paths, ``_staged_all_to_all`` and
-pipelining, ``hybrid``, ``from_shards``, the structure and plan caches and
-autotuning are not in the port.
+The JAX engine's ``_staged_all_to_all`` and pipelining, ``hybrid``,
+``from_shards``, the structure and plan caches and autotuning are not in
+the port.
 """
 
 from __future__ import annotations
@@ -130,12 +142,17 @@ def _bucket_positions(key: torch.Tensor, D: int) -> torch.Tensor:
     return pos_s[inv]
 
 
-def all_to_all(send: torch.Tensor) -> torch.Tensor:
+def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
     """The exchange: shard d's receive block s is shard s's send block d.
     ``send`` is ``[D_src, D_dst, C, …]``; returns ``[D_dst, D_src, C, …]``,
-    contiguous.  All shards live on one device here, so it is a
-    transpose (no copy at D = 1)."""
-    return send.transpose(0, 1).contiguous()
+    contiguous.  Without a ``group`` all shards live on one device and it
+    is a transpose (no copy at D = 1).  With a :class:`~.mesh.ShardGroup`
+    ``send`` is this rank's ``[1, W_dst, C, …]`` and the result its
+    ``[1, W_src, C, …]``, through ``all_to_all_single`` — at every W, 1
+    included."""
+    if group is None:
+        return send.transpose(0, 1).contiguous()
+    return group.exchange(send[0])[None]
 
 
 class DistributedEngine:
@@ -148,20 +165,43 @@ class DistributedEngine:
         yh = eng.matvec(xh)
         y = eng.from_hashed(yh)
 
-    ``n_devices`` is the shard count D.  ``batch_size`` is the row chunk B
-    of the plan builds and the chunked applies (default 65536, at most M);
-    ``stream_compress`` the streamed codec tier.
+    ``n_devices`` is the shard count D (default 1).  ``batch_size`` is the
+    row chunk B of the plan builds and the chunked applies (default 65536,
+    at most M); ``stream_compress`` the streamed codec tier.
     ``all_to_all_capacity_factor`` and ``remote_buffer_size`` size the
     chunked modes' exchange buckets as the JAX config does.  ``device``
-    defaults to ``cuda`` and raises when there is none.
+    defaults to ``cuda`` and raises when there is none.  ``layout`` shares
+    another engine's :class:`~.shuffle.HashedLayout` of the same basis at
+    the same D (bound observables do).
+
+    ``group`` (a :class:`~.mesh.ShardGroup`) makes this a rank engine: D is
+    the group's world size, this process holds shard ``group.rank``, and
+    ``device`` defaults to the group's.  Every rank constructs the engine
+    and makes every call on it together — ``matvec``, ``dot``,
+    ``random_hashed`` and ``from_hashed`` are collective::
+
+        g = init_distributed(backend="gloo", device="cpu")   # under torchrun
+        eng = DistributedEngine(op, mode="ell", group=g, device="cpu")
+        xh = eng.to_hashed(x)                 # block [N] → this rank's [1, M]
+        y = eng.from_hashed(eng.matvec(xh))   # all-gathers the rows
     """
 
-    def __init__(self, operator: Operator, n_devices: int = 1,
+    def __init__(self, operator: Operator, n_devices: Optional[int] = None,
                  batch_size: Optional[int] = None, mode: str = "streamed",
                  stream_compress: str = "lossless", device=None,
                  all_to_all_capacity_factor: float =
                  ALL_TO_ALL_CAPACITY_FACTOR,
-                 remote_buffer_size: int = REMOTE_BUFFER_SIZE):
+                 remote_buffer_size: int = REMOTE_BUFFER_SIZE,
+                 layout: Optional[HashedLayout] = None, group=None):
+        if group is not None:
+            if n_devices is not None and int(n_devices) != group.world_size:
+                raise ValueError(
+                    f"n_devices={n_devices}: a rank engine has one shard "
+                    f"per rank, {group.world_size} here")
+            if device is not None and resolve_device(device) != group.device:
+                raise ValueError(f"device {device}: this rank's group runs "
+                                 f"on {group.device}")
+            n_devices, device = group.world_size, group.device
         self.device = dev = resolve_device(device)
         if mode == "hybrid":
             raise NotImplementedError(
@@ -169,7 +209,7 @@ class DistributedEngine:
                 f"{'|'.join(MODES)}")
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}")
-        D = int(n_devices)
+        D = 1 if n_devices is None else int(n_devices)
         if D < 1:
             raise ValueError(f"n_devices={n_devices}: need at least 1")
         if not operator.is_hermitian:
@@ -191,6 +231,12 @@ class DistributedEngine:
         self.operator = operator
         self.mode = mode
         self.n_devices = D
+        #: the rank group (None: every shard in this process), and the
+        #: shards this process holds, in local-row order
+        self.group = group
+        self._shards = [group.rank] if group is not None else list(range(D))
+        #: bytes this process has put into the exchange so far
+        self.exchange_bytes = 0
         self.stream_compress = stream_compress
         self.all_to_all_capacity_factor = float(all_to_all_capacity_factor)
         self.remote_buffer_size = int(remote_buffer_size)
@@ -207,7 +253,15 @@ class DistributedEngine:
         if not basis.is_built:
             basis.build()
         reps, norms = basis.representatives, basis.norms
-        self.layout = HashedLayout(reps, D)
+        if layout is not None:
+            if layout.n_shards != D or layout.n_global != reps.size:
+                raise ValueError(
+                    f"shared layout is for {layout.n_global} states on "
+                    f"{layout.n_shards} shards, engine needs "
+                    f"{reps.size} on {D}")
+            self.layout = layout
+        else:
+            self.layout = HashedLayout(reps, D)
         self.n_states = int(reps.size)
         self.shard_size = M = self.layout.shard_size
         self.counts = self.layout.counts
@@ -216,12 +270,13 @@ class DistributedEngine:
 
         self.tables = K.device_tables(operator, dev)
         self.num_terms = int(self.tables.off.x.shape[0])
-        self._alphas = u64.from_numpy(alphas_np, dev)          # [D, M]
-        self._norms = torch.from_numpy(norms_np).to(dev)      # [D, M]
-        self._diag = torch.empty((D, M), dtype=torch.float64, device=dev)
-        for d in range(D):
-            dd = K.apply_diag(self.tables.diag, self._alphas[d])
-            self._diag[d] = torch.where(self._alphas[d] != SENTINEL_STATE,
+        L = len(self._shards)
+        self._alphas = u64.from_numpy(alphas_np[self._shards], dev)  # [L, M]
+        self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
+        self._diag = torch.empty((L, M), dtype=torch.float64, device=dev)
+        for i in range(L):
+            dd = K.apply_diag(self.tables.diag, self._alphas[i])
+            self._diag[i] = torch.where(self._alphas[i] != SENTINEL_STATE,
                                         dd, torch.zeros_like(dd))
 
         b = min(batch_size or DEFAULT_BATCH_SIZE, M)
@@ -231,6 +286,13 @@ class DistributedEngine:
         if mode in ("ell", "compact"):
             if mode == "compact":
                 self._c_W = self._compact_W(alphas_np)
+                if group is not None:
+                    ws = group.all_gather(torch.tensor(
+                        self._c_W, dtype=torch.float64, device=dev))
+                    if not bool((ws == ws[0]).all()):
+                        raise RuntimeError(
+                            f"the ranks found different compact "
+                            f"magnitudes W: {ws.tolist()}")
             self._plan_stream(compact=mode == "compact")
             self.timings["plan_build_s"] = time.perf_counter() - t0
             return
@@ -244,13 +306,48 @@ class DistributedEngine:
         self._encode_stream_plan(raw)
         self.timings["plan_encode_s"] = time.perf_counter() - t0
         self._cdict = torch.from_numpy(np.stack(
-            [self._codec.dict_device_row(d) for d in range(D)])).to(dev)
+            [self._codec.dict_device_row(d) for d in self._shards])).to(dev)
         if dev.type == "cuda":
             self._copy_stream = torch.cuda.Stream(dev)
             self._dev_bufs = torch.empty(
-                (2, D, self._chunk_stride), dtype=torch.uint8, device=dev)
+                (2, L, self._chunk_stride), dtype=torch.uint8, device=dev)
             self._ready = [torch.cuda.Event(), torch.cuda.Event()]
             self._free = [torch.cuda.Event(), torch.cuda.Event()]
+
+    # -- ranks ---------------------------------------------------------------
+
+    def _exchange(self, send: torch.Tensor) -> torch.Tensor:
+        """:func:`all_to_all` over this engine's shards, counting the bytes
+        put in."""
+        self.exchange_bytes += send.numel() * send.element_size()
+        return all_to_all(send, self.group)
+
+    def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks of the engine's group (``t`` itself
+        without one): the reduction a solver's dots and norms take on a
+        rank engine."""
+        return t if self.group is None else self.group.all_reduce(t)
+
+    def _agree(self, *values, op: str = "sum") -> List[int]:
+        """Integer counts summed (or maximized) over the ranks, as they are
+        without a group.  A check that raises on the result raises on
+        every rank together: a one-sided raise would leave the others
+        waiting in their next collective."""
+        t = torch.stack([torch.as_tensor(v, dtype=torch.int64,
+                                         device=self.device)
+                         for v in values])
+        if self.group is not None:
+            t = self.group.all_reduce(t, op)
+        return [int(v) for v in t.tolist()]
+
+    def _local(self, d: Optional[int]) -> int:
+        """The local row of global shard d (None: this process's first)."""
+        if d is None:
+            return 0
+        if d not in self._shards:
+            raise ValueError(f"shard {d} is not held here (this process "
+                             f"holds {self._shards})")
+        return self._shards.index(d)
 
     # -- shared set-up ---------------------------------------------------------
 
@@ -258,31 +355,33 @@ class DistributedEngine:
         """Per-shard bucketed lookup over each shard's real prefix, with one
         directory width for all shards (from the largest) so the stacked
         tables are uniform; pad rows repeat the last real row so a probe
-        clamping past the prefix cannot match a SENTINEL query."""
-        D, M = self.n_devices, self.shard_size
+        clamping past the prefix cannot match a SENTINEL query.  The probe
+        count is the largest any shard needs (agreed over the ranks)."""
+        M = self.shard_size
         counts = self.counts
         b_global = choose_dir_bits(int(counts.max()), n_bits)
-        pairs = np.full((D, M, 2), 0xFFFFFFFF, np.uint32)
+        pairs = np.full((len(self._shards), M, 2), 0xFFFFFFFF, np.uint32)
         dirs = []
         probes, shift = 0, None
-        for d in range(D):
+        for i, d in enumerate(self._shards):
             c = int(counts[d])
             lk = build_sorted_lookup(alphas_np[d, :c], n_bits,
                                      dir_bits=b_global)
             shift, probes = lk[2], max(probes, lk[3])
-            pairs[d, :c] = lk[0]
+            pairs[i, :c] = lk[0]
             if 0 < c < M:
-                pairs[d, c:] = lk[0][-1]
+                pairs[i, c:] = lk[0][-1]
             dirs.append(lk[1])
         self._lk_pair = torch.from_numpy(pairs.astype(np.int64)).to(
-            self.device)                                       # [D, M, 2]
+            self.device)                                       # [L, M, 2]
         self._lk_dir = torch.from_numpy(np.stack(dirs)).to(self.device)
-        self._lk_shift, self._lk_probes = shift, probes
+        self._lk_shift = shift
+        self._lk_probes = self._agree(probes, op="max")[0]
 
-    def _lookup(self, d: int, states: torch.Tensor):
-        """(index, found) of ``states`` on shard d."""
+    def _lookup(self, i: int, states: torch.Tensor):
+        """(index, found) of ``states`` on local shard row i."""
         return state_index_bucketed(
-            self._lk_pair[d], self._lk_dir[d], states, shift=self._lk_shift,
+            self._lk_pair[i], self._lk_dir[i], states, shift=self._lk_shift,
             probes=self._lk_probes)
 
     def _fused_capacity(self, batch_rows: Optional[int] = None) -> int:
@@ -345,13 +444,13 @@ class DistributedEngine:
         B = self.batch_size
         return (self.shard_size + B - 1) // B
 
-    def _chunk_rows(self, d: int, ci: int, B: Optional[int] = None):
-        """Shard d's row chunk ``ci`` padded to B (SENTINEL rows, unit
-        norms)."""
+    def _chunk_rows(self, i: int, ci: int, B: Optional[int] = None):
+        """Local shard row i's row chunk ``ci`` padded to B (SENTINEL rows,
+        unit norms)."""
         B = B or self.batch_size
         M = self.shard_size
         s, e = ci * B, min((ci + 1) * B, M)
-        a, nn = self._alphas[d, s:e], self._norms[d, s:e]
+        a, nn = self._alphas[i, s:e], self._norms[i, s:e]
         if e - s < B:
             pad = B - (e - s)
             a = torch.cat([a, torch.full((pad,), SENTINEL_STATE,
@@ -361,34 +460,35 @@ class DistributedEngine:
         return a, nn
 
     def _build_chunk(self, ci: int):
-        """Row chunk ``ci`` of every shard, as the JAX build program runs
-        it: each shard's kernels + orbit scan and bucket routing, one
-        exchange of the target states, each shard's receive-side lookup.
-        Returns ``({shard: raw chunk}, overflow, invalid)``, a raw chunk
-        being the host arrays ``dest`` [B·T] i32, ``coeff`` [B, T] f64,
-        ``ridx`` [D·Cap] i32 and ``rok`` [D·Cap] bool."""
-        D, Cap = self.n_devices, self._capacity
-        send_b = torch.full((D, D * Cap + 1), SENTINEL_STATE,
+        """Row chunk ``ci`` of every shard held here, as the JAX build
+        program runs it: each shard's kernels + orbit scan and bucket
+        routing, one exchange of the target states, each shard's
+        receive-side lookup.  Returns ``({shard: raw chunk}, overflow,
+        invalid)``, a raw chunk being the host arrays ``dest`` [B·T] i32,
+        ``coeff`` [B, T] f64, ``ridx`` [D·Cap] i32 and ``rok`` [D·Cap]
+        bool."""
+        D, Cap, L = self.n_devices, self._capacity, len(self._shards)
+        send_b = torch.full((L, D * Cap + 1), SENTINEL_STATE,
                             dtype=torch.int64, device=self.device)
         per, overflow = {}, 0
-        for s in range(D):
-            a, nn = self._chunk_rows(s, ci)
+        for i, s in enumerate(self._shards):
+            a, nn = self._chunk_rows(i, ci)
             betas, gcoeff = K.gather_coefficients(self.tables, a, nn)
             nz = (gcoeff != 0) & (a != SENTINEL_STATE)[:, None]
             flat_b = betas.reshape(-1)
             dest, ov = self._route(flat_b, nz.reshape(-1), Cap)
             overflow += int(ov)
             # the trailing slot takes the dropped (dead) entries
-            send_b[s, dest] = flat_b
+            send_b[i, dest] = flat_b
             per[s] = {"dest": dest.to(torch.int32).cpu().numpy(),
                       "coeff": torch.where(nz, gcoeff,
                                            torch.zeros_like(gcoeff))
                       .cpu().numpy()}
-        recv_b = all_to_all(send_b[:, :D * Cap].reshape(D, D, Cap))
+        recv_b = self._exchange(send_b[:, :D * Cap].reshape(L, D, Cap))
         invalid = 0
-        for d in range(D):
-            rb = recv_b[d].reshape(-1)
-            idx, found = self._lookup(d, rb)
+        for i, d in enumerate(self._shards):
+            rb = recv_b[i].reshape(-1)
+            idx, found = self._lookup(i, rb)
             live_r = rb != SENTINEL_STATE
             okc = found & live_r
             invalid += int((live_r & ~found).sum())
@@ -400,7 +500,7 @@ class DistributedEngine:
     def _build_stream_plan(self):
         """Resolve every row chunk's structure once into host arrays,
         ``[{shard: raw chunk}]`` as the JAX engine keeps them; raises on
-        overflow or out-of-basis targets."""
+        overflow or out-of-basis targets (on every rank)."""
         chunks = []
         overflow = invalid = 0
         for ci in range(self.nchunks):
@@ -408,19 +508,34 @@ class DistributedEngine:
             chunks.append(per)
             overflow += ov
             invalid += iv
-        self._validate_counters(overflow, invalid, "streamed",
+        self._validate_counters(*self._agree(overflow, invalid), "streamed",
                                 self._capacity)
         return chunks
 
+    def _codec_agree(self, use_dict: bool, nd: int, fill: int,
+                     n_live: int):
+        """The codec's job-wide decisions (JAX ``_codec_agree``): the
+        encoded shapes enter every rank's apply, so all ranks take the
+        dictionary only if every rank can, and the largest dictionary,
+        bucket fill and live-entry count."""
+        g = self.group.all_gather(torch.tensor(
+            [int(bool(use_dict)), int(nd), int(fill), int(n_live)],
+            dtype=torch.int64, device=self.device)).cpu().numpy()
+        return (bool(g[:, 0].min()), int(g[:, 1].max()),
+                int(g[:, 2].max()), int(g[:, 3].max()))
+
     def _encode_stream_plan(self, raw) -> None:
         """Encode the raw chunks with the codec and pack them into one host
-        buffer (pinned on CUDA) of ``[nchunks, D]`` equal-stride records:
-        dest+row words | ridx words | rok words | codes | fill counts."""
+        buffer (pinned on CUDA) of ``[nchunks, L]`` equal-stride records,
+        one per shard held here: dest+row words | ridx words | rok words |
+        codes | fill counts."""
         D, B, T = self.n_devices, self.batch_size, self.num_terms
+        L = len(self._shards)
         self._codec = codec = PC.PlanCodec.build(
             self.stream_compress, raw, n_dest=B * T,
             cap_build=self._capacity, n_devices=D,
-            shard_size=self.shard_size, cshape=(B, T), ckind="real")
+            shard_size=self.shard_size, cshape=(B, T), ckind="real",
+            agree=None if self.group is None else self._codec_agree)
         spec = codec.spec
         if spec["coeff"] != "dict":
             raise NotImplementedError(
@@ -443,7 +558,7 @@ class DistributedEngine:
         self._chunk_layout = layout
         n = self.nchunks
         self._plan_host = torch.zeros(
-            (n, D, self._chunk_stride), dtype=torch.uint8,
+            (n, L, self._chunk_stride), dtype=torch.uint8,
             pin_memory=self.device.type == "cuda")
         host = self._plan_host.numpy()
 
@@ -451,7 +566,7 @@ class DistributedEngine:
             """Encode chunk ci's records into the host buffer; returns the
             encoded streams' bytes, as the JAX engine counts them."""
             nbytes = 0
-            for d in range(D):
+            for i, d in enumerate(self._shards):
                 pc = raw[ci][d]
                 enc = codec.encode_chunk(pc, d)
                 enc["fill"] = PC.send_fill(pc["dest"], D, self._capacity)
@@ -460,7 +575,7 @@ class DistributedEngine:
                     if a.size != nb:
                         raise ValueError(f"encoded {k} has {a.size} bytes, "
                                          f"the chunk layout {nb}")
-                    host[ci, d, o:o + nb] = a
+                    host[ci, i, o:o + nb] = a
                 del enc["fill"]
                 nbytes += PC.PlanCodec.encoded_bytes(enc)
             raw[ci] = None                       # free the raw chunk
@@ -470,8 +585,9 @@ class DistributedEngine:
         # large-array kernels release the GIL, so threads overlap them
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
             enc_bytes = sum(pool.map(encode, range(n)))
+        # the shards held here (on a rank engine, this rank's shard)
         self.plan_bytes = enc_bytes
-        self.plan_bytes_raw = codec.raw_chunk_bytes() * n * D
+        self.plan_bytes_raw = codec.raw_chunk_bytes() * n * L
 
     # -- streamed: plan access ------------------------------------------------
 
@@ -489,12 +605,14 @@ class DistributedEngine:
                 view("ridx", torch.int32), view("rok", torch.int32),
                 view("fill", torch.int32))
 
-    def plan_chunk(self, ci: int, d: int = 0) -> Dict[str, np.ndarray]:
-        """Shard d's encoded chunk ``ci`` as NumPy arrays in the JAX
-        engine's form (``dest``/``ridx``/``rok`` u32 word streams,
-        ``coeff`` u8/u16 codes), plus its ``fill`` counts [D] int32."""
+    def plan_chunk(self, ci: int, d: Optional[int] = None
+                   ) -> Dict[str, np.ndarray]:
+        """Shard d's encoded chunk ``ci`` (default: the first shard held
+        here) as NumPy arrays in the JAX engine's form (``dest``/``ridx``/
+        ``rok`` u32 word streams, ``coeff`` u8/u16 codes), plus its
+        ``fill`` counts [D] int32."""
         dest, codes, ridx, rok, fill = self._chunk_views(
-            self._plan_host[ci, d])
+            self._plan_host[ci, self._local(d)])
         code_np = np.uint8 if codes.dtype == torch.uint8 else np.uint16
         return {"dest": dest.numpy().view(np.uint32),
                 "coeff": codes.numpy().view(code_np),
@@ -503,13 +621,13 @@ class DistributedEngine:
                 "fill": fill.numpy().copy()}
 
     def _stream_chunks(self) -> Iterator[List[Tuple[torch.Tensor, ...]]]:
-        """The plan's chunks as device views, in order: per chunk, the D
-        shards' record views.  On CUDA each chunk's records are copied host
-        → device in one copy on a side stream, into one of two buffers,
-        one chunk ahead of its use; the compute stream waits for the copy,
-        and the copy into a buffer waits for the compute that last read
-        it."""
-        n, D = self.nchunks, self.n_devices
+        """The plan's chunks as device views, in order: per chunk, the
+        record views of the shards held here.  On CUDA each chunk's records
+        are copied host → device in one copy on a side stream, into one of
+        two buffers, one chunk ahead of its use; the compute stream waits
+        for the copy, and the copy into a buffer waits for the compute that
+        last read it."""
+        n, D = self.nchunks, len(self._shards)
         if self.device.type != "cuda":
             for ci in range(n):
                 yield [self._chunk_views(self._plan_host[ci, d])
@@ -545,32 +663,33 @@ class DistributedEngine:
         per-chunk shard views on the device in chunk order
         (:meth:`_stream_chunks` streams them from host memory).  Columns
         are applied side by side: per chunk one decode launch per shard
-        and column into one ``[D, R, D·cap + 1]`` send buffer, the
-        exchange, then per shard one ``index_add_`` of its ``[n_recv, R]``
-        receive block."""
+        and column into one ``[L, R, D·cap + 1]`` send buffer (L the
+        shards held here), the exchange, then per shard one ``index_add_``
+        of its ``[n_recv, R]`` receive block."""
         D, M, B = self.n_devices, self.shard_size, self.batch_size
+        L = len(self._shards)
         spec = self._codec.spec
         n_recv, w_ridx, cap = spec["n_recv"], spec["w_ridx"], spec["cap_eff"]
-        x = xh.reshape(D, M, -1)                       # [D, M, R]
+        x = xh.reshape(L, M, -1)                       # [L, M, R]
         R = x.shape[2]
         # column-major copy: each column's chunk rows are contiguous, as
         # the kernel takes them
-        xp = torch.zeros((D, R, self.nchunks * B), dtype=torch.float64,
+        xp = torch.zeros((L, R, self.nchunks * B), dtype=torch.float64,
                          device=self.device)
         xp[:, :, :M] = x.transpose(1, 2)
-        y = torch.zeros((D, M, R), dtype=torch.float64, device=self.device)
+        y = torch.zeros((L, M, R), dtype=torch.float64, device=self.device)
         for ci, views in enumerate(chunks):
-            send = torch.empty((D, R, n_recv + 1), dtype=torch.float64,
+            send = torch.empty((L, R, n_recv + 1), dtype=torch.float64,
                                device=self.device)
-            for s in range(D):
+            for s in range(L):
                 edest, codes, _, _, fill = views[s]
                 for r in range(R):
                     PC.fused_decode_gather_scatter(
                         spec, edest, codes, fill, self._cdict[s],
                         xp[s, r, ci * B:(ci + 1) * B], out=send[s, r])
-            recv = all_to_all(send[:, :, :n_recv].reshape(
-                D, R, D, cap).permute(0, 2, 3, 1))     # [D, D, cap, R]
-            for d in range(D):
+            recv = self._exchange(send[:, :, :n_recv].reshape(
+                L, R, D, cap).permute(0, 2, 3, 1))     # [L, D, cap, R]
+            for d in range(L):
                 _, _, ridx_w, rok_w, _ = views[d]
                 ridx = PC.unpack_bits(ridx_w, n_recv, w_ridx)
                 rok = PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)
@@ -584,22 +703,22 @@ class DistributedEngine:
         """Per row chunk: each shard re-runs the kernels, routes its
         amplitudes and their target states into ``[D, cap]`` buckets; both
         are exchanged; each shard looks the targets up and adds.  ``x`` is
-        ``[D, M, R]``.  Returns (y, overflow, invalid) as tensors."""
-        D, M = self.n_devices, self.shard_size
+        ``[L, M, R]``.  Returns (y, overflow, invalid) as tensors."""
+        D, M, L = self.n_devices, self.shard_size, len(self._shards)
         R = x.shape[2]
         nchunks = (M + B - 1) // B
         dev, dtype = self.device, self._dtype
-        xp = torch.zeros((D, nchunks * B, R), dtype=dtype, device=dev)
+        xp = torch.zeros((L, nchunks * B, R), dtype=dtype, device=dev)
         xp[:, :M] = x
-        y = torch.zeros((D, M, R), dtype=dtype, device=dev)
+        y = torch.zeros((L, M, R), dtype=dtype, device=dev)
         overflow = torch.zeros((), dtype=torch.int64, device=dev)
         invalid = torch.zeros((), dtype=torch.int64, device=dev)
         for ci in range(nchunks):
-            send_b = torch.full((D, D * cap + 1), SENTINEL_STATE,
+            send_b = torch.full((L, D * cap + 1), SENTINEL_STATE,
                                 dtype=torch.int64, device=dev)
-            send_a = torch.zeros((D, D * cap + 1, R), dtype=dtype,
+            send_a = torch.zeros((L, D * cap + 1, R), dtype=dtype,
                                  device=dev)
-            for s in range(D):
+            for s in range(L):
                 a_c, n_c = self._chunk_rows(s, ci, B)
                 x_c = xp[s, ci * B:(ci + 1) * B]              # [B, R]
                 betas, gcoeff = K.gather_coefficients(self.tables, a_c, n_c)
@@ -613,9 +732,10 @@ class DistributedEngine:
                 overflow += ov
                 send_b[s, dest] = flat_b
                 send_a[s, dest] = amps.reshape(-1, R)
-            recv_b = all_to_all(send_b[:, :D * cap].reshape(D, D, cap))
-            recv_a = all_to_all(send_a[:, :D * cap].reshape(D, D, cap, R))
-            for d in range(D):
+            recv_b = self._exchange(send_b[:, :D * cap].reshape(L, D, cap))
+            recv_a = self._exchange(send_a[:, :D * cap].reshape(L, D, cap,
+                                                                R))
+            for d in range(L):
                 rb = recv_b[d].reshape(-1)
                 idx, found = self._lookup(d, rb)
                 live_r = rb != SENTINEL_STATE
@@ -647,17 +767,77 @@ class DistributedEngine:
                 f"found {vals[:5]}; use mode='ell'")
         return float(vals[0]) if vals.size else 0.0
 
-    def _structure_chunks(self, d: int, Bc: int):
-        """Yield ``(s, e, n_c, betas, cf, nz)`` per row chunk of shard d,
-        padded to ``Bc`` rows (SENTINEL rows carry cf == 0), as tensors on
-        the device."""
+    def _structure_chunks(self, i: int, Bc: int):
+        """Yield ``(s, e, n_c, betas, cf, nz)`` per row chunk of local shard
+        row i, padded to ``Bc`` rows (SENTINEL rows carry cf == 0), as
+        tensors on the device."""
         M = self.shard_size
         for ci in range((M + Bc - 1) // Bc):
             s, e = ci * Bc, min((ci + 1) * Bc, M)
-            a_c, n_c = self._chunk_rows(d, ci, Bc)
+            a_c, n_c = self._chunk_rows(i, ci, Bc)
             betas, cf = K.gather_coefficients(self.tables, a_c, n_c)
             nz = (cf != 0) & (a_c != SENTINEL_STATE)[:, None]
             yield s, e, n_c, betas, cf, nz
+
+    def _resolve_targets(self, uniq, akey, compact: bool):
+        """Pass 1b of the routing-plan build: resolve each shard's unique
+        remote targets against the rows of the peer that owns them.
+
+        ``uniq[i][p]`` holds local shard row i's sorted unique target keys
+        on peer p (None: none).  Returns ``(reads, qstate, qnorm, bad)``:
+        ``reads[i][q]`` the local indices peer q reads from shard row i;
+        ``qstate[i][p]``/``qnorm[i][p]`` shard row i's targets found on
+        peer p and their norms (norms in compact mode only); ``bad`` the
+        targets no peer holds, as a tensor.  In one process the peers' rows
+        are at hand; on ranks each list travels to its owner, is ranked
+        there, and its ``ok`` mask (and norms) travel back — two or three
+        variable-size exchanges."""
+        D, dev = self.n_devices, self.device
+        empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
+        empty_f = torch.zeros(0, dtype=torch.float64, device=dev)
+        L = len(self._shards)
+        reads = [[empty_i] * D for _ in range(L)]
+        qstate = [[empty_i] * D for _ in range(L)]
+        qnorm = [[empty_f] * D for _ in range(L)]
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def rank_in(keys, i):
+            """Positions of ``keys`` among local shard row i's sorted keys,
+            and which of them are there."""
+            ip = torch.searchsorted(akey[i], keys).clamp_(0, max(
+                akey[i].shape[0] - 1, 0))
+            return ip, akey[i][ip] == keys
+
+        if self.group is None:
+            for d in range(D):
+                for p in range(D):
+                    ub = uniq[d][p]
+                    if ub is None:
+                        continue
+                    ip, ok = rank_in(ub, p)
+                    bad += (~ok).sum()
+                    reads[p][d] = ip[ok]
+                    qstate[d][p] = ub[ok]
+                    qnorm[d][p] = self._norms[p][ip[ok]]
+            return reads, qstate, qnorm, bad
+        asked = self.group.exchange_lists(
+            [empty_i if u is None else u for u in uniq[0]])
+        oks, norms = [], []
+        for q, ub in enumerate(asked):
+            ip, ok = rank_in(ub, 0)
+            bad += (~ok).sum()
+            reads[0][q] = ip[ok]
+            oks.append(ok)
+            norms.append(self._norms[0][ip[ok]] if compact else empty_f)
+        oks = self.group.exchange_lists(oks)
+        if compact:
+            norms = self.group.exchange_lists(norms)
+        for p in range(D):
+            if uniq[0][p] is not None:
+                qstate[0][p] = uniq[0][p][oks[p]]
+                if compact:
+                    qnorm[0][p] = norms[p]
+        return reads, qstate, qnorm, bad
 
     def _plan_stream(self, compact: bool) -> None:
         """The two-pass routing-plan build of the JAX engine (ELL and
@@ -666,10 +846,13 @@ class DistributedEngine:
         Pass 1 walks each shard's row chunks keeping per-row nnz counts and
         each peer's UNIQUE remote target states (deduplicated: entries
         reading the same remote x share one exchange slot), and checks the
-        local targets; pass 1b resolves the unique targets against each
-        peer's rows into the query lists ``qin``; pass 2 packs each shard's
-        entries into its tables — local index, or ``M + p·C + slot`` for a
-        remote one — with the stable left-pack and the two-level split.
+        local targets; pass 1b (:meth:`_resolve_targets`) resolves the
+        unique targets against each peer's rows into the query lists
+        ``qin``; pass 2 packs each shard's entries into its tables — local
+        index, or ``M + p·C + slot`` for a remote one — with the stable
+        left-pack and the two-level split.  On ranks the nnz histogram, the
+        query capacity, the tail height and the failure counts are agreed
+        over the group.
 
         States are searched and sorted as ``σ ^ 2⁶³``: int64 order of those
         keys is the unsigned order of the states (the JAX engine's host
@@ -677,11 +860,13 @@ class DistributedEngine:
         from .engine import choose_ell_split
 
         D, M, T = self.n_devices, self.shard_size, self.num_terms
+        L = len(self._shards)
         dev = self.device
         Bc = min(M, max(self.batch_size, 8))
         flip = -(1 << 63)
-        # per shard: sorted search keys of its rows (SENTINEL pads last)
-        akey = self._alphas ^ flip                             # [D, M]
+        # per shard held here: sorted search keys of its rows (SENTINEL
+        # pads last)
+        akey = self._alphas ^ flip                             # [L, M]
 
         def rank(keys: torch.Tensor, sorted_keys: torch.Tensor):
             """``np.searchsorted`` (left), clipped to the last index."""
@@ -690,50 +875,40 @@ class DistributedEngine:
 
         # -- pass 1: row-nnz counts, per-peer unique remote targets, local
         #    sector check
-        nnz = torch.zeros((D, M), dtype=torch.int64, device=dev)
-        uniq = [[None] * D for _ in range(D)]     # flipped keys, sorted
+        nnz = torch.zeros((L, M), dtype=torch.int64, device=dev)
+        uniq = [[None] * D for _ in range(L)]     # flipped keys, sorted
         bad = torch.zeros((), dtype=torch.int64, device=dev)
-        for d in range(D):
+        for i, d in enumerate(self._shards):
             pend = [[] for _ in range(D)]
-            for s, e, n_c, betas, cf, nz in self._structure_chunks(d, Bc):
-                nnz[d, s:e] = nz.sum(dim=1)[: e - s]
+            for s, e, n_c, betas, cf, nz in self._structure_chunks(i, Bc):
+                nnz[i, s:e] = nz.sum(dim=1)[: e - s]
                 flat_b = betas[nz]
                 owner = shard_index(flat_b, D)
                 lk = flat_b[owner == d] ^ flip
-                bad += (akey[d][rank(lk, akey[d])] != lk).sum()
+                bad += (akey[i][rank(lk, akey[i])] != lk).sum()
                 for p in range(D):
                     if p != d:
                         pend[p].append(torch.unique(flat_b[owner == p]
                                                     ^ flip))
             for p in range(D):
                 if p != d and pend[p]:
-                    uniq[d][p] = torch.unique(torch.cat(pend[p]))
+                    uniq[i][p] = torch.unique(torch.cat(pend[p]))
             del pend
 
         # -- pass 1b: resolve unique targets against each peer's rows
-        empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
-        queries = [[empty_i] * D for _ in range(D)]
-        qstate = [[empty_i] * D for _ in range(D)]     # flipped keys
-        qnorm = [[torch.zeros(0, dtype=torch.float64, device=dev)] * D
-                 for _ in range(D)]
-        for d in range(D):
-            for p in range(D):
-                ub = uniq[d][p]
-                if ub is None:
-                    continue
-                ip = rank(ub, akey[p])
-                ok = akey[p][ip] == ub
-                bad += (~ok).sum()
-                queries[d][p] = ip[ok]
-                qstate[d][p] = ub[ok]
-                qnorm[d][p] = self._norms[p][ip[ok]]
+        reads, qstate, qnorm, bad1 = self._resolve_targets(uniq, akey,
+                                                           compact)
         del uniq
-        if int(bad):
-            raise RuntimeError(f"{int(bad)} {_OUT_OF_BASIS}")
+        n_bad = self._agree(bad + bad1)[0]
+        if n_bad:
+            raise RuntimeError(f"{n_bad} {_OUT_OF_BASIS}")
 
-        hist = torch.bincount(nnz.reshape(-1), minlength=T + 1).cpu().numpy()
-        cap = max(q.numel() for row in queries for q in row)
-        T0, S, Tmax = choose_ell_split(hist, D * M, T,
+        cap = self._agree(max(q.numel() for row in reads for q in row),
+                          op="max")[0]
+        hist = torch.bincount(nnz.reshape(-1), minlength=T + 1)
+        if self.group is not None:
+            hist = self.group.all_reduce(hist)
+        T0, S, Tmax = choose_ell_split(hist.cpu().numpy(), D * M, T,
                                        real_rows=self.n_states)
         self._ell_T0 = T0
         self.ell_split = (T0, S, Tmax)
@@ -741,18 +916,20 @@ class DistributedEngine:
         C = _round_up(cap, 8)
         self.query_capacity = C
 
-        # qin[d, q] = the local indices peer q reads from shard d (0-padded)
-        self._qin = torch.zeros((D, D, C), dtype=torch.int32, device=dev)
-        for d in range(D):
+        # qin[i, q] = the local indices peer q reads from shard row i
+        # (0-padded)
+        self._qin = torch.zeros((L, D, C), dtype=torch.int32, device=dev)
+        for i, d in enumerate(self._shards):
             for q in range(D):
                 if q != d:
-                    ql = queries[q][d]
-                    self._qin[d, q, : ql.numel()] = ql.to(torch.int32)
-        del queries
+                    ql = reads[i][q]
+                    self._qin[i, q, : ql.numel()] = ql.to(torch.int32)
+        del reads
 
         W = self._c_W if compact else 0.0
         cdtype = self._dtype
-        S_max = int((nnz > T0).sum(dim=1).max()) if S else 0
+        S_max = self._agree(int((nnz > T0).sum(dim=1).max()) if S else 0,
+                            op="max")[0]
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -760,14 +937,14 @@ class DistributedEngine:
         # -- pass 2: pack per-shard tables
         main, tails, n_all = [], [], []
         badw = torch.zeros((), dtype=torch.int64, device=dev)
-        for d in range(D):
+        for i, d in enumerate(self._shards):
             g_main = None if compact else zeros((T0, M), torch.int32)
             v_main = zeros((T0, M), torch.int32 if compact else cdtype)
             rows_t = zeros(S_max, torch.int32)
             v_tail = zeros((Tw, S_max), torch.int32 if compact else cdtype)
             i_tail = None if compact else zeros((Tw, S_max), torch.int32)
             t_cursor = 0
-            for s, e, n_c, betas, cf, nz in self._structure_chunks(d, Bc):
+            for s, e, n_c, betas, cf, nz in self._structure_chunks(i, Bc):
                 flat_b = betas[nz]
                 owner = shard_index(flat_b, D)
                 gflat = torch.zeros(flat_b.shape, dtype=torch.int64,
@@ -775,20 +952,20 @@ class DistributedEngine:
                 nflat = torch.ones(flat_b.shape, dtype=torch.float64,
                                    device=dev)
                 loc = owner == d
-                ip = rank(flat_b[loc] ^ flip, akey[d])
+                ip = rank(flat_b[loc] ^ flip, akey[i])
                 gflat[loc] = ip
                 if compact:
-                    nflat[loc] = self._norms[d][ip]
+                    nflat[loc] = self._norms[i][ip]
                 for p in range(D):
                     if p == d:
                         continue
                     sel = owner == p
                     if not bool(sel.any()):
                         continue
-                    pos = rank(flat_b[sel] ^ flip, qstate[d][p])
+                    pos = rank(flat_b[sel] ^ flip, qstate[i][p])
                     gflat[sel] = M + p * C + pos
                     if compact:
-                        nflat[sel] = qnorm[d][p][pos]
+                        nflat[sel] = qnorm[i][p][pos]
                 g = torch.zeros(betas.shape, dtype=torch.int64, device=dev)
                 g[nz] = gflat
                 cfz = torch.where(nz, cf, 0)
@@ -816,7 +993,7 @@ class DistributedEngine:
                     g_main[:, s:e] = g_p[:r, :T0].T
                 v_main[:, s:e] = pack(g_p[:r, :T0], c_p[:r, :T0]).T
                 if S:
-                    rd = torch.nonzero(nnz[d, s:e] > T0).reshape(-1)
+                    rd = torch.nonzero(nnz[i, s:e] > T0).reshape(-1)
                     k = rd.numel()
                     if k:
                         tsl = slice(t_cursor, t_cursor + k)
@@ -832,26 +1009,27 @@ class DistributedEngine:
             if compact:
                 n_all_d = torch.ones(M + D * C if D > 1 else M,
                                      dtype=torch.float64, device=dev)
-                n_all_d[:M] = self._norms[d]
+                n_all_d[:M] = self._norms[i]
                 for p in range(D):
-                    qn = qnorm[d][p]
+                    qn = qnorm[i][p]
                     if p != d and qn.numel():
                         n_all_d[M + p * C: M + p * C + qn.numel()] = qn
                 n_all.append(n_all_d)
-        if int(badw):
+        n_badw = self._agree(badw)[0]
+        if n_badw:
             raise RuntimeError(
-                f"{int(badw)} matrix elements violate the ±W·n(j)/n(i) form "
+                f"{n_badw} matrix elements violate the ±W·n(j)/n(i) form "
                 f"(W={W}); the operator does not qualify for compact mode "
                 "— use mode='ell'")
 
         if compact:
-            self._c_idx = torch.stack([m[0] for m in main])   # [D, T0, M]
+            self._c_idx = torch.stack([m[0] for m in main])   # [L, T0, M]
             self._c_tail = None
             if S:
                 self._c_tail = (torch.stack([t[0] for t in tails]),
                                 torch.stack([t[2] for t in tails]))
-            self._c_norms = torch.stack(n_all)                 # [D, M+DC]
-            self._c_inv_n = torch.reciprocal(self._norms)      # [D, M]
+            self._c_norms = torch.stack(n_all)                 # [L, M+DC]
+            self._c_inv_n = torch.reciprocal(self._norms)      # [L, M]
         else:
             self._ell_coeff = torch.stack([m[0] for m in main])
             self._ell_idx = torch.stack([m[1] for m in main])
@@ -861,23 +1039,23 @@ class DistributedEngine:
                                        for i in range(3))
 
     def _exchange_x(self, x: torch.Tensor) -> torch.Tensor:
-        """The routing plan's exchange: ``[D, M, R]`` → ``[D, R, M + D·C]``
-        (``[x; R]`` per shard, columns first: state axis last).  At D = 1
-        there is nothing to receive."""
-        D, C = self.n_devices, self.query_capacity
+        """The routing plan's exchange: ``[L, M, R]`` → ``[L, R, M + D·C]``
+        (``[x; R]`` per shard held here, columns first: state axis last).
+        At D = 1 there is nothing to receive."""
+        D, C, L = self.n_devices, self.query_capacity, len(self._shards)
         if D == 1:
             return x.transpose(1, 2)
-        send = torch.stack([x[s][self._qin[s].long()] for s in range(D)])
-        recv = all_to_all(send)                          # [D, D, C, R]
-        xx = torch.cat([x, recv.reshape(D, D * C, -1)], dim=1)
+        send = torch.stack([x[s][self._qin[s].long()] for s in range(L)])
+        recv = self._exchange(send)                      # [L, D, C, R]
+        xx = torch.cat([x, recv.reshape(L, D * C, -1)], dim=1)
         return xx.transpose(1, 2)
 
     def _apply_ell(self, x: torch.Tensor) -> torch.Tensor:
         """Per shard: ``y = diag·x``, then term by term ``y += coeff[t]·
         xx[idx[t]]`` over ``xx = [x; R]``, then the tail's rows
         (``index_add_``: the pad entries add 0 to row 0).  ``x`` is
-        ``[D, M, R]``; the terms gather along the state axis of ``[R, ·]``
-        (columns first)."""
+        ``[L, M, R]`` (L the shards held here); the terms gather along the
+        state axis of ``[R, ·]`` (columns first)."""
         from .engine import ell_terms
 
         D, M, R = x.shape
@@ -925,8 +1103,9 @@ class DistributedEngine:
         return y.transpose(1, 2)
 
     def structure_arrays(self) -> Dict[str, torch.Tensor]:
-        """The precomputed plan tensors by name, each ``[D, …]`` (empty in
-        streamed and fused mode): ``idx``, ``coeff``, ``qin`` and the
+        """The precomputed plan tensors by name, each ``[L, …]`` over the
+        shards held here (``[1, …]`` on a rank; empty in streamed and fused
+        mode): ``idx``, ``coeff``, ``qin`` and the
         tail's ``tail_rows``/``tail_idx``/``tail_coeff`` in ell mode;
         ``idx`` (sign tags), ``qin``, ``inv_n``, ``norms_all`` and the
         tail's ``tail_rows``/``tail_idx`` in compact mode."""
@@ -959,13 +1138,15 @@ class DistributedEngine:
                ) -> torch.Tensor:
         """y = H·x in the hashed layout: ``[D, M]`` or a block of R columns
         ``[D, M, R]`` on the engine's device, float64 (complex128 in a
-        complex sector; a real tensor is promoted there).
+        complex sector; a real tensor is promoted there).  On a rank
+        engine ``x`` is this rank's row, ``[1, M]`` or ``[1, M, R]``, and
+        every rank applies together.
 
         In fused mode the first apply of each row-chunk size (or
         ``check=True``) checks the overflow and out-of-basis counters and
         raises if an amplitude was lost; ``check=False`` skips it.  The
         other modes checked them at build time."""
-        D, M = self.n_devices, self.shard_size
+        D, M = len(self._shards), self.shard_size
         if not self.real and xh.dtype == torch.float64:
             xh = xh.to(self._dtype)
         if (tuple(xh.shape[:2]) != (D, M) or xh.dim() not in (2, 3)
@@ -996,7 +1177,7 @@ class DistributedEngine:
         cap = self._capacity if B == base else self._fused_capacity(B)
         y, overflow, invalid = self._apply_fused(x, B, cap)
         if check or (check is None and B not in self._checked):
-            self._validate_counters(int(overflow), int(invalid), B, cap)
+            self._validate_counters(*self._agree(overflow, invalid), B, cap)
             self._checked.add(B)
         return y + self._diag.to(self._dtype)[:, :, None] * x
 
@@ -1008,15 +1189,21 @@ class DistributedEngine:
     def to_hashed(self, x) -> torch.Tensor:
         """Block (global sorted) [N] or [N, R] → hashed [D, M] or
         [D, M, R] on the device, in the engine's dtype (complex input
-        stays complex)."""
+        stays complex); on a rank engine, this rank's row ``[1, M, …]``."""
         x = np.asarray(x)
         dt = np.complex128 if (np.iscomplexobj(x) or not self.real) \
             else np.float64
         xh = self.layout.to_hashed(x.astype(dt, copy=False), fill=0)
+        if self.group is not None:
+            xh = xh[self._shards]
         return torch.from_numpy(xh).to(self.device)
 
     def from_hashed(self, xh: torch.Tensor) -> np.ndarray:
-        """Hashed [D, M] or [D, M, R] → block [N] or [N, R] NumPy."""
+        """Hashed [D, M] or [D, M, R] → block [N] or [N, R] NumPy.  On a
+        rank engine ``xh`` is this rank's row and the rows are all-gathered
+        (a collective: every rank calls it)."""
+        if self.group is not None:
+            xh = self.group.all_gather(xh.reshape(xh.shape[1:]))
         return self.layout.from_hashed(xh.detach().cpu().numpy())
 
     def matvec_global(self, x) -> np.ndarray:
@@ -1030,23 +1217,29 @@ class DistributedEngine:
         vectors — seeded per shard as the JAX engine seeds it
         (``SeedSequence((seed, d))``, draws of shape ``(count_d, cols)``).
         Real in every sector, as the JAX engine's (native-complex) draws
-        are."""
-        D, M = self.n_devices, self.shard_size
+        are.  A rank draws its own shard's row, the same draws as the
+        one-process engine's row, and normalizes by the all-reduced
+        norm."""
+        M = self.shard_size
         tail = (cols,) if cols else ()
-        x = np.zeros((D, M) + tail)
-        for d in range(D):
+        x = np.zeros((len(self._shards), M) + tail)
+        for i, d in enumerate(self._shards):
             rng = np.random.default_rng(np.random.SeedSequence((seed, d)))
             c = int(self.counts[d])
-            x[d, :c] = rng.standard_normal((c,) + tail)
+            x[i, :c] = rng.standard_normal((c,) + tail)
         xh = torch.from_numpy(x).to(self.device)
+        if self.group is not None:
+            sq = torch.sum(xh * xh, dim=(0, 1), keepdim=cols is not None)
+            return xh / torch.sqrt(self.group.all_reduce(sq))
         if cols is None:
             return xh / torch.linalg.vector_norm(xh)
         return xh / torch.linalg.vector_norm(xh, dim=(0, 1), keepdim=True)
 
     def dot(self, ah: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
         """⟨a, b⟩ over hashed vectors or blocks (``a`` conjugated; pad
-        slots are zero by invariant), as a 0-d tensor."""
+        slots are zero by invariant), as a 0-d tensor; summed over the
+        ranks on a rank engine."""
         if ah.dtype != bh.dtype:
             dt = torch.promote_types(ah.dtype, bh.dtype)
             ah, bh = ah.to(dt), bh.to(dt)
-        return torch.vdot(ah.reshape(-1), bh.reshape(-1))
+        return self.reduce_sum(torch.vdot(ah.reshape(-1), bh.reshape(-1)))

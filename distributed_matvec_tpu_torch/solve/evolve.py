@@ -7,7 +7,8 @@ accepted step projects the propagator onto a small Krylov space:
 ``m`` engine applies (Lanczos with one full reorthogonalization pass — m
 is small, the dots are trivial next to the matvec) and ``T_m`` the m-by-m
 real symmetric tridiagonal, exponentiated on the host through its
-eigendecomposition.
+eigendecomposition.  On a rank engine (one shard per process) every dot
+is summed over the ranks through the engine's all-reduce.
 
 Complex states on real-sector engines ride the multi-column apply: a real
 Hamiltonian acts on Re and Im independently, so ``psi`` is applied as the
@@ -37,7 +38,7 @@ import torch
 
 from ..models.observables import _complex_native
 from ..utils.device import start_device
-from .lanczos import _rand_like, _vdot, refuse_checkpoint
+from .lanczos import _rand_like, _vdot, rank_reducer, refuse_checkpoint
 
 __all__ = ["EvolveResult", "krylov_evolve"]
 
@@ -97,6 +98,7 @@ def krylov_evolve(
     """
     refuse_checkpoint(checkpoint_path)
     owner = getattr(matvec, "__self__", None)
+    red = rank_reducer(matvec)
     t_final = float(t_final)
     if not t_final > 0.0:
         raise ValueError(f"t_final must be > 0, got {t_final}")
@@ -138,7 +140,7 @@ def krylov_evolve(
             w = raw_mv(blk)
             return torch.complex(w[..., 0], w[..., 1]).to(cdtype)
 
-    nrm0 = float(torch.sqrt(_vdot(psi, psi).real))
+    nrm0 = float(torch.sqrt(_vdot(psi, psi, red).real))
     if not np.isfinite(nrm0) or nrm0 <= 0.0:
         raise ValueError("psi0 has no norm")
     psi = psi / nrm0
@@ -170,7 +172,7 @@ def krylov_evolve(
         if max_steps is not None and step >= int(max_steps):
             break
         # -- Krylov basis for this state (valid for any dt) ----------------
-        nrm = float(torch.sqrt(_vdot(psi, psi).real))
+        nrm = float(torch.sqrt(_vdot(psi, psi, red).real))
         V = [psi / nrm]
         alph: List[float] = []
         bet: List[float] = []
@@ -178,16 +180,16 @@ def krylov_evolve(
         for jj in range(m_cap):
             w = apply_c(V[jj])
             napply += 1
-            a = float(_vdot(V[jj], w).real)
+            a = float(_vdot(V[jj], w, red).real)
             w = w - a * V[jj]
             if jj:
                 w = w - bet[jj - 1] * V[jj - 1]
             # one full reorthogonalization pass: the small-T exponential
             # needs an orthonormal basis
             for vi in V:
-                w = w - _vdot(vi, w) * vi
+                w = w - _vdot(vi, w, red) * vi
             alph.append(a)
-            b = float(torch.sqrt(_vdot(w, w).real))
+            b = float(torch.sqrt(_vdot(w, w, red).real))
             if b <= _BREAKDOWN * max(abs(a), 1.0):
                 breakdown = True
                 bet.append(b)
@@ -223,7 +225,7 @@ def krylov_evolve(
         psi = nrm * sum(uj[i] * V[i] for i in range(m_eff))
         t += dt_try
         step += 1
-        nrm_new = float(torch.sqrt(_vdot(psi, psi).real))
+        nrm_new = float(torch.sqrt(_vdot(psi, psi, red).real))
         norm_drift = max(norm_drift, abs(nrm_new - 1.0))
         e_t = alph[0]           # <psi|H|psi> at the step start
         energy_drift = max(energy_drift,
@@ -243,8 +245,8 @@ def krylov_evolve(
     if len(energies) < len(times):
         w = apply_c(psi)
         napply += 1
-        nrm2 = float(_vdot(psi, psi).real)
-        e_fin = float(_vdot(psi, w).real) / max(nrm2, 1e-300)
+        nrm2 = float(_vdot(psi, psi, red).real)
+        e_fin = float(_vdot(psi, w, red).real) / max(nrm2, 1e-300)
         if e0_ref is None:
             e0_ref = e_fin
             eval_observables()

@@ -26,6 +26,8 @@ operator.
   :func:`lorentz_kernel` — the kernel-damped Chebyshev series summed on an
   energy grid, host NumPy.
 
+On a rank engine (one shard per process) every dot is summed over the
+ranks through the engine's all-reduce, so each rank holds the same moments.
 Checkpoint/resume, the preemption latch and tracing of the JAX module are
 not in the port; complex sectors run natively in complex128.
 """
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from ..utils.device import start_device
-from .lanczos import _rand_like, _vdot, refuse_checkpoint
+from .lanczos import _rand_like, _vdot, rank_reducer, refuse_checkpoint
 
 __all__ = ["KPMResult", "spectral_bounds", "kpm_moments", "kpm_dos",
            "kpm_spectral_function", "jackson_kernel", "lorentz_kernel",
@@ -54,15 +56,17 @@ def _mv_fn(matvec: Callable):
     return mv
 
 
-def _col_dots(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+def _col_dots(a: torch.Tensor, b: torch.Tensor, red=None) -> np.ndarray:
     """Per-column Re<a_r, b_r> over layout axes: [R] f64 on the host.  Pad
     slots are zero by engine invariant, so the flat reduction is exact;
     for a complex-Hermitian operator the Chebyshev products are real up to
-    roundoff — the real part is the moment."""
+    roundoff — the real part is the moment.  ``red`` sums over the
+    ranks."""
     R = a.shape[-1]
     af = a.reshape(-1, R)
     bf = b.reshape(-1, R)
-    return torch.sum(af.conj() * bf, dim=0).real.cpu().numpy()
+    v = torch.sum(af.conj() * bf, dim=0).real
+    return (v if red is None else red(v)).cpu().numpy()
 
 
 def spectral_bounds(matvec: Callable, n: Optional[int] = None,
@@ -86,6 +90,7 @@ def spectral_bounds(matvec: Callable, n: Optional[int] = None,
     from scipy.linalg import eigh_tridiagonal
 
     mv = _mv_fn(matvec)
+    red = rank_reducer(matvec)
     owner = getattr(matvec, "__self__", None)
     if v0 is None:
         if owner is not None and hasattr(owner, "random_hashed"):
@@ -95,7 +100,7 @@ def spectral_bounds(matvec: Callable, n: Optional[int] = None,
         else:
             raise ValueError("pass v0 or n")
     v = torch.as_tensor(v0).to(start_device(v0, device))
-    nrm = torch.sqrt(_vdot(v, v).real)
+    nrm = torch.sqrt(_vdot(v, v, red).real)
     w0 = mv(v)                                   # probe fixes the dtype
     dtype = torch.promote_types(v.dtype, w0.dtype)
     v = (v / nrm.to(v.dtype)).to(dtype)
@@ -107,9 +112,9 @@ def spectral_bounds(matvec: Callable, n: Optional[int] = None,
         w = w0 if j == 0 else mv(v)
         napply += 0 if j == 0 else 1             # probe reused as apply 0
         w0 = None
-        a = float(_vdot(v, w).real)
+        a = float(_vdot(v, w, red).real)
         w = w - a * v - (bet[-1] * v_prev if bet else 0.0)
-        b = float(torch.sqrt(_vdot(w, w).real))
+        b = float(torch.sqrt(_vdot(w, w, red).real))
         alph.append(a)
         if b <= 1e-300:                          # Krylov space closed:
             bet.append(0.0)                      # bounds are exact
@@ -164,6 +169,7 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     refuse_checkpoint(checkpoint_path)
     n_moments = int(n_moments)
     mv = _mv_fn(matvec)
+    red = rank_reducer(matvec)
     owner = getattr(matvec, "__self__", None)
 
     v0_given = V0 is not None
@@ -203,8 +209,8 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     # normalized columns, mu_1 = <r|H~|r>
     mu_cols = np.zeros((n_moments, R))
     t_lo, t_hi = t0, ((y0.to(dtype) - b * t0) / a)
-    mu_cols[0] = _col_dots(t_lo, t_lo)
-    mu_cols[1] = _col_dots(t_lo, t_hi)
+    mu_cols[0] = _col_dots(t_lo, t_lo, red)
+    mu_cols[1] = _col_dots(t_lo, t_hi, red)
     # j: highest recurrence index for which t_j is live in `t_hi`
     j = 1
     filled = 2
@@ -215,10 +221,11 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     while filled < n_moments:
         # doubling identities at index j (t_lo = t_{j-1}, t_hi = t_j)
         if 2 * j - 1 < n_moments and 2 * j - 1 >= filled:
-            mu_cols[2 * j - 1] = 2.0 * _col_dots(t_hi, t_lo) - mu_cols[1]
+            mu_cols[2 * j - 1] = 2.0 * _col_dots(t_hi, t_lo, red) \
+                - mu_cols[1]
             filled += 1
         if 2 * j < n_moments and 2 * j >= filled:
-            mu_cols[2 * j] = 2.0 * _col_dots(t_hi, t_hi) - mu_cols[0]
+            mu_cols[2 * j] = 2.0 * _col_dots(t_hi, t_hi, red) - mu_cols[0]
             filled += 1
         if filled < n_moments:
             y = mv(t_hi).to(dtype)
@@ -352,7 +359,7 @@ def kpm_spectral_function(matvec: Callable, psi, op_apply: Callable,
     phi = op_apply(psi)
     phi = phi[0] if isinstance(phi, tuple) else phi
     phi = torch.as_tensor(phi)
-    w2 = float(_vdot(phi, phi).real)
+    w2 = float(_vdot(phi, phi, rank_reducer(matvec)).real)
     if w2 <= 0.0:
         raise ValueError("O|psi> vanishes: no spectral weight")
     V0 = (phi / np.sqrt(w2))[..., None]

@@ -31,6 +31,14 @@ operator: Gram-Schmidt and the norms then use conjugated inner products,
 and the projected matrix stays real symmetric.  Checkpointing, the
 watchdog, tracing and the (re, im) pair form of the JAX solvers are not in
 the port.
+
+On a rank engine (``DistributedEngine(group=…)``, one shard per process)
+each rank holds its row of every vector, and every dot and norm is summed
+through the engine's all-reduce (:func:`rank_reducer`): the reduced
+scalars are the same bits on every rank, so the host-side projections and
+every branch of the recurrence agree across the ranks.  ``lanczos_block``
+(and ``lobpcg``) need a distributed QR of their blocks and refuse a rank
+engine.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from scipy.linalg import eigh
 
 from ..utils.device import start_device
 
-__all__ = ["LanczosResult", "lanczos", "lanczos_block"]
+__all__ = ["LanczosResult", "lanczos", "lanczos_block", "rank_reducer"]
 
 # Gram-Schmidt visits the basis in blocks of this many rows
 _GS_BLOCK = 8
@@ -59,6 +67,26 @@ _OMEGA_SQRT_EPS = 1e-8
 _NO_CHECKPOINT = ("checkpoint_path: solver checkpoint/resume writes HDF5 and "
                   "is not in the port yet (it comes with the CLI slice: "
                   "apps, io/hdf5.py, utils/preempt.py)")
+
+
+def rank_reducer(matvec: Callable) -> Optional[Callable]:
+    """The sum over ranks of the rank engine behind ``matvec``
+    (``DistributedEngine(group=…)``), or None when the engine holds every
+    shard itself and a local dot is already whole."""
+    owner = getattr(matvec, "__self__", None)
+    if getattr(owner, "group", None) is None:
+        return None
+    return owner.reduce_sum
+
+
+def refuse_rank_engine(matvec: Callable, solver: str) -> None:
+    """Raise ``NotImplementedError`` when ``matvec`` is a rank engine's:
+    the block solvers need a distributed QR of their ``[N, p]`` blocks."""
+    if rank_reducer(matvec) is not None:
+        raise NotImplementedError(
+            f"{solver} on a rank engine (one shard per process) needs a "
+            "distributed QR of its [N, p] blocks, which is not in the port "
+            "yet; use lanczos, or an engine that holds every shard")
 
 
 def refuse_checkpoint(checkpoint_path) -> None:
@@ -182,49 +210,66 @@ def _rand_like(shape, dtype, seed):
     return v.astype(dtype)
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """⟨a, b⟩ over every axis (``a`` conjugated), a 0-d tensor."""
-    return torch.vdot(a.reshape(-1), b.reshape(-1))
+def _vdot(a: torch.Tensor, b: torch.Tensor, red=None) -> torch.Tensor:
+    """⟨a, b⟩ over every axis (``a`` conjugated), a 0-d tensor; ``red``
+    sums it over the ranks."""
+    v = torch.vdot(a.reshape(-1), b.reshape(-1))
+    return v if red is None else red(v)
 
 
-def _re_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _re_dot(a: torch.Tensor, b: torch.Tensor, red=None) -> torch.Tensor:
     """Re ⟨a, b⟩ (``a`` conjugated)."""
-    return torch.vdot(a, b).real if a.is_complex() else torch.dot(a, b)
+    v = torch.vdot(a, b).real if a.is_complex() else torch.dot(a, b)
+    return v if red is None else red(v)
 
 
-def _mgs_pass(w: torch.Tensor, V: torch.Tensor, m: int) -> torch.Tensor:
+def _norm(w: torch.Tensor, red=None) -> torch.Tensor:
+    """‖w‖, a 0-d tensor."""
+    if red is None:
+        return torch.linalg.vector_norm(w)
+    return torch.sqrt(red(torch.vdot(w.reshape(-1), w.reshape(-1)).real))
+
+
+def _project(w: torch.Tensor, Vb: torch.Tensor, red=None) -> torch.Tensor:
+    """``w`` less its projection on the rows of ``Vb``."""
+    if red is None:
+        return w - (Vb.conj() @ w) @ Vb
+    return w - red(Vb.conj() @ w) @ Vb
+
+
+def _mgs_pass(w: torch.Tensor, V: torch.Tensor, m: int,
+              red=None) -> torch.Tensor:
     """One blocked modified Gram-Schmidt pass of ``w`` against rows
     ``V[0..m]``."""
     for r0 in range(0, m + 1, _GS_BLOCK):
-        Vb = V[r0:min(r0 + _GS_BLOCK, m + 1)]
-        w = w - (Vb.conj() @ w) @ Vb
+        w = _project(w, V[r0:min(r0 + _GS_BLOCK, m + 1)], red)
     return w
 
 
-def _store_step(V, alph, bet, m, a, w) -> torch.Tensor:
+def _store_step(V, alph, bet, m, a, w, red=None) -> torch.Tensor:
     """β = ‖w‖, V[m+1] = w/β, and (α, β) into step ``m``; returns the new
     row."""
-    b = torch.linalg.vector_norm(w)
+    b = _norm(w, red)
     V[m + 1] = w / torch.where(b <= 1e-300, torch.ones_like(b), b)
     alph[m] = a
     bet[m] = b
     return V[m + 1]
 
 
-def _run_steps(mv, V, alph, bet, m0: int, nsteps: int) -> None:
+def _run_steps(mv, V, alph, bet, m0: int, nsteps: int, red=None) -> None:
     """Advance the recurrence by ``nsteps`` iterations in place, with two
     full Gram-Schmidt passes per step: V[m+1], α[m], β[m] for
     m = m0 .. m0+nsteps−1.  No host sync."""
     for m in range(m0, m0 + nsteps):
         vm = V[m]
         w = mv(vm)
-        a = _re_dot(vm, w)
+        a = _re_dot(vm, w, red)
         for _ in range(2):
-            w = _mgs_pass(w, V, m)
-        _store_step(V, alph, bet, m, a, w)
+            w = _mgs_pass(w, V, m, red)
+        _store_step(V, alph, bet, m, a, w, red)
 
 
-def _run_window(mv, V, alph, bet, m0: int, nsteps: int) -> None:
+def _run_window(mv, V, alph, bet, m0: int, nsteps: int, red=None) -> None:
     """Like :func:`_run_steps`, but each step makes one projection pass
     against the trailing ``_W_ROWS`` rows only (the selective policy).
     Writes only rows above ``m0``, so a block can be redone with the full
@@ -239,9 +284,9 @@ def _run_window(mv, V, alph, bet, m0: int, nsteps: int) -> None:
     for m in range(m0, m0 + nsteps):
         vm = W[-1]
         w = mv(vm)
-        a = _re_dot(vm, w)
-        w = w - (W.conj() @ w) @ W
-        vnew = _store_step(V, alph, bet, m, a, w)
+        a = _re_dot(vm, w, red)
+        w = _project(w, W, red)
+        vnew = _store_step(V, alph, bet, m, a, w, red)
         W = torch.cat([W[1:], vnew[None]])
 
 
@@ -279,9 +324,12 @@ def lanczos(
     to ``cuda``, raising when there is none.  The vectors are ``dtype``
     (``torch.float64`` or ``torch.complex128``); by default complex128
     when ``v0`` is complex or the engine behind ``matvec`` has a complex
-    sector (``real`` False), else float64.
+    sector (``real`` False), else float64.  On a rank engine pass this
+    rank's row as ``v0`` (``eng.random_hashed(seed)``) and call on every
+    rank together.
     """
     refuse_checkpoint(checkpoint_path)
+    red = rank_reducer(matvec)
     if reorth not in ("selective", "full"):
         raise ValueError(
             f"unknown reorth policy {reorth!r} (use selective | full)")
@@ -319,7 +367,7 @@ def lanczos(
     l_restart = int(np.clip(l_restart, k, mcap - 2))
 
     V = torch.zeros((mcap + 1, nflat), dtype=dtype, device=device)
-    V[0] = v.reshape(nflat) / torch.linalg.vector_norm(v)
+    V[0] = v.reshape(nflat) / _norm(v, red)
     alph_d = torch.zeros(mcap, dtype=torch.float64, device=device)
     bet_d = torch.zeros(mcap, dtype=torch.float64, device=device)
 
@@ -360,16 +408,16 @@ def lanczos(
                      or nsteps < max(check_every // 2, 1))
         pending_full = False
         if used_full:
-            _run_steps(mv, V, alph_d, bet_d, m, nsteps)
+            _run_steps(mv, V, alph_d, bet_d, m, nsteps, red)
         else:
-            _run_window(mv, V, alph_d, bet_d, m, nsteps)
+            _run_window(mv, V, alph_d, bet_d, m, nsteps, red)
             om = omega_tr.advance(alph_d.cpu().numpy(), bet_d.cpu().numpy(),
                                   m + nsteps)
             if om >= _OMEGA_SQRT_EPS:
                 # semiorthogonality is no longer guaranteed; the window
                 # block wrote only rows above m, so redo it from the same
                 # state with the full sweep (iterations count once)
-                _run_steps(mv, V, alph_d, bet_d, m, nsteps)
+                _run_steps(mv, V, alph_d, bet_d, m, nsteps, red)
                 used_full = True
         full_sweeps += used_full
         alph = alph_d.cpu().numpy()
@@ -408,7 +456,7 @@ def lanczos(
         Sj = torch.from_numpy(np.ascontiguousarray(S[:, :kk])).to(
             device, dtype)
         E = Sj.T @ V[:m]
-        evecs = [(e / torch.linalg.vector_norm(e)).reshape(shape) for e in E]
+        evecs = [(e / _norm(e, red)).reshape(shape) for e in E]
     return LanczosResult(
         eigenvalues=np.asarray(theta[:kk]) if theta is not None
         else np.zeros(0),
@@ -466,8 +514,10 @@ def lanczos_block(
     block; eigenvectors come back in the hashed layout.
 
     ``device`` defaults to the device of the start block when it is a
-    tensor, else to ``cuda`` (raising when there is none).
+    tensor, else to ``cuda`` (raising when there is none).  A rank engine
+    raises ``NotImplementedError``.
     """
+    refuse_rank_engine(matvec, "lanczos_block")
     owner = getattr(matvec, "__self__", None)
     targets = None
     if column_targets is not None:

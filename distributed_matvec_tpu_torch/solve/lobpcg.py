@@ -49,7 +49,7 @@ import torch
 
 from ..models.observables import _complex_native
 from ..utils.device import start_device
-from .lanczos import refuse_checkpoint
+from .lanczos import refuse_checkpoint, refuse_rank_engine
 
 __all__ = ["lobpcg"]
 
@@ -284,9 +284,11 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
     ``checkpoint_path`` is not supported yet and raises
     ``NotImplementedError``.  ``device`` defaults to the streamed engine's
     device, else to the device of a tensor ``X0``, else to ``cuda``
-    (raising when there is none).
+    (raising when there is none).  A rank engine raises
+    ``NotImplementedError``.
     """
     refuse_checkpoint(checkpoint_path)
+    refuse_rank_engine(matvec, "lobpcg")
     owner = getattr(matvec, "__self__", None)
     if owner is not None and _complex_native(owner):
         raise ValueError(

@@ -235,3 +235,36 @@ def test_block_solvers_on_card_match_cpu(cuda):
     m_cpu = kpm_moments(e_cpu.matvec, 64, n_vectors=3, bounds=bounds)
     np.testing.assert_allclose(m_gpu.moments, m_cpu.moments, rtol=0,
                                atol=1e-11)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_rank_engine_one_rank_on_card(cuda, backend, tmp_path):
+    """A one-rank group on the card — gloo, staged through pinned host
+    memory, and NCCL — carries every wire dtype through its collectives
+    and runs every exchange as a collective; each mode's apply equals the
+    same engine's on the CPU, and Lanczos finds the anchor."""
+    import torch.distributed as dist
+
+    from distributed_matvec_tpu_torch.parallel.mesh import init_distributed
+
+    op = heisenberg_chain(16, symmetric=True)
+    op.basis.build()
+    x = np.random.default_rng(2).random(op.basis.number_states) - 0.5
+    g = init_distributed(backend, f"file://{tmp_path}/rendezvous", 1, 0,
+                         device=cuda if backend == "gloo" else None)
+    try:
+        assert g.stages_host == (backend == "gloo")
+        chip_smoke.wire_check(g, cuda)
+        for mode in ("streamed", "ell", "fused"):
+            e = DistributedEngine(op, mode=mode, batch_size=64, group=g)
+            e_cpu = DistributedEngine(op, mode=mode, batch_size=64,
+                                      device="cpu")
+            assert e.device == cuda
+            np.testing.assert_allclose(e.matvec_global(x),
+                                       e_cpu.matvec_global(x),
+                                       atol=1e-13, rtol=1e-12)
+            assert (e.exchange_bytes > 0) == (mode != "ell")
+        res = lanczos(e.matvec, v0=e.random_hashed(0), k=1)
+        assert abs(res.eigenvalues[0] / 4 - -7.1422963606) < 1e-9
+    finally:
+        dist.destroy_process_group()

@@ -14,7 +14,13 @@ Tolerances:
 * ``kpm_spectral_function``: within 1e-10;
 * ``krylov_evolve``: accepted step times equal to JAX's, final state within
   1e-10 of JAX's and within 1e-9 of dense ``scipy.linalg.expm``;
-* ``expectation_value``: within 1e-12 of JAX's.
+* ``expectation_value``: within 1e-12 of JAX's;
+* over a ``DistributedEngine`` at D = 2 and 4 (``bind_observables``
+  binding ``fused``, ``ell`` or ``compact`` engines on the solve engine's
+  shards and layout, complex sectors through ``ell``/``fused``):
+  expectation values within 1e-12 of the JAX function's at the same D and
+  mode, ``kpm_spectral_function`` through a bound observable and
+  ``krylov_evolve``'s observable series within 1e-10, LOBPCG within 1e-8.
 """
 
 import jax.numpy as jnp
@@ -25,12 +31,17 @@ from scipy.linalg import expm
 
 import distributed_matvec_tpu.parallel.engine as JE
 from distributed_matvec_tpu.models import observables as jax_obs
+from distributed_matvec_tpu.parallel.distributed import \
+    DistributedEngine as JaxDistributed
+from distributed_matvec_tpu.solve import lobpcg as jax_lobpcg
 from distributed_matvec_tpu.solve import kpm as jax_kpm
 from distributed_matvec_tpu.solve import krylov_evolve as jax_evolve
 from distributed_matvec_tpu.solve.lanczos import _rand_like
-from distributed_matvec_tpu_torch import (LocalEngine, kpm_dos, kpm_moments,
+from distributed_matvec_tpu_torch import (DistributedEngine, LocalEngine,
+                                          kpm_dos, kpm_moments,
                                           kpm_spectral_function,
-                                          krylov_evolve, spectral_bounds)
+                                          krylov_evolve, lobpcg,
+                                          spectral_bounds)
 from distributed_matvec_tpu_torch.convert import (operator_arrays,
                                                   operator_from_reference)
 from distributed_matvec_tpu_torch.models import observables as obs
@@ -299,19 +310,127 @@ def test_expectation_values_match_jax(chain12, ring8_k1):
 
 def test_expectation_values_streamed(chain12):
     c = chain12
-    bt = obs.bind_observables([c.op_t], c.ts)[0]
-    assert bt.engine.shard_size == c.ts.shard_size
-    np.testing.assert_array_equal(bt.engine.layout.perm, c.ts.layout.perm)
     bj = jax_obs.bind_observables([c.op_j], c.jl)[0]
-    for psi in (_unit((c.n,), np.float64, 5),
-                _unit((c.n,), np.complex128, 6)):
-        psi_h = torch.complex(c.ts.to_hashed(psi.real),
-                              c.ts.to_hashed(psi.imag)) \
-            if np.iscomplexobj(psi) else c.ts.to_hashed(psi)
-        assert bt.expectation(psi_h) == pytest.approx(
-            bj.expectation(jnp.asarray(psi)), abs=1e-12)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        obs.bind_observables([c.op_t], c.ts, mode="fused")
+    # bound over the streamed engine: fused by default, as the JAX
+    # function binds, on the solve engine's (shared) layout; streamed too
+    for mode in (None, "streamed"):
+        bt = obs.bind_observables([c.op_t], c.ts, **(
+            {"mode": mode} if mode else {}))[0]
+        assert bt.engine.mode == (mode or "fused")
+        assert bt.engine.shard_size == c.ts.shard_size
+        assert bt.engine.layout is c.ts.layout
+        for psi in (_unit((c.n,), np.float64, 5),
+                    _unit((c.n,), np.complex128, 6)):
+            psi_h = torch.complex(c.ts.to_hashed(psi.real),
+                                  c.ts.to_hashed(psi.imag)) \
+                if np.iscomplexobj(psi) else c.ts.to_hashed(psi)
+            assert bt.expectation(psi_h) == pytest.approx(
+                bj.expectation(jnp.asarray(psi)), abs=1e-12)
+
+
+# -- observables bound over the sharded engine (D > 1) ---------------------------
+
+SHARDED = [(D, m) for D in (2, 4) for m in ("fused", "ell", "compact")]
+
+
+@pytest.fixture(scope="module")
+def sharded12(chain12):
+    """chain12's solve engines at D = 2 and 4 (ell) in both packages."""
+    c = chain12
+    return {D: (JaxDistributed(c.op_j, n_devices=D, mode="ell",
+                               batch_size=32),
+                DistributedEngine(c.op_t, n_devices=D, mode="ell",
+                                  batch_size=32, device="cpu"))
+            for D in (2, 4)}
+
+
+@pytest.mark.parametrize("D,mode", SHARDED)
+def test_bound_observables_sharded_match_jax(chain12, sharded12, D, mode):
+    c = chain12
+    je, te = sharded12[D]
+    bj = jax_obs.bind_observables([c.op_j], je, mode=mode)[0]
+    bt = obs.bind_observables([c.op_t], te, mode=mode)[0]
+    assert (bt.engine.mode, bt.engine.n_devices) == (mode, D)
+    assert bt.engine.layout is te.layout
+    assert bt.engine.batch_size == te.batch_size
+    for psi in (_unit((c.n,), np.float64, 3),
+                _unit((c.n,), np.complex128, 4)):
+        want = bj.expectation(je.to_hashed(psi))
+        got = bt.expectation(te.to_hashed(psi))
+        assert got == pytest.approx(want, abs=1e-12)
+        dense = float(np.real(psi.conj() @ (c.h @ psi)))
+        assert got == pytest.approx(dense, abs=1e-12)
+        assert obs.expectations([c.op_t], te, te.to_hashed(psi),
+                                mode=mode)[0][1] == pytest.approx(want,
+                                                                  abs=1e-12)
+    # the dynamical structure factor through the bound observable
+    psi = _unit((c.n,), np.float64, 9)
+    want = jax_kpm.kpm_spectral_function(
+        je.matvec, je.to_hashed(psi), bj.matvec, n_moments=32,
+        bounds=(-24.0, 14.0))
+    got = kpm_spectral_function(te.matvec, te.to_hashed(psi), bt.matvec,
+                                n_moments=32, bounds=(-24.0, 14.0))
+    for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got[2].moments, want[2].moments, rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_evolve_and_lobpcg_sharded_match_jax(chain12, sharded12, D):
+    """krylov_evolve with a bound observable, and LOBPCG, through the
+    one-process engine at D shards, against the JAX engine at the same D."""
+    c = chain12
+    je, te = sharded12[D]
+    bj = jax_obs.bind_observables([c.op_j], je)
+    bt = obs.bind_observables([c.op_t], te)
+    psi0 = _unit((c.n,), np.float64, 7)
+    kw = dict(t_final=1.0, tol=1e-12, krylov_dim=16)
+    want = jax_evolve(je.matvec, psi0=je.to_hashed(psi0), observables=bj,
+                      **kw)
+    got = krylov_evolve(te.matvec, psi0=te.to_hashed(psi0), observables=bt,
+                        **kw)
+    np.testing.assert_array_equal(got.times, want.times)
+    name = bt[0].name
+    series_t = np.array([v for _, v in got.observables[name]])
+    series_j = np.array([v for _, v in want.observables[bj[0].name]])
+    np.testing.assert_allclose(series_t, series_j, rtol=0, atol=1e-10)
+    # <H> is conserved under exp(-iHt)
+    np.testing.assert_allclose(series_t, series_t[0], rtol=0, atol=1e-10)
+    ref = expm(-1.0j * c.h) @ psi0
+    np.testing.assert_allclose(te.from_hashed(got.psi.real)
+                               + 1j * te.from_hashed(got.psi.imag), ref,
+                               rtol=0, atol=1e-9)
+    ev_j, _, _ = jax_lobpcg(je.matvec, c.n, k=2, tol=1e-12)
+    ev_t, vecs, _ = lobpcg(te.matvec, c.n, k=2, tol=1e-12)
+    np.testing.assert_allclose(ev_t, np.asarray(ev_j), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(ev_t, np.linalg.eigvalsh(c.h)[:2], rtol=0,
+                               atol=1e-8)
+    assert vecs.shape == (c.n, 2)
+
+
+@pytest.mark.parametrize("D,mode", [(D, m) for D in (2, 4)
+                                    for m in ("ell", "fused")])
+def test_bound_observables_complex_sector_sharded(ring8_k1, D, mode):
+    """A complex sector binds over ell or fused (streamed refuses it), and
+    its expectation values equal the JAX function's at the same D."""
+    je_l, _, h = ring8_k1
+    op_j = je_l.operator
+    op_t = operator_from_reference(operator_arrays(op_j))
+    je = JaxDistributed(op_j, n_devices=D, mode="ell", batch_size=16)
+    te = DistributedEngine(op_t, n_devices=D, mode="ell", batch_size=16,
+                           device="cpu")
+    bj = jax_obs.bind_observables([op_j], je, mode=mode)[0]
+    bt = obs.bind_observables([op_t], te, mode=mode)[0]
+    assert bt.engine.mode == mode and not bt.engine.real
+    psi = _unit((h.shape[0],), np.complex128, 2)
+    want = bj.expectation(je.to_hashed(psi))
+    got = bt.expectation(te.to_hashed(psi))
+    assert got == pytest.approx(want, abs=1e-12)
+    assert got == pytest.approx(float(np.real(psi.conj() @ (h @ psi))),
+                                abs=1e-12)
+    with pytest.raises(NotImplementedError, match="complex"):
+        obs.bind_observables([op_t], te, mode="streamed")
 
 
 # -- refusals ----------------------------------------------------------------------

@@ -31,6 +31,7 @@ def _forbidden(name: str) -> bool:
 def test_import_pulls_in_no_jax():
     mods = _modules()
     assert "distributed_matvec_tpu_torch.parallel.distributed" in mods
+    assert "distributed_matvec_tpu_torch.parallel.mesh" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
