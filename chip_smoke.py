@@ -26,7 +26,9 @@ Phases, one JSON line each with its seconds:
    held against the plain version, then the launch counts are set to 0,
    the main path runs (timed applies, then Lanczos), and the counts are
    read: every apply must have launched the decode kernel once per plan
-   chunk.  E0 must match −56.826110112297656 to 1e-8 relative.
+   chunk.  E0 must match −56.826110112297656 (the recorded TPU run) to
+   1e-8 relative, and the JAX package's E0 on the CPU,
+   −56.82610975579819 (``tools/torch_e0_parity.py``), to 1e-10.
 5. ``split``: where an apply's time goes — the plan's host → device copy
    alone, the apply with the plan already on the card, the decode kernel
    per launch over every chunk of the plan beside its byte bound, its
@@ -77,29 +79,54 @@ Phases, one JSON line each with its seconds:
    every shard against the plain version (``torch.equal``), its time per
    launch over every (chunk, shard) beside the byte bound, and its
    launches counted from 0 around the main path: 4 × 72 per apply.  Times
-   here are one card running four shards, not a four-card result.
-10. ``ranks``: the rank engine, ``DistributedEngine(op, group=g)`` — one
+   here are one card running four shards, not a four-card result.  The
+   streamed and fused engines stay built for the next phase.
+10. ``pipeline``: ``pipeline_depth`` switched on engines already built —
+   the full leg's D = 1 streamed engine at depths 0, 2 and 4, the sharded
+   leg's D = 4 streamed engine at 0 and 2, and one D = 4 fused apply at 0
+   and at 2.  Each pipelined streamed apply must equal its engine's
+   depth-0 apply bit for bit (both under
+   ``torch.use_deterministic_algorithms``), the fused one within atol
+   1e-13 / rtol 1e-12 (deterministic, a fused apply takes ≈ 30 s; the
+   card tests hold fused bit for bit at chain_16_symm), and each must
+   report the depth it resolved (fused: 2); the decode kernel is held
+   against its plain version on one chunk inside a depth-2 apply; a
+   ``[1, M, 6]`` streamed apply at depth 2 must equal its two column
+   groups (4 + 2).  Then 7 timed streamed applies per engine and depth
+   (host wall median and device time, ``last_pipeline.barrier_ms``), the
+   pipelined ones with the launch counts set to 0 just before and read
+   just after: one per plan chunk per shard per apply; and the two fused
+   applies' host times.
+11. ``ranks``: the rank engine, ``DistributedEngine(op, group=g)`` — one
    hash shard per process rank, meeting only in ``torch.distributed``
    collectives — on the same chain_32_symm operator.  (a) Two ranks share
    the one card over gloo (spawned; each builds the basis itself): ``ell``
-   (build, apply, 3 timed applies, Lanczos to E0) and ``streamed`` at
-   B = 65 536 with 2²¹-entry buckets (build, the decode kernel on three of
-   its own chunks against the plain version, 3 timed applies with its
-   launches counted from 0: one per plan chunk per apply).  Rank 0 gathers
+   (build, apply, 3 timed applies, Lanczos to E0, then ``lanczos_block(k=4,
+   block_size=4)`` and ``lobpcg(k=4)`` as ``solvers`` runs them) and
+   ``streamed`` at B = 65 536 with 2²¹-entry buckets (build, the decode
+   kernel on three of its own chunks against the plain version, 3 timed
+   applies with its launches counted from 0: one per plan chunk per apply;
+   then at depth 2 an apply bit-equal to depth 0 under deterministic
+   algorithms, and 3 more timed applies, counted alike).  Rank 0 gathers
    each apply, which must equal ``local_full``'s ell apply (atol 1e-13 /
    rtol 1e-12); both ranks' E0 must be the same bits and within 1e-10 of
-   the full leg's.  Per rank: build seconds, apply ms (host wall and CUDA
-   events), the exchange's ms and bytes per apply, whether the exchange is
-   staged through host memory, and whether this torch's gloo takes CUDA
-   tensors itself.  A rank that fails or outlasts the join timeout fails
-   the phase.  Two ranks on one card are not a two-card result.  (b) A
+   the full leg's; both ranks' block-solver eigenvalues the same bits and
+   within 1e-10 of ``solvers``' one-process ones.  Per rank: build
+   seconds, apply ms (host wall and CUDA events), the exchange's ms and
+   bytes per apply, the host ms waiting in retires at depth 2, each block
+   solver's seconds, applies, share outside the applies and count of
+   collectives, whether the exchange is staged through host memory, and
+   whether this torch's gloo takes CUDA tensors itself in
+   ``all_to_all_single``.  A rank that fails or outlasts the join timeout
+   fails the phase.  Two ranks on one card are not a two-card result.  (b) A
    one-rank NCCL group in this process: the streamed engine at D = 1 with
    every exchange through ``all_to_all_single``; its plan must equal the
-   full leg's byte for byte and its apply the full leg's bit for bit
-   (both applies under ``torch.use_deterministic_algorithms``).  (c) With
-   two or more cards, leg (a) over NCCL, one rank per card; on one card a
-   line says it did not run and why.
-11. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
+   full leg's byte for byte and its apply the full leg's bit for bit at
+   depth 0 and at depth 2 (all applies under
+   ``torch.use_deterministic_algorithms``).  (c) With two or more cards,
+   leg (a) over NCCL, one rank per card; on one card a line says it did
+   not run and why.
+12. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
    complex Hermitian (about 18.8 M states): the ``ell`` build takes the
    low-memory path by itself (1.6× the full-width complex tables passes
    the 12 GB default budget), one ``fused`` apply against the ell apply,
@@ -116,11 +143,11 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full``, ``solvers``, ``sharded`` and ``ranks``, and apart at one
-shard, at four and on the ranks, largest error against the plain version, time per launch beside its
-bound and the plain version's time, at one shard and at four), the card's
-name and power limit as
-``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
+of ``full``, ``solvers``, ``sharded``, ``pipeline`` and ``ranks``, and
+apart at one shard, at four, in the pipelined applies and on the ranks;
+largest error against the plain version, time per launch beside its bound
+and the plain version's time, at one shard and at four), the card's name
+and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 device; without one it exits with code 2 and prints no result.
 """
@@ -146,6 +173,10 @@ FP64_FLOP_PER_S = 34e12
 
 CHAIN32_STATES = 4_707_969
 CHAIN32_E0 = -56.826110112297656      # BENCH_RECORDED_r02.json lanczos_e0
+#: the JAX package's LocalEngine and lanczos on the CPU in float64, to a
+#: residual of 2e-13 (tools/torch_e0_parity.py): the recorded TPU value
+#: above lies 3.6e-7 below it, so that run was not this arithmetic
+CHAIN32_E0_CPU = -56.82610975579819
 N16_E0_OVER_4 = -7.1422963606
 
 
@@ -433,7 +464,8 @@ def _sync(device):
 
 
 def full_phase(device, n=32, expect_states=CHAIN32_STATES,
-               expect_e0=CHAIN32_E0, applies=7):
+               expect_e0=CHAIN32_E0, expect_e0_cpu=CHAIN32_E0_CPU,
+               applies=7):
     import numpy as np
     import torch
 
@@ -499,6 +531,9 @@ def full_phase(device, n=32, expect_states=CHAIN32_STATES,
     if expect_e0 is not None and abs(e0 - expect_e0) > 1e-8 * abs(
             expect_e0):
         raise AssertionError(f"E0 {e0} != {expect_e0}")
+    if expect_e0_cpu is not None and abs(e0 - expect_e0_cpu) > 1e-10:
+        raise AssertionError(f"E0 {e0} != the JAX package's {expect_e0_cpu} "
+                             "on the CPU")
     info = {"n_states": n_states, "enumeration_s": enum_s,
             "enumeration": "native", "engine_init_s": engine_s,
             "plan_build_s": eng.timings["plan_build_s"],
@@ -1052,7 +1087,7 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
     y_ref = ell_ref.matvec(x)
     x_np = x.cpu().numpy()
     out = {"n_states": n, "n_shards": D, "batch_size": B}
-    kernel = {}
+    kernel = {"engines": {}}
     for mode in ("streamed", "ell", "compact", "fused"):
         eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
             op, n_devices=D, mode=mode, batch_size=B, device=device))
@@ -1063,7 +1098,7 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
             info.update(plan_bytes=int(eng.plan_bytes),
                         plan_bytes_raw=int(eng.plan_bytes_raw),
                         nchunks=eng.nchunks, spec=eng._codec.spec)
-            kernel = sharded_kernel_check(device, eng)
+            kernel.update(sharded_kernel_check(device, eng))
         elif mode in ("ell", "compact"):
             info.update(table_bytes=eng.ell_nbytes,
                         ell_split=eng.ell_split,
@@ -1109,6 +1144,9 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
                         launches_per_apply=per_apply)
             kernel["launches"] = launches
         out[mode] = info
+        if mode in ("streamed", "fused"):
+            # the pipeline phase switches these engines' depths
+            kernel["engines"][mode] = eng
         del eng
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1163,7 +1201,191 @@ def sharded_kernel_check(device, eng):
                 max(t_bytes, t_ops) / ms}
 
 
-# -- phase 10: ranks ------------------------------------------------------------
+# -- phase 10: pipeline --------------------------------------------------------
+
+#: the full leg's engine at these depths, the D = 4 engines at the first
+#: depth beside 0
+PIPE_DEPTHS = (2, 4)
+
+
+def deterministic(fn):
+    """``fn()`` under ``torch.use_deterministic_algorithms``: the card's
+    ``index_add_`` then sums in one order, so two schedules of the same
+    work give the same bits."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def kernel_held_at(call):
+    """A stand-in for the decode wrapper that launches the kernel through
+    it as always and, on its ``call``-th call, holds that launch's output
+    against the plain version on the same inputs.  Returns (stand-in,
+    list the largest differences go into)."""
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    kernel = PC.fused_decode_gather_scatter
+    seen, errs = [0], []
+
+    def held(spec, edest, ecodes, fill, cdict, x_c, out=None):
+        # the wrapper counts its launch on the module's name for it
+        PC.fused_decode_gather_scatter = kernel
+        try:
+            got = kernel(spec, edest, ecodes, fill, cdict, x_c, out=out)
+        finally:
+            PC.fused_decode_gather_scatter = held
+        if seen[0] == call:
+            want = PC._fused_decode_gather_scatter_plain(
+                spec, edest, ecodes, fill, cdict, x_c)
+            errs.append(float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"decode launch {call} of a pipelined apply differs "
+                    f"from the plain version by {errs[-1]}")
+        seen[0] += 1
+        return got
+
+    return held, errs
+
+
+def pipeline_timing(device, eng, xh, applies=7):
+    """``apply_times`` at the engine's current depth, with the depth it
+    reports and the last apply's ``last_pipeline`` record."""
+    info = apply_times(device, eng, xh, applies=applies)
+    info.update(depth=eng.pipeline_depth, last_pipeline=eng.last_pipeline)
+    return info
+
+
+def pipeline_phase(device, full_eng, sharded_engs):
+    """``pipeline_depth`` on engines already built: the full leg's D = 1
+    streamed engine at depths 0, 2 and 4, the sharded leg's D = 4 streamed
+    engine at 0 and 2, and one D = 4 fused apply at 0 and at 2.  Every
+    pipelined streamed apply must equal its engine's depth-0 apply bit for
+    bit (both under deterministic algorithms); the fused apply at depth 2
+    must equal depth 0 within atol 1e-13 / rtol 1e-12 (the card's atomic
+    ``index_add_``: a deterministic fused apply takes ≈ 30 s here, so the
+    card tests hold fused bit for bit at chain_16_symm); the decode kernel
+    is held against its plain version on one chunk of a depth-2 apply; a
+    ``[1, M, 6]`` streamed apply at depth 2 must equal its two column
+    groups (4 + 2); then the streamed applies are timed at each depth
+    (median of 7, host wall and device), the pipelined ones with the
+    launch counts set to 0 just before and read just after: one per plan
+    chunk per shard per apply."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    s4, f4 = sharded_engs["streamed"], sharded_engs["fused"]
+    out = {"note": "D = 4 is four shards on one card, in one process"}
+    x1 = full_eng.random_hashed(17)
+    x4 = s4.random_hashed(17)
+
+    # bit for bit against depth 0
+    checks = {}
+    for name, eng, xh, depths in (("d1_streamed", full_eng, x1, PIPE_DEPTHS),
+                                  ("d4_streamed", s4, x4, PIPE_DEPTHS[:1])):
+        eng.pipeline_depth = 0
+        t0 = time.perf_counter()
+        y0 = deterministic(lambda: eng.matvec(xh))
+        _sync(device)
+        seconds = {0: time.perf_counter() - t0}
+        reported = {}
+        for depth in depths:
+            eng.pipeline_depth = depth
+            reported[depth] = eng.pipeline_depth
+            t0 = time.perf_counter()
+            y = deterministic(lambda: eng.matvec(xh))
+            _sync(device)
+            seconds[depth] = time.perf_counter() - t0
+            if not torch.equal(y, y0):
+                raise AssertionError(
+                    f"{name} at depth {depth} differs from depth 0: max "
+                    f"abs err {float((y - y0).abs().max())}")
+        checks[name] = {"reported_depth": reported,
+                        "bit_equal_to_depth_0": list(depths),
+                        "deterministic_apply_s": seconds}
+        del y0, y
+    out["checks"] = checks
+
+    # the kernel against its plain version inside a depth-2 apply
+    full_eng.pipeline_depth = 2
+    held, errs = kernel_held_at(full_eng.nchunks // 2)
+    PC.fused_decode_gather_scatter, kernel = held, \
+        PC.fused_decode_gather_scatter
+    try:
+        full_eng.matvec(x1)
+        _sync(device)
+    finally:
+        PC.fused_decode_gather_scatter = kernel
+    if len(errs) != 1:
+        raise AssertionError("the held decode launch did not run")
+    out["kernel_max_abs_err"] = errs[0]
+
+    # a 6-column block at depth 2: two column groups, each streaming the
+    # plan (both schedules, and R = 3 + 3, are held on the CPU)
+    X6 = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (1, full_eng.shard_size, 6))).to(device)
+    y6 = deterministic(lambda: full_eng.matvec(X6))
+    parts = deterministic(lambda: torch.cat(
+        [full_eng.matvec(X6[..., :4].contiguous()),
+         full_eng.matvec(X6[..., 4:].contiguous())], dim=2))
+    if not torch.equal(y6, parts):
+        raise AssertionError("R = 6 at depth 2 differs from its column "
+                             "groups")
+    out["r6_equals_column_groups_at_depth"] = full_eng.pipeline_depth
+    del X6, y6, parts
+
+    # timing: depth 0 first (not counted), then the pipelined applies with
+    # the counts set to 0 just before them
+    timing = {"d1_streamed": {}, "d4_streamed": {}, "d4_fused": {}}
+    for name, eng, xh in (("d1_streamed", full_eng, x1),
+                          ("d4_streamed", s4, x4)):
+        eng.pipeline_depth = 0
+        timing[name][0] = pipeline_timing(device, eng, xh)
+    PC.fused_decode_gather_scatter.launches = 0
+    expect = 0
+    for name, eng, xh, depths in (("d1_streamed", full_eng, x1, PIPE_DEPTHS),
+                                  ("d4_streamed", s4, x4, PIPE_DEPTHS[:1])):
+        for depth in depths:
+            eng.pipeline_depth = depth
+            eng.n_applies = 0
+            timing[name][depth] = pipeline_timing(device, eng, xh)
+            expect += eng.n_applies * eng.nchunks * eng.n_devices
+    launches = PC.fused_decode_gather_scatter.launches
+    if device.type == "cuda" and (launches == 0 or launches != expect):
+        raise AssertionError(f"{launches} decode launches in the pipelined "
+                             f"applies, expected {expect}")
+    # one fused apply at each depth, timed, the second against the first
+    yf = {}
+    for depth in (0, 2):
+        f4.pipeline_depth = depth
+        _sync(device)
+        t0 = time.perf_counter()
+        yf[depth] = f4.matvec(x4)
+        _sync(device)
+        timing["d4_fused"][depth] = {
+            "apply_ms_host": (time.perf_counter() - t0) * 1e3,
+            "depth": f4.pipeline_depth, "last_pipeline": f4.last_pipeline}
+    out["checks"]["d4_fused"] = {
+        "reported_depth": {2: timing["d4_fused"][2]["depth"]},
+        "vs_depth_0_max_abs_err": assert_close(
+            yf[2], yf[0], "D = 4 fused at depth 2 vs depth 0")}
+    del yf
+    out["timing"] = timing
+    out["launches"] = launches
+    for eng in (full_eng, s4, f4):
+        eng.pipeline_depth = 0
+    return out, launches
+
+
+# -- phase 11: ranks ------------------------------------------------------------
 
 #: the ranks leg: two ranks sharing the one card over gloo, each holding one
 #: hash shard.  The row chunk is the full leg's; at two shards a chunk puts
@@ -1181,11 +1403,12 @@ RANKS_APPLIES = 3
 def rank_apply_times(device, eng, xh, applies=RANKS_APPLIES):
     """``applies`` applies on every rank together: host wall clock between
     synchronizations, the CUDA-event time between the apply's first and
-    last work (the gaps a host-staged exchange leaves included), and the
-    bytes this rank put into the exchange per apply."""
+    last work (the gaps a host-staged exchange leaves included), the bytes
+    this rank put into the exchange per apply, and at a pipeline depth the
+    host ms each apply spent waiting in its retires."""
     import torch
 
-    walls, events = [], []
+    walls, events, barrier = [], [], []
     b0 = eng.exchange_bytes
     for _ in range(applies):
         _sync(device)
@@ -1201,7 +1424,10 @@ def rank_apply_times(device, eng, xh, applies=RANKS_APPLIES):
         walls.append((time.perf_counter() - t0) * 1e3)
         if device.type == "cuda":
             events.append(e0.elapsed_time(e1))
-    return {"apply_ms_host": walls,
+        if eng.last_pipeline is not None:
+            barrier.append(eng.last_pipeline["barrier_ms"])
+    return {"depth": eng.pipeline_depth, "barrier_ms": barrier,
+            "apply_ms_host": walls,
             "apply_ms_host_median": statistics.median(walls),
             "apply_ms_device": events,
             "apply_ms_device_median": statistics.median(events)
@@ -1209,19 +1435,21 @@ def rank_apply_times(device, eng, xh, applies=RANKS_APPLIES):
             "exchange_bytes_per_apply": (eng.exchange_bytes - b0) / applies}
 
 
-def exchange_ms(device, group, shape, calls, reps=3):
+def exchange_ms(device, group, shape, calls, reps=3, staged=False):
     """Host ms of ``calls`` exchanges of a float64 send block ``shape``
-    (one apply's worth), median of ``reps``; collective."""
+    (one apply's worth), median of ``reps``, each ``exchange`` or (with
+    ``staged``) ``exchange_staged``; collective."""
     import torch
 
     send = torch.zeros(shape, dtype=torch.float64, device=device)
-    group.exchange(send)
+    exchange = group.exchange_staged if staged else group.exchange
+    exchange(send)
     times = []
     for _ in range(reps):
         _sync(device)
         t0 = time.perf_counter()
         for _ in range(calls):
-            group.exchange(send)
+            exchange(send)
         _sync(device)
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -1274,7 +1502,9 @@ def gloo_cuda_probe(device):
     """Whether this torch's gloo runs ``all_to_all_single`` on CUDA tensors
     itself, tried on a group of its own with a short timeout.  Reported
     only: the engine's gloo branch stages CUDA tensors through pinned host
-    memory either way."""
+    memory either way.  (gloo's ``isend``/``irecv``, the staged exchange's
+    rounds, are not probed: on CUDA tensors they abort the process —
+    ``gloo::IoException`` "writev … Bad address" on the card's torch.)"""
     import datetime
 
     import torch
@@ -1301,17 +1531,20 @@ def gloo_cuda_probe(device):
 def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
                 device_type):
     """One rank of the ranks leg: chain_n_symm built here, then ``ell``
-    (build, apply, Lanczos) and ``streamed`` (build, the decode kernel on
-    this rank's chunks against its plain version, 3 counted and timed
-    applies), each apply gathered and saved by rank 0.  Writes
-    ``rank{rank}.json`` into ``tmp``."""
+    (build, apply, Lanczos, ``lanczos_block`` and ``lobpcg``) and
+    ``streamed`` (build, the decode kernel on this rank's chunks against
+    its plain version, 3 counted and timed applies at depth 0, the apply at
+    depth 2 bit-equal to depth 0, 3 counted and timed applies at depth 2),
+    each apply gathered and saved by rank 0.  Writes ``rank{rank}.json``
+    into ``tmp``."""
     import numpy as np
     import torch
 
     sys.path.insert(0, ROOT)
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
     os.environ["DMT_ENUMERATION_BACKEND"] = "native"
-    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch import (DistributedEngine, lanczos,
+                                              lanczos_block, lobpcg)
     from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
     from distributed_matvec_tpu_torch.parallel.mesh import init_distributed
@@ -1354,6 +1587,23 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
                 lanczos_iters=int(res.num_iters),
                 lanczos_converged=bool(res.converged),
                 e0=float(res.eigenvalues[0]))
+    # the block solvers, as the solvers phase runs them on one process
+    for name, solve in (
+            ("lanczos_block", lambda mv: lanczos_block(
+                mv, k=4, block_size=4, max_iters=800, tol=1e-10)),
+            ("lobpcg", lambda mv: lobpcg(mv, N, k=4, tol=1e-15,
+                                         max_iters=400))):
+        before = dict(g.collectives)
+        r, st = solve_timed(device, eng, solve)
+        st["collectives"] = {k: v - before.get(k, 0)
+                             for k, v in g.collectives.items()}
+        if name == "lanczos_block":
+            st.update(eigenvalues=r.eigenvalues.tolist(),
+                      columns=r.num_iters, converged=bool(r.converged))
+        else:
+            st.update(eigenvalues=r[0].tolist(), iters=r[2])
+        info[name] = st
+        del r
     out["ell"] = info
     del eng, res
     if device.type == "cuda":
@@ -1393,6 +1643,29 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
     info.update(applies=eng.n_applies, launches=launches,
                 exchange_ms_per_apply=exchange_ms(
                     device, g, (world, spec["cap_eff"], 1), eng.nchunks))
+    # depth 2: bit-equal to depth 0 (not counted), then counted and timed
+    y0 = deterministic(lambda: eng.matvec(xh))
+    eng.pipeline_depth = 2
+    y2 = deterministic(lambda: eng.matvec(xh))
+    if not torch.equal(y0, y2):
+        raise AssertionError(f"rank {rank}: the depth-2 streamed apply "
+                             "differs from depth 0")
+    del y0, y2
+    PC.fused_decode_gather_scatter.launches = 0
+    eng.n_applies = 0
+    pipe = rank_apply_times(device, eng, xh)
+    launches2 = PC.fused_decode_gather_scatter.launches
+    if device.type == "cuda" and launches2 != eng.nchunks * eng.n_applies:
+        raise AssertionError(f"rank {rank}: {launches2} decode launches for "
+                             f"{eng.n_applies} depth-2 applies of "
+                             f"{eng.nchunks} chunks")
+    pipe.update(applies=eng.n_applies, launches=launches2,
+                bit_equal_to_depth_0=True,
+                exchange_ms_per_apply=exchange_ms(
+                    device, g, (world, spec["cap_eff"], 1), eng.nchunks,
+                    staged=True))
+    info["depth2"] = pipe
+    info["launches"] = launches + launches2
     if rank == 0:
         np.save(os.path.join(tmp, f"y_streamed_{backend}.npy"), y)
     out["streamed"] = info
@@ -1432,9 +1705,11 @@ def spawn_ranks(backend, world, tmp, n, device_type="cuda"):
     return outs
 
 
-def check_ranks(tmp, backend, outs, y_ref, e0_full):
+def check_ranks(tmp, backend, outs, y_ref, e0_full, block_ref):
     """Rank 0's gathered applies against ``y_ref`` (atol 1e-13 / rtol
-    1e-12) and every rank's E0 against the full leg's (1e-10)."""
+    1e-12), every rank's E0 against the full leg's (1e-10), and the block
+    solvers' eigenvalues the same bits on every rank and within 1e-10 of
+    the one-process solves' (``block_ref``: solver → eigenvalues)."""
     import numpy as np
 
     errs = {}
@@ -1448,8 +1723,18 @@ def check_ranks(tmp, backend, outs, y_ref, e0_full):
             or abs(e0s[0] - e0_full) > 1e-10:
         raise AssertionError(f"{backend} ranks E0 {e0s}, full leg "
                              f"{e0_full}")
+    block = {}
+    for name, want in block_ref.items():
+        evs = [o["ell"][name]["eigenvalues"] for o in outs]
+        d = max(abs(a - b) for a, b in zip(evs[0], want))
+        if any(e != evs[0] for e in evs) or len(evs[0]) != len(want) \
+                or d > 1e-10:
+            raise AssertionError(f"{backend} ranks {name} eigenvalues "
+                                 f"{evs}, one process {want}")
+        block[name] = {"max_abs_diff_vs_one_process": d,
+                       "same_bits_on_every_rank": True}
     return {"vs_local_ell_max_abs_err": errs, "e0": e0s[0],
-            "e0_minus_full": e0s[0] - e0_full}
+            "e0_minus_full": e0s[0] - e0_full, "block_solvers": block}
 
 
 def nccl_one_rank_leg(device, full_eng, tmp):
@@ -1481,17 +1766,25 @@ def nccl_one_rank_leg(device, full_eng, tmp):
             PC.fused_decode_gather_scatter.launches = 0
             eng.n_applies = 0
             y = eng.matvec(xh)
+            eng.pipeline_depth = 2
+            y2 = eng.matvec(xh)
+            eng.pipeline_depth = 0
         finally:
             torch.use_deterministic_algorithms(False)
-        if not torch.equal(y, y_full):
-            raise AssertionError(
-                "one-rank NCCL apply differs from the full leg's: max abs "
-                f"err {float((y - y_full).abs().max())}")
+        for depth, got in ((0, y), (2, y2)):
+            if not torch.equal(got, y_full):
+                raise AssertionError(
+                    f"one-rank NCCL apply at depth {depth} differs from the "
+                    f"full leg's: max abs err "
+                    f"{float((got - y_full).abs().max())}")
         info = {"backend": g.backend, "build_s": build_s,
                 "build_peak_bytes": peak, "nchunks": eng.nchunks,
-                "equal_to_full_bit_for_bit": True,
+                "equal_to_full_bit_for_bit": [0, 2],
                 "wire_dtypes_checked": wire}
         info.update(rank_apply_times(device, eng, xh))
+        eng.pipeline_depth = 2
+        info["depth2"] = rank_apply_times(device, eng, xh)
+        eng.pipeline_depth = 0
         launches = PC.fused_decode_gather_scatter.launches
         applies = eng.n_applies
         # the full leg's engine (the exchange a transpose) and this one in
@@ -1515,7 +1808,7 @@ def nccl_one_rank_leg(device, full_eng, tmp):
     return info
 
 
-def ranks_phase(device, op, ell_ref, full_eng, e0_full):
+def ranks_phase(device, op, ell_ref, full_eng, e0_full, block_ref):
     """The rank engine on the card; see the module docstring."""
     import tempfile
 
@@ -1534,7 +1827,8 @@ def ranks_phase(device, op, ell_ref, full_eng, e0_full):
         t0 = time.perf_counter()
         outs = spawn_ranks("gloo", RANKS, tmp, 32)
         out["gloo"] = {"seconds": time.perf_counter() - t0, "ranks": outs,
-                       **check_ranks(tmp, "gloo", outs, y_ref, e0_full)}
+                       **check_ranks(tmp, "gloo", outs, y_ref, e0_full,
+                                     block_ref)}
         launches = sum(o["streamed"]["launches"] for o in outs)
         cards = torch.cuda.device_count()
         if cards >= RANKS:
@@ -1542,12 +1836,14 @@ def ranks_phase(device, op, ell_ref, full_eng, e0_full):
             outs = spawn_ranks("nccl", RANKS, tmp, 32)
             out["nccl"] = {"seconds": time.perf_counter() - t0,
                            "ranks": outs,
-                           **check_ranks(tmp, "nccl", outs, y_ref, e0_full)}
+                           **check_ranks(tmp, "nccl", outs, y_ref, e0_full,
+                                         block_ref)}
             launches += sum(o["streamed"]["launches"] for o in outs)
         else:
             out["nccl"] = {"ran": False, "why": (
                 f"{cards} card(s): NCCL needs one card per rank, so the "
-                f"{RANKS}-rank NCCL leg runs only where "
+                f"{RANKS}-rank NCCL leg (ell with the block solvers, "
+                "streamed at depth 0 and 2) runs only where "
                 f"torch.cuda.device_count() >= {RANKS}")}
             emit({"leg": "ranks.nccl", "ran": False,
                   "why": out["nccl"]["why"]})
@@ -1657,15 +1953,20 @@ def main() -> int:
     split = run_phase("split", split_phase, device, eng)
     _, ell = run_phase("local_full", local_full_phase, device, eng,
                        full["e0"])
-    _, solver_launches = run_phase("solvers", solvers_phase, device, eng,
-                                   ell, full["e0"])
+    solvers, solver_launches = run_phase("solvers", solvers_phase, device,
+                                         eng, ell, full["e0"])
     op = eng.operator
     torch.cuda.empty_cache()
     _, sharded = run_phase("sharded", sharded_phase, device, op, ell,
                            full["e0"])
     torch.cuda.empty_cache()
+    pipe, pipe_launches = run_phase("pipeline", pipeline_phase, device, eng,
+                                    sharded.pop("engines"))
+    torch.cuda.empty_cache()
+    block_ref = {name: solvers[name]["eigenvalues"]
+                 for name in ("lanczos_block", "lobpcg")}
     ranks = run_phase("ranks", ranks_phase, device, op, ell, eng,
-                      full["e0"])
+                      full["e0"], block_ref)
     del ell, op, eng
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
@@ -1677,9 +1978,9 @@ def main() -> int:
         "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
-        + ranks["launches"],
+        + pipe_launches + ranks["launches"],
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
-                           sharded["max_abs_err"],
+                           sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            ranks["kernel_max_abs_err"]),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
@@ -1689,8 +1990,10 @@ def main() -> int:
         # the one-shard legs (full, solvers) and the D = 4 leg apart
         "launches_d1": launches + solver_launches,
         "launches_d4": sharded["launches"],
-        # each rank's own launches on its shard (gloo ranks on the card,
-        # and the one-rank NCCL group)
+        # the pipelined applies of the pipeline phase (D = 1 and D = 4)
+        "launches_pipeline": pipe_launches,
+        # each rank's own launches on its shard (gloo ranks on the card at
+        # depth 0 and 2, and the one-rank NCCL group)
         "launches_ranks": ranks["launches"],
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],

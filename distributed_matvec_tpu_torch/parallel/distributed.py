@@ -28,14 +28,31 @@ function: send buffers ``[D_src, D_dst, C, …]`` in, receive buffers
 ``[D_dst, D_src, C, …]`` out, JAX's ``all_to_all(sb, axis, 0, 0,
 tiled=True)``; on a rank the leading axis is this rank's one shard.
 
+The chunked modes (streamed, fused) take ``pipeline_depth`` (JAX's knob,
+resolved as it resolves it): 0, the default, is the sequential schedule —
+each chunk's exchange is waited for before the next chunk is produced; an
+integer ≥ 2 keeps up to that many chunks' exchanges in flight.  Each
+chunk's exchange starts as soon as its send side is queued (on ranks the
+staged exchange, :meth:`~.mesh.ShardGroup.exchange_async`; in one process
+the transpose), and it retires — wait, then the receive side's lookups and
+``index_add_`` into y — strictly in chunk order once ``depth`` − 1 later
+chunks have been produced, so a pipelined apply is bit-identical to the
+sequential one at every depth.  The depth is clamped to the chunk count (a
+clamp below 2 is 0), fused reports at most 2 (JAX's in-program pipeline
+is one exchange deep), ell and compact always 0; ``eng.pipeline_depth =
+v`` re-resolves it on a built engine.  ``last_pipeline`` records the last
+pipelined apply (``depth``, ``chunks``, and ``barrier_ms``, the host time
+spent waiting in its retires); a sequential apply sets it to None.
+
 Modes (``mode=``):
 
 * ``"streamed"`` (the default): a build pass resolves every row chunk's
   structure once — kernels and orbit scan, bucket routing, one exchange of
   the target states, the receive-side basis lookup — into a host-RAM plan,
   encoded with the ``lossless`` codec (``ops/plan_codec.py``) and kept in
-  pinned host memory.  Every apply streams the encoded chunks host → device,
-  double-buffered on a side stream, and per chunk
+  pinned host memory.  Every apply streams the encoded chunks host → device
+  on a side stream through a ring of ``max(2, depth)`` buffers, and per
+  chunk
 
       send[s] = fused_decode_gather_scatter(chunk[s], x[s] rows)  (CUDA)
       recv = all_to_all(send)
@@ -45,7 +62,10 @@ Modes (``mode=``):
   once per shard per chunk per column; it zeroes the send slots no entry
   writes from the chunk's per-bucket fill counts (the send side's
   occupancy), which ride beside the encoded streams.  Real sectors, the
-  ``lossless`` tier, dictionary-coded coefficients.
+  ``lossless`` tier, dictionary-coded coefficients.  A block of R > 4
+  columns is applied in column groups of 4, each streaming the plan once
+  (JAX ``run``): per-chunk scratch grows with R, and streamed mode is for
+  sectors that crowd device memory.
 * ``"ell"``: the static routing plan.  The build deduplicates each shard's
   remote targets per peer into query lists ``qin``; every apply is
   ``x[qin]`` → exchange → ``[x; R]`` → a per-term ELL gather·multiply·add
@@ -59,9 +79,9 @@ Modes (``mode=``):
   Overflow and out-of-basis targets are counted and checked on the first
   apply of each row-chunk size.  Real and complex128 sectors.
 
-The JAX engine's ``_staged_all_to_all`` and pipelining, ``hybrid``,
-``from_shards``, the structure and plan caches and autotuning are not in
-the port.
+The JAX engine's ``hybrid`` mode, ``pipeline_depth="auto"`` and
+``DMT_PIPELINE``, the threaded plan prefetch, ``from_shards``, the
+structure and plan caches and autotuning are not in the port.
 """
 
 from __future__ import annotations
@@ -174,6 +194,10 @@ class DistributedEngine:
     another engine's :class:`~.shuffle.HashedLayout` of the same basis at
     the same D (bound observables do).
 
+    ``pipeline_depth`` (streamed and fused mode): the number of chunks
+    whose exchanges may be in flight at once (see the module docstring);
+    None, 0, 1 and ``"off"`` are the sequential schedule.
+
     ``group`` (a :class:`~.mesh.ShardGroup`) makes this a rank engine: D is
     the group's world size, this process holds shard ``group.rank``, and
     ``device`` defaults to the group's.  Every rank constructs the engine
@@ -192,7 +216,8 @@ class DistributedEngine:
                  all_to_all_capacity_factor: float =
                  ALL_TO_ALL_CAPACITY_FACTOR,
                  remote_buffer_size: int = REMOTE_BUFFER_SIZE,
-                 layout: Optional[HashedLayout] = None, group=None):
+                 layout: Optional[HashedLayout] = None, group=None,
+                 pipeline_depth=None):
         if group is not None:
             if n_devices is not None and int(n_devices) != group.world_size:
                 raise ValueError(
@@ -281,6 +306,9 @@ class DistributedEngine:
 
         b = min(batch_size or DEFAULT_BATCH_SIZE, M)
         self.batch_size = _round_up(min(b, M), 8)
+        self.pipeline_depth = pipeline_depth
+        #: the last pipelined apply's record (None after a sequential one)
+        self.last_pipeline: Optional[Dict[str, float]] = None
 
         t0 = time.perf_counter()
         if mode in ("ell", "compact"):
@@ -309,10 +337,7 @@ class DistributedEngine:
             [self._codec.dict_device_row(d) for d in self._shards])).to(dev)
         if dev.type == "cuda":
             self._copy_stream = torch.cuda.Stream(dev)
-            self._dev_bufs = torch.empty(
-                (2, L, self._chunk_stride), dtype=torch.uint8, device=dev)
-            self._ready = [torch.cuda.Event(), torch.cuda.Event()]
-            self._free = [torch.cuda.Event(), torch.cuda.Event()]
+            self._grow_ring(2)
 
     # -- ranks ---------------------------------------------------------------
 
@@ -321,6 +346,94 @@ class DistributedEngine:
         put in."""
         self.exchange_bytes += send.numel() * send.element_size()
         return all_to_all(send, self.group)
+
+    def _exchange_start(self, send: torch.Tensor
+                        ) -> Callable[[], torch.Tensor]:
+        """Start :func:`all_to_all` of ``send`` for a pipelined apply,
+        counting the bytes put in; returns the wait that gives the receive
+        block.  In one process it is the transpose, done now; on ranks the
+        staged exchange, left in flight."""
+        self.exchange_bytes += send.numel() * send.element_size()
+        if self.group is None:
+            recv = all_to_all(send)
+            return lambda: recv
+        pending = self.group.exchange_async(send[0])
+        return lambda: pending.wait()[None]
+
+    def _run_chunks(self, chunks, produce, consume) -> None:
+        """The chunk schedule of the chunked applies.  ``produce(ci,
+        chunk)`` queues chunk ci's send side and returns ``(send blocks,
+        carry)``; ``consume(carry, *receive blocks)`` is its receive side.
+        At depth 0 each chunk is exchanged (:meth:`_exchange`) and consumed
+        before the next is produced.  At depth d ≥ 2 each chunk's
+        exchanges start as soon as it is produced, and it retires — its
+        waits, then ``consume`` — strictly in chunk order once d − 1 later
+        chunks have been produced; the last d − 1 drain in order.  The
+        host time spent in those waits goes to ``last_pipeline``."""
+        d = self.pipeline_depth
+        if d >= 2 and self.last_pipeline is None:
+            self.last_pipeline = {"depth": d, "chunks": 0, "barrier_ms": 0.0}
+        rec = self.last_pipeline
+        flight: list = []
+
+        def retire():
+            waits, carry = flight.pop(0)
+            t0 = time.perf_counter()
+            recvs = [w() for w in waits]
+            rec["barrier_ms"] += (time.perf_counter() - t0) * 1e3
+            rec["chunks"] += 1
+            consume(carry, *recvs)
+
+        for ci, chunk in enumerate(chunks):
+            sends, carry = produce(ci, chunk)
+            if d < 2:
+                consume(carry, *[self._exchange(s) for s in sends])
+                continue
+            flight.append(([self._exchange_start(s) for s in sends], carry))
+            if len(flight) == d:
+                retire()
+        while flight:
+            retire()
+
+    @property
+    def pipeline_depth(self) -> int:
+        """The resolved pipeline depth the next apply runs at (0: the
+        sequential schedule); assigning a value resolves it again."""
+        return self._pipeline_depth
+
+    @pipeline_depth.setter
+    def pipeline_depth(self, value) -> None:
+        self._pipeline_depth = self._resolve_pipeline_depth(value)
+
+    def _resolve_pipeline_depth(self, value) -> int:
+        """JAX ``_resolve_pipeline_depth`` for this engine's chunk count:
+        ell and compact have no chunk sequence and resolve 0; None, "",
+        "off", 0, 1 (and "false"/"no"/"none") are 0; an integer ≥ 2 is
+        clamped to the chunk count, and a clamp below 2 is 0; fused runs at
+        most 2.  ``"auto"`` prices the overlap with the JAX package's
+        roofline calibration, which the port does not have."""
+        if self.mode not in ("fused", "streamed"):
+            return 0
+        s = "" if value is None else str(value).strip().lower()
+        if s in ("", "off", "0", "1", "false", "no", "none"):
+            return 0
+        if s == "auto":
+            raise NotImplementedError(
+                "pipeline_depth='auto' prices the overlap with the roofline "
+                "calibration of the JAX package's obs/, which is not in the "
+                "port yet; pass off or an integer >= 2")
+        try:
+            depth = int(s)
+        except ValueError:
+            raise ValueError(
+                f"bad pipeline depth {value!r}: pick off | an integer >= 2"
+                " ('auto' is not in the port yet)") from None
+        if depth < 0:
+            raise ValueError(f"pipeline depth must be >= 0, got {depth}")
+        depth = min(depth, max(self.nchunks, 1))
+        # a clamp down to one chunk leaves nothing to pipeline
+        depth = depth if depth >= 2 else 0
+        return min(depth, 2) if self.mode == "fused" else depth
 
     def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks of the engine's group (``t`` itself
@@ -620,81 +733,112 @@ class DistributedEngine:
                 "rok": rok.numpy().view(np.uint32),
                 "fill": fill.numpy().copy()}
 
-    def _stream_chunks(self) -> Iterator[List[Tuple[torch.Tensor, ...]]]:
+    def _grow_ring(self, slots: int) -> None:
+        """Device buffers and events for an H2D ring of at least ``slots``
+        plan chunks."""
+        if getattr(self, "_dev_bufs", None) is not None \
+                and self._dev_bufs.shape[0] >= slots:
+            return
+        self._dev_bufs = torch.empty(
+            (slots, len(self._shards), self._chunk_stride), dtype=torch.uint8,
+            device=self.device)
+        self._ready = [torch.cuda.Event() for _ in range(slots)]
+        self._free = [torch.cuda.Event() for _ in range(slots)]
+
+    def _stream_chunks(self, slots: Optional[int] = None
+                       ) -> Iterator[List[Tuple[torch.Tensor, ...]]]:
         """The plan's chunks as device views, in order: per chunk, the
         record views of the shards held here.  On CUDA each chunk's records
-        are copied host → device in one copy on a side stream, into one of
-        two buffers, one chunk ahead of its use; the compute stream waits
-        for the copy, and the copy into a buffer waits for the compute that
-        last read it."""
-        n, D = self.nchunks, len(self._shards)
+        are copied host → device in one copy on a side stream into a ring
+        of ``slots`` buffers (default ``max(2, pipeline_depth)``), ``slots``
+        − 1 chunks ahead of use; the compute stream waits for the copy, and
+        the copy into a slot waits for the compute that last read it —
+        everything queued before the consumer asks for the next chunk.  The
+        applies read a chunk's records only while producing it, so the
+        ring is the counterpart of the JAX engine's prefetch depth."""
+        n, L = self.nchunks, len(self._shards)
         if self.device.type != "cuda":
             for ci in range(n):
                 yield [self._chunk_views(self._plan_host[ci, d])
-                       for d in range(D)]
+                       for d in range(L)]
             return
+        S = slots or max(self.pipeline_depth, 2)
+        self._grow_ring(S)
         compute = torch.cuda.current_stream(self.device)
         copy = self._copy_stream
 
         def issue(ci):
-            slot = ci % 2
+            slot = ci % S
             with torch.cuda.stream(copy):
                 copy.wait_event(self._free[slot])
                 self._dev_bufs[slot].copy_(self._plan_host[ci],
                                            non_blocking=True)
                 self._ready[slot].record(copy)
 
-        if n:
-            copy.wait_stream(compute)
-            issue(0)
+        copy.wait_stream(compute)
+        for ci in range(min(S - 1, n)):
+            issue(ci)
         for ci in range(n):
-            if ci + 1 < n:
-                issue(ci + 1)
-            slot = ci % 2
+            if ci + S - 1 < n:
+                # the slot of chunk ci − 1, released just below
+                issue(ci + S - 1)
+            slot = ci % S
             compute.wait_event(self._ready[slot])
             yield [self._chunk_views(self._dev_bufs[slot, d])
-                   for d in range(D)]
+                   for d in range(L)]
             self._free[slot].record(compute)
 
     # -- streamed: apply -----------------------------------------------------
 
-    def _apply(self, xh: torch.Tensor, chunks) -> torch.Tensor:
-        """The streamed apply over ``chunks``, an iterable of the plan's
-        per-chunk shard views on the device in chunk order
-        (:meth:`_stream_chunks` streams them from host memory).  Columns
-        are applied side by side: per chunk one decode launch per shard
-        and column into one ``[L, R, D·cap + 1]`` send buffer (L the
-        shards held here), the exchange, then per shard one ``index_add_``
-        of its ``[n_recv, R]`` receive block."""
+    def _apply(self, xh: torch.Tensor, chunks=None) -> torch.Tensor:
+        """The streamed apply of at most 4 columns over ``chunks``, an
+        iterable of the plan's per-chunk shard views on the device in chunk
+        order (default: :meth:`_stream_chunks` streams them from host
+        memory), in :meth:`_run_chunks`' schedule.  Produce: per chunk one
+        decode launch per shard and column into one of ``max(1, depth)``
+        ``[L, R, D·cap + 1]`` send slots (L the shards held here), and the
+        chunk's ridx/rok unpacked.  Consume: per shard one ``index_add_`` of
+        its ``[n_recv, R]`` receive block.  A send slot is written again
+        only after the chunk that last used it has retired."""
         D, M, B = self.n_devices, self.shard_size, self.batch_size
         L = len(self._shards)
         spec = self._codec.spec
         n_recv, w_ridx, cap = spec["n_recv"], spec["w_ridx"], spec["cap_eff"]
         x = xh.reshape(L, M, -1)                       # [L, M, R]
         R = x.shape[2]
+        if chunks is None:
+            chunks = self._stream_chunks()
         # column-major copy: each column's chunk rows are contiguous, as
         # the kernel takes them
         xp = torch.zeros((L, R, self.nchunks * B), dtype=torch.float64,
                          device=self.device)
         xp[:, :, :M] = x.transpose(1, 2)
         y = torch.zeros((L, M, R), dtype=torch.float64, device=self.device)
-        for ci, views in enumerate(chunks):
-            send = torch.empty((L, R, n_recv + 1), dtype=torch.float64,
-                               device=self.device)
+        sends = torch.empty((max(self.pipeline_depth, 1), L, R, n_recv + 1),
+                            dtype=torch.float64, device=self.device)
+
+        def produce(ci, views):
+            send = sends[ci % sends.shape[0]]
+            recv_side = []
             for s in range(L):
-                edest, codes, _, _, fill = views[s]
+                edest, codes, ridx_w, rok_w, fill = views[s]
                 for r in range(R):
                     PC.fused_decode_gather_scatter(
                         spec, edest, codes, fill, self._cdict[s],
                         xp[s, r, ci * B:(ci + 1) * B], out=send[s, r])
-            recv = self._exchange(send[:, :, :n_recv].reshape(
-                L, R, D, cap).permute(0, 2, 3, 1))     # [L, D, cap, R]
-            for d in range(L):
-                _, _, ridx_w, rok_w, _ = views[d]
-                ridx = PC.unpack_bits(ridx_w, n_recv, w_ridx)
-                rok = PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)
+                recv_side.append((
+                    PC.unpack_bits(ridx_w, n_recv, w_ridx),
+                    PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)))
+            # [L, D, cap, R]
+            return ((send[:, :, :n_recv].reshape(L, R, D, cap)
+                     .permute(0, 2, 3, 1),), recv_side)
+
+        def consume(recv_side, recv):
+            for d, (ridx, rok) in enumerate(recv_side):
                 y[d].index_add_(0, ridx, torch.where(
                     rok[:, None], recv[d].reshape(n_recv, R), 0.0))
+
+        self._run_chunks(chunks, produce, consume)
         return (y + self._diag[:, :, None] * x).reshape(xh.shape)
 
     # -- fused ---------------------------------------------------------------
@@ -702,8 +846,9 @@ class DistributedEngine:
     def _apply_fused(self, x: torch.Tensor, B: int, cap: int):
         """Per row chunk: each shard re-runs the kernels, routes its
         amplitudes and their target states into ``[D, cap]`` buckets; both
-        are exchanged; each shard looks the targets up and adds.  ``x`` is
-        ``[L, M, R]``.  Returns (y, overflow, invalid) as tensors."""
+        are exchanged; each shard looks the targets up and adds — in
+        :meth:`_run_chunks`' schedule.  ``x`` is ``[L, M, R]``.  Returns
+        (y, overflow, invalid) as tensors."""
         D, M, L = self.n_devices, self.shard_size, len(self._shards)
         R = x.shape[2]
         nchunks = (M + B - 1) // B
@@ -713,7 +858,8 @@ class DistributedEngine:
         y = torch.zeros((L, M, R), dtype=dtype, device=dev)
         overflow = torch.zeros((), dtype=torch.int64, device=dev)
         invalid = torch.zeros((), dtype=torch.int64, device=dev)
-        for ci in range(nchunks):
+
+        def produce(ci, _):
             send_b = torch.full((L, D * cap + 1), SENTINEL_STATE,
                                 dtype=torch.int64, device=dev)
             send_a = torch.zeros((L, D * cap + 1, R), dtype=dtype,
@@ -729,20 +875,23 @@ class DistributedEngine:
                                    0)
                 flat_b = betas.reshape(-1)
                 dest, ov = self._route(flat_b, nz.reshape(-1), cap)
-                overflow += ov
+                overflow.add_(ov)
                 send_b[s, dest] = flat_b
                 send_a[s, dest] = amps.reshape(-1, R)
-            recv_b = self._exchange(send_b[:, :D * cap].reshape(L, D, cap))
-            recv_a = self._exchange(send_a[:, :D * cap].reshape(L, D, cap,
-                                                                R))
+            return (send_b[:, :D * cap].reshape(L, D, cap),
+                    send_a[:, :D * cap].reshape(L, D, cap, R)), None
+
+        def consume(_, recv_b, recv_a):
             for d in range(L):
                 rb = recv_b[d].reshape(-1)
                 idx, found = self._lookup(d, rb)
                 live_r = rb != SENTINEL_STATE
                 okc = found & live_r
-                invalid += (live_r & ~found).sum()
+                invalid.add_((live_r & ~found).sum())
                 y[d].index_add_(0, torch.where(okc, idx, 0), torch.where(
                     okc[:, None], recv_a[d].reshape(-1, R), 0))
+
+        self._run_chunks(range(nchunks), produce, consume)
         return y, overflow, invalid
 
     # -- ell / compact: the static routing plan -----------------------------
@@ -1145,7 +1294,8 @@ class DistributedEngine:
         In fused mode the first apply of each row-chunk size (or
         ``check=True``) checks the overflow and out-of-basis counters and
         raises if an amplitude was lost; ``check=False`` skips it.  The
-        other modes checked them at build time."""
+        other modes checked them at build time.  Streamed mode applies a
+        block of R > 4 columns in column groups of 4."""
         D, M = len(self._shards), self.shard_size
         if not self.real and xh.dtype == torch.float64:
             xh = xh.to(self._dtype)
@@ -1156,9 +1306,15 @@ class DistributedEngine:
                 f"[{D}, {M}, R] tensor on {self.device}, got {xh.dtype} "
                 f"{tuple(xh.shape)} on {xh.device}")
         self.n_applies += 1
-        if self.mode == "streamed":
-            return self._apply(xh, self._stream_chunks())
+        self.last_pipeline = None
         x = xh.reshape(D, M, -1)
+        if self.mode == "streamed":
+            if x.shape[2] <= 4:
+                return self._apply(xh)
+            # wide blocks in column groups of 4, each streaming the plan
+            return torch.cat([self._apply(x[:, :, c:c + 4])
+                              for c in range(0, x.shape[2], 4)],
+                             dim=2).reshape(xh.shape)
         if self.mode == "ell":
             y = self._apply_ell(x)
         elif self.mode == "compact":

@@ -20,23 +20,46 @@ widened to int32, bool as uint8 and complex as ``view_as_real``; each
 comes back in its own dtype.  With gloo, a CUDA
 tensor is staged through pinned host memory before the collective and
 copied back after it — an explicit branch on the backend, so the path does
-not depend on which collectives a build's gloo takes on the card.
+not depend on which collectives a build's gloo takes on the card (its
+``all_to_all_single`` took CUDA tensors on the H100's torch, while its
+``isend``/``irecv`` on CUDA tensors abort the process: gloo writes from the
+device address).
+
+Three forms of the equal-block all-to-all (JAX ``all_to_all`` and
+``_staged_all_to_all``), element-identical in every wire dtype:
+
+* :meth:`ShardGroup.exchange`: one blocking ``all_to_all_single`` (the
+  sequential applies and the builds);
+* :meth:`ShardGroup.exchange_async`: the staged exchange — the local
+  block copied, then W−1 point-to-point rounds (round r sends this rank's
+  block for peer (i+r) % W and receives into slot (i−r) % W) — left in
+  flight; ``handle.wait()`` gives the receive block.  On NCCL and on
+  gloo over CPU tensors the rounds' own ``Work`` objects carry it.  With
+  gloo on the card the send block goes device → pinned host on a copy
+  stream after an event of the compute stream; the group's one comm thread (a FIFO, so
+  every rank issues its rounds in one order) waits for the copy, runs the
+  rounds over gloo and copies the result back on a second copy stream;
+  ``wait()`` joins the thread's future and makes the compute stream wait
+  for that copy.  While an exchange is in flight the caller issues no
+  other collective: the pipelined applies drain before they return;
+* :meth:`ShardGroup.exchange_staged`: the same, waited for at once.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
 
-__all__ = ["ShardGroup", "init_distributed", "check_nccl_placement",
-           "DEFAULT_TIMEOUT_S"]
+__all__ = ["ShardGroup", "PendingExchange", "init_distributed",
+           "check_nccl_placement", "DEFAULT_TIMEOUT_S"]
 
 #: Seconds a collective may wait for its peers before it fails.
 DEFAULT_TIMEOUT_S = 300.0
@@ -58,18 +81,47 @@ def check_nccl_placement(local_rank: int, local_world_size: int,
             "backend='gloo' to share a card")
 
 
+class PendingExchange:
+    """An exchange in flight: :meth:`wait` gives its receive block.  It
+    holds the tensors the exchange still reads or writes until then."""
+
+    __slots__ = ("_wait", "_keep")
+
+    def __init__(self, wait: Callable[[], torch.Tensor], keep: Tuple = ()):
+        self._wait = wait
+        self._keep = keep
+
+    def wait(self) -> torch.Tensor:
+        out = self._wait()
+        self._keep = ()
+        return out
+
+
 @dataclass
 class ShardGroup:
     """One ``torch.distributed`` group whose rank r holds hash shard r: the
     part JAX's ``Mesh`` plays for the engine.  ``group`` is the process
     group (None: the default group); ``device`` is where this rank's
-    tensors live."""
+    tensors live.  ``collectives`` counts the calls of each collective
+    this group has made, by method name."""
 
     rank: int
     world_size: int
     backend: str
     device: torch.device
     group: Optional[object] = None
+    collectives: Dict[str, int] = field(default_factory=dict, repr=False,
+                                        compare=False)
+    #: exchanges started so far (each one's rounds carry it as their tag)
+    _started: int = field(default=0, init=False, repr=False, compare=False)
+    #: the comm thread and the two copy streams of the gloo-on-card path
+    _comm: Optional[ThreadPoolExecutor] = field(default=None, init=False,
+                                                repr=False, compare=False)
+    _copy: Optional[Tuple] = field(default=None, init=False, repr=False,
+                                   compare=False)
+
+    def _count(self, kind: str) -> None:
+        self.collectives[kind] = self.collectives.get(kind, 0) + 1
 
     @property
     def stages_host(self) -> bool:
@@ -79,12 +131,17 @@ class ShardGroup:
 
     # -- wire format ---------------------------------------------------------
 
-    def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _wire(t: torch.Tensor) -> torch.Tensor:
+        """``t`` in its wire dtype, contiguous, where it lies."""
         if t.is_complex():
             t = torch.view_as_real(t)
         elif t.dtype in _WIDEN:
             t = t.to(_WIDEN[t.dtype])
-        t = t.contiguous()
+        return t.contiguous()
+
+    def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
+        t = self._wire(t)
         if self.stages_host:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t)
@@ -112,23 +169,122 @@ class ShardGroup:
 
     # -- collectives -----------------------------------------------------------
 
+    def _check_blocks(self, send: torch.Tensor) -> None:
+        if send.shape[0] != self.world_size:
+            raise ValueError(f"exchange takes [{self.world_size}, …] send "
+                             f"blocks, got {tuple(send.shape)}")
+
     def exchange(self, send: torch.Tensor) -> torch.Tensor:
         """All-to-all of equal blocks: ``send`` is ``[W_dst, C, …]``; the
         result is ``[W_src, C, …]``, block s being rank s's send block for
         this rank.  Runs the collective at every W, 1 included."""
-        if send.shape[0] != self.world_size:
-            raise ValueError(f"exchange takes [{self.world_size}, …] send "
-                             f"blocks, got {tuple(send.shape)}")
+        self._check_blocks(send)
+        self._count("exchange")
         w_in = self._to_wire(send)
         w_out = self._empty_wire(send.shape, send)
         dist.all_to_all_single(w_out, w_in, group=self.group)
         return self._from_wire(w_out, send)
+
+    def exchange_staged(self, send: torch.Tensor) -> torch.Tensor:
+        """:meth:`exchange` as W−1 point-to-point rounds plus the local
+        block's copy (JAX ``_staged_all_to_all``): element-identical to
+        it.  At W = 1 the result is the send block's copy."""
+        return self.exchange_async(send).wait()
+
+    def exchange_async(self, send: torch.Tensor) -> PendingExchange:
+        """Start the staged exchange of ``send`` (``[W_dst, C, …]``) and
+        return its handle; ``handle.wait()`` gives the ``[W_src, C, …]``
+        receive block, on ``send``'s device in its dtype.  Every rank starts
+        its exchanges in one order, and issues no other collective before
+        waiting for them."""
+        self._check_blocks(send)
+        self._count("exchange_async")
+        tag = self._started
+        self._started += 1
+        if self.stages_host:
+            return self._async_through_host(send, tag)
+        w_in = self._wire(send)
+        w_out = self._empty_wire(send.shape, send)
+        works = self._rounds(w_in, w_out, tag)
+
+        def wait():
+            for w in works:
+                w.wait()
+            return self._from_wire(w_out, send)
+
+        return PendingExchange(wait, keep=(w_in, send))
+
+    def _peer(self, r: int) -> int:
+        """Group rank r as the global rank point-to-point calls take."""
+        return r if self.group is None else dist.get_global_rank(
+            self.group, r)
+
+    def _rounds(self, w_in: torch.Tensor, w_out: torch.Tensor,
+                tag: int) -> list:
+        """The local block's copy and the W−1 rounds of the staged
+        exchange, started; returns their ``Work`` objects.  Round k sends
+        block (i+k) % W and receives into slot (i−k) % W."""
+        W, i = self.world_size, self.rank
+        w_out[i].copy_(w_in[i])
+        works = []
+        for k in range(1, W):
+            dst, src = (i + k) % W, (i - k) % W
+            works += dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, w_in[dst], self._peer(dst),
+                           self.group, tag),
+                dist.P2POp(dist.irecv, w_out[src], self._peer(src),
+                           self.group, tag)])
+        return works
+
+    def _async_through_host(self, send: torch.Tensor,
+                            tag: int) -> PendingExchange:
+        """The staged exchange of a CUDA ``send`` over gloo: device →
+        pinned host on one copy stream after the compute stream's event,
+        the rounds on the comm thread once that copy is done, and pinned
+        host → device on the other copy stream, recorded as an event the
+        compute stream waits for in ``wait()``."""
+        dev = send.device
+        if self._comm is None:
+            self._comm = ThreadPoolExecutor(
+                1, thread_name_prefix="shard-group-comm")
+            self._copy = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+        d2h, h2d = self._copy
+        w_dev = self._wire(send)
+        h_in = torch.empty(w_dev.shape, dtype=w_dev.dtype, pin_memory=True)
+        h_out = torch.empty(w_dev.shape, dtype=w_dev.dtype, pin_memory=True)
+        d_out = torch.empty(w_dev.shape, dtype=w_dev.dtype, device=dev)
+        produced = torch.cuda.Event()
+        produced.record(torch.cuda.current_stream(dev))
+        staged = torch.cuda.Event()
+        with torch.cuda.stream(d2h):
+            d2h.wait_event(produced)
+            h_in.copy_(w_dev, non_blocking=True)
+            staged.record(d2h)
+
+        def comm() -> torch.cuda.Event:
+            staged.synchronize()
+            for w in self._rounds(h_in, h_out, tag):
+                w.wait()
+            landed = torch.cuda.Event()
+            with torch.cuda.device(dev), torch.cuda.stream(h2d):
+                d_out.copy_(h_out, non_blocking=True)
+                landed.record(h2d)
+            return landed
+
+        fut = self._comm.submit(comm)
+
+        def wait():
+            torch.cuda.current_stream(dev).wait_event(fut.result())
+            return self._from_wire(d_out, send)
+
+        return PendingExchange(wait, keep=(send, w_dev, h_in, h_out))
 
     def exchange_lists(self, parts: Sequence[torch.Tensor]
                        ) -> List[torch.Tensor]:
         """Variable-size all-to-all of 1-D tensors of one dtype:
         ``parts[p]`` goes to rank p; returns the W received tensors,
         element s from rank s.  The counts travel first."""
+        self._count("exchange_lists")
         like = parts[0]
         counts = torch.tensor([int(p.numel()) for p in parts],
                               dtype=torch.int64, device=self.device)
@@ -147,6 +303,7 @@ class ShardGroup:
         bits."""
         if op not in ("sum", "max"):
             raise ValueError(f"unknown reduction {op!r}")
+        self._count("all_reduce")
         w = self._to_wire(t)
         if w is t:
             w = t.clone()
@@ -156,6 +313,7 @@ class ShardGroup:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``[W, *t.shape]``: row s is rank s's ``t`` (equal shapes)."""
+        self._count("all_gather")
         w = self._to_wire(t)
         outs = [self._empty_wire(t.shape, t)
                 for _ in range(self.world_size)]

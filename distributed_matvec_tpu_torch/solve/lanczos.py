@@ -22,7 +22,7 @@ sweep.
 ``[n, p]`` block in one engine call, with full reorthogonalization, QR
 between steps, thick restarts and per-target column exits.  It drives the
 streamed engine through its ``[1, M, p]`` multi-column apply, which streams
-each plan chunk once per block.
+each plan chunk once per block (in column groups of 4 beyond four).
 
 Vectors are whatever ``matvec`` takes and returns (``[1, M]`` hashed for the
 streamed engine); padded slots are zero by engine invariant, so the dots
@@ -37,8 +37,9 @@ each rank holds its row of every vector, and every dot and norm is summed
 through the engine's all-reduce (:func:`rank_reducer`): the reduced
 scalars are the same bits on every rank, so the host-side projections and
 every branch of the recurrence agree across the ranks.  ``lanczos_block``
-(and ``lobpcg``) need a distributed QR of their blocks and refuse a rank
-engine.
+reduces its block inner products the same way, and QRs its ``[M, p]`` row
+blocks by TSQR (:func:`_tsqr`), whose small factor every rank computes
+from the same gathered bits.
 """
 
 from __future__ import annotations
@@ -69,24 +70,42 @@ _NO_CHECKPOINT = ("checkpoint_path: solver checkpoint/resume writes HDF5 and "
                   "apps, io/hdf5.py, utils/preempt.py)")
 
 
-def rank_reducer(matvec: Callable) -> Optional[Callable]:
-    """The sum over ranks of the rank engine behind ``matvec``
-    (``DistributedEngine(group=…)``), or None when the engine holds every
-    shard itself and a local dot is already whole."""
+def rank_owner(matvec: Callable):
+    """The rank engine behind ``matvec`` (``DistributedEngine(group=…)``),
+    or None."""
     owner = getattr(matvec, "__self__", None)
-    if getattr(owner, "group", None) is None:
-        return None
-    return owner.reduce_sum
+    return owner if getattr(owner, "group", None) is not None else None
 
 
-def refuse_rank_engine(matvec: Callable, solver: str) -> None:
-    """Raise ``NotImplementedError`` when ``matvec`` is a rank engine's:
-    the block solvers need a distributed QR of their ``[N, p]`` blocks."""
-    if rank_reducer(matvec) is not None:
-        raise NotImplementedError(
-            f"{solver} on a rank engine (one shard per process) needs a "
-            "distributed QR of its [N, p] blocks, which is not in the port "
-            "yet; use lanczos, or an engine that holds every shard")
+def rank_reducer(matvec: Callable) -> Optional[Callable]:
+    """The sum over ranks of the rank engine behind ``matvec``, or None
+    when the engine holds every shard itself and a local dot is already
+    whole."""
+    owner = rank_owner(matvec)
+    return None if owner is None else owner.reduce_sum
+
+
+def _tsqr(X: torch.Tensor, group) -> tuple:
+    """Reduced QR of the ``[n, p]`` block whose rows lie one ``[M, p]``
+    block per rank of ``group``, in rank order (TSQR): each rank QRs its
+    rows, the W small R factors are all-gathered, every rank QRs the
+    stacked ``[W·r, p]`` on the host from the same bits, and Q is this
+    rank's rows times its slice.  R's diagonal is made real and
+    non-negative (Q's columns scaled to match), so R is the same bits on
+    every rank.  Householder twice over: as stable as one QR of the
+    whole block."""
+    Q1, R1 = torch.linalg.qr(X)                  # [M, r], [r, p]
+    Rs = group.all_gather(R1).cpu().numpy()      # [W, r, p]
+    W, r, p = Rs.shape
+    Q2, R = np.linalg.qr(Rs.reshape(W * r, p))
+    d = np.diag(R)
+    ph = np.where(d == 0, 1.0, d / np.where(d == 0, 1.0, np.abs(d)))
+    Q2 = Q2 * ph[None, :]
+    R = ph.conj()[:, None] * R
+    i = group.rank
+    Q = Q1 @ torch.from_numpy(np.ascontiguousarray(
+        Q2[i * r:(i + 1) * r])).to(X.device, X.dtype)
+    return Q, torch.from_numpy(R).to(X.device, X.dtype)
 
 
 def refuse_checkpoint(checkpoint_path) -> None:
@@ -513,12 +532,29 @@ def lanczos_block(
     then one multi-column apply, which streams each plan chunk once per
     block; eigenvectors come back in the hashed layout.
 
+    **Rank engines**: on ``DistributedEngine(group=…)`` each rank holds
+    its ``[1, M, p]`` rows (start block ``owner.random_hashed(seed,
+    cols=p)``), the block inner products and norms are all-reduced, the QRs
+    are TSQR, and every rank calls together; the small projected problems
+    are the same bits on every rank.
+
     ``device`` defaults to the device of the start block when it is a
-    tensor, else to ``cuda`` (raising when there is none).  A rank engine
-    raises ``NotImplementedError``.
+    tensor, else to ``cuda`` (raising when there is none).
     """
-    refuse_rank_engine(matvec, "lanczos_block")
     owner = getattr(matvec, "__self__", None)
+    ranks = rank_owner(matvec)
+    red = None if ranks is None else ranks.reduce_sum
+
+    def qr(X):
+        if ranks is None:
+            return torch.linalg.qr(X)
+        return _tsqr(X, ranks.group)
+
+    def gram(a, b):
+        """``a†b`` over the global rows."""
+        g = a.conj().T @ b
+        return g if red is None else red(g)
+
     targets = None
     if column_targets is not None:
         targets = [{"k": int(t.get("k", 1)), "tol": float(t.get("tol", tol)),
@@ -556,8 +592,10 @@ def lanczos_block(
     dev = start_device(V0, device)
     V0 = torch.as_tensor(V0).to(dev)
     vec_shape = None         # non-None: hashed [D, M] engine layout
+    lead = None if not hashed_owner else (
+        1 if ranks is not None else owner.n_devices)   # hashed rows here
     if (hashed_owner and V0.dim() == 3
-            and tuple(V0.shape[:2]) == (owner.n_devices, owner.shard_size)):
+            and tuple(V0.shape[:2]) == (lead, owner.shard_size)):
         vec_shape = tuple(V0.shape[:2])
         V0 = V0.reshape(-1, V0.shape[2])   # flat [D·M, p] for the algebra
     if V0.dim() != 2:
@@ -578,7 +616,7 @@ def lanczos_block(
     # the probe apply of the QR'd first block fixes the dtype (a
     # complex-Hermitian operator promotes a real block) and is reused as
     # step 0's apply
-    Q, _ = torch.linalg.qr(V0)
+    Q, _ = qr(V0)
     W0 = mv(Q)
     dtype = torch.promote_types(V0.dtype, W0.dtype)
     Q = Q.to(dtype)
@@ -619,7 +657,7 @@ def lanczos_block(
         out = []
         for i in range(np.asarray(S_cols).shape[1]):
             e = E[:, i]
-            e = e / torch.linalg.vector_norm(e)
+            e = e / _norm(e, red)
             out.append(e.reshape(vec_shape) if vec_shape else e)
         return out
 
@@ -629,7 +667,7 @@ def lanczos_block(
         # step 0 reuses the probe's apply
         W = (W0 if j == 0 else mv(Qj)).to(dtype)
         W0 = None
-        A = Qj.conj().T @ W
+        A = gram(Qj, W)
         W = W - Qj @ A
         if B_list:          # empty right after a narrowing restart
             W = W - blocks[-2] @ torch.as_tensor(
@@ -638,8 +676,8 @@ def lanczos_block(
         for _ in range(2):
             for Qi in (() if lock_Y is None else (lock_Y,)) \
                     + tuple(blocks):
-                W = W - Qi @ (Qi.conj().T @ W)
-        Qn, B = torch.linalg.qr(W)
+                W = W - Qi @ gram(Qi, W)
+        Qn, B = qr(W)
         A_list.append(A.cpu().numpy())
         B_list.append(B.cpu().numpy())
         widths.append(p_cur)
@@ -725,7 +763,7 @@ def lanczos_block(
                         if snap is not None and "vecs" not in snap:
                             snap["vecs"] = _assemble(snap["S"], snap["m"])
                 _, S_r = eigh(T, subset_by_index=(0, p_new - 1))
-                Q0, _ = torch.linalg.qr(_ritz_block(S_r, m))
+                Q0, _ = qr(_ritz_block(S_r, m))
                 blocks = [Q0.to(dtype)]
                 A_list, B_list, widths = [], [], []
                 lock_theta = np.zeros(0)

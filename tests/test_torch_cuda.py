@@ -268,3 +268,66 @@ def test_rank_engine_one_rank_on_card(cuda, backend, tmp_path):
         assert abs(res.eigenvalues[0] / 4 - -7.1422963606) < 1e-9
     finally:
         dist.destroy_process_group()
+
+
+def test_pipelined_applies_on_card(cuda):
+    """D = 4 streamed and fused engines in one process on the card: a
+    pipelined apply equals the depth-0 apply bit for bit under
+    deterministic algorithms (the card's ``index_add_`` otherwise adds in
+    a run-dependent order), and the CPU engine's within 1e-13."""
+    op = heisenberg_chain(16, symmetric=True)
+    op.basis.build()
+    x = np.random.default_rng(8).random(op.basis.number_states) - 0.5
+    for mode in ("streamed", "fused"):
+        e = DistributedEngine(op, n_devices=4, mode=mode, batch_size=16,
+                              device=cuda)
+        xh = e.to_hashed(x)
+        torch.use_deterministic_algorithms(True)
+        try:
+            y0 = e.matvec(xh)
+            for depth in (2, 3):
+                e.pipeline_depth = depth
+                assert torch.equal(e.matvec(xh), y0), (mode, depth)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        e_cpu = DistributedEngine(op, n_devices=4, mode=mode, batch_size=16,
+                                  device="cpu")
+        np.testing.assert_allclose(e.from_hashed(y0), e_cpu.matvec_global(x),
+                                   atol=1e-13, rtol=1e-12)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_rank_engine_pipelined_on_card(cuda, backend, tmp_path):
+    """A one-rank group on the card: the staged exchange (for gloo through
+    pinned host memory on the group's comm thread) equals ``exchange`` in
+    every wire dtype, and the streamed and fused applies at depth 2 equal
+    depth 0 bit for bit under deterministic algorithms."""
+    import torch.distributed as dist
+
+    from distributed_matvec_tpu_torch.parallel.mesh import init_distributed
+
+    op = heisenberg_chain(16, symmetric=True)
+    op.basis.build()
+    x = np.random.default_rng(3).random(op.basis.number_states) - 0.5
+    g = init_distributed(backend, f"file://{tmp_path}/rendezvous", 1, 0,
+                         device=cuda if backend == "gloo" else None)
+    try:
+        for name in chip_smoke.WIRE_DTYPES:
+            v = torch.arange(6, device=cuda).reshape(1, 6)
+            v = v % 3 == 0 if name == "bool" else v.to(getattr(torch, name))
+            got, want = g.exchange_staged(v), g.exchange(v)
+            assert got.dtype == want.dtype and torch.equal(got, want), name
+        for mode in ("streamed", "fused"):
+            e = DistributedEngine(op, mode=mode, batch_size=32, group=g)
+            xh = e.to_hashed(x)
+            torch.use_deterministic_algorithms(True)
+            try:
+                y0 = e.matvec(xh)
+                e.pipeline_depth = 2
+                y2 = e.matvec(xh)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            assert e.pipeline_depth == 2 and torch.equal(y2, y0), mode
+            assert e.last_pipeline["chunks"] == e.nchunks
+    finally:
+        dist.destroy_process_group()

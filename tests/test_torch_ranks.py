@@ -15,10 +15,22 @@ Tolerances:
   on the CPU (the same per-shard work in the same order), and within atol
   1e-14 / rtol 1e-12 of the JAX ``DistributedEngine`` (the reference's
   tolerance, TestMatrixVectorProduct.chpl:15-16);
+* pipelined streamed and fused applies (depth 2, 3 and past the chunk
+  count): bit-identical to the rank's sequential apply and to the
+  one-process engine (the staged exchange moves the same elements, and
+  chunks retire in order);
+* the staged exchange: element-identical to ``exchange`` in every wire
+  dtype;
 * ``random_hashed`` and ``dot``: rtol 1e-14 (the same draws and products,
   summed in another order across the ranks);
 * Lanczos E0: within 1e-10 of the JAX solver; the 12-ring's E0/4 within
   1e-9 of −5.3873909174;
+* ``lanczos_block`` and ``lobpcg`` (k = 2): eigenvalues within 1e-10 of
+  the JAX solvers on the JAX engine at the same D, iteration counts equal
+  to the port's one-process solve at the same D (TSQR and the reduced
+  dots round differently, but no convergence test of these cases sits on
+  its edge), the same bits on every rank; ``lobpcg`` on a complex sector
+  raises its real-only ``ValueError``;
 * KPM moments, spectral bounds, Krylov evolution and bound expectation
   values: within 1e-12 of the one-process engine (the dots are summed in
   another order); accepted step times equal;
@@ -38,8 +50,10 @@ from distributed_matvec_tpu.parallel.distributed import \
     DistributedEngine as JaxEngine
 from distributed_matvec_tpu.parallel.engine import LocalEngine as JaxLocal
 from distributed_matvec_tpu.solve import lanczos as jax_lanczos
+from distributed_matvec_tpu.solve import lanczos_block as jax_lanczos_block
+from distributed_matvec_tpu.solve import lobpcg as jax_lobpcg
 from distributed_matvec_tpu_torch import (DistributedEngine, krylov_evolve,
-                                          kpm_moments)
+                                          kpm_moments, lanczos_block, lobpcg)
 from distributed_matvec_tpu_torch.convert import (operator_arrays,
                                                   operator_from_reference)
 from distributed_matvec_tpu_torch.models.observables import \
@@ -60,6 +74,7 @@ RING_12_E0_OVER_4 = -5.3873909174
 CASES = [(W, name, mode) for W in sorted(RW.CASES)
          for name, spec in RW.CASES[W].items() for mode in spec[5]]
 DYN_CASES = [c for c in CASES if c[2] in RW.DYNAMICS.get(c[1], ())]
+PIPE_CASES = [c for c in CASES if c[2] in RW.PIPE_MODES]
 
 
 def _ids(cases):
@@ -112,6 +127,13 @@ class Ref:
                              batch_size=B)
         self.e0 = float(jax_lanczos(JaxLocal(self.op_j).matvec, self.N, k=1,
                                     tol=1e-11).eigenvalues[0])
+        # the block solvers on the JAX engine at the same D
+        self.block = np.asarray(jax_lanczos_block(
+            self.jax.matvec, **RW.BLOCK_KW).eigenvalues)
+        self.lobpcg = None
+        if self.real:
+            self.lobpcg = np.asarray(jax_lobpcg(
+                self.jax.matvec, self.N, **RW.LOBPCG_KW)[0])
 
 
 @pytest.fixture(scope="module")
@@ -265,11 +287,56 @@ def test_rank_dynamics_match_one_process(ranks, refs, W, name, mode):
 
 
 @pytest.mark.parametrize("W,name,mode", CASES, ids=_ids(CASES))
-def test_rank_block_solvers_refuse(ranks, W, name, mode):
-    for out in ranks[W]:
-        for solver in ("lanczos_block", "lobpcg"):
-            msg = out[name][mode][f"{solver}_refused"]
-            assert msg is not None and "rank engine" in msg, (solver, msg)
+def test_rank_block_solvers(ranks, refs, W, name, mode):
+    """``lanczos_block`` and ``lobpcg`` on the rank engine against the JAX
+    solvers at the same D, and the port's one-process solve's iteration
+    counts; every rank returns the same bits."""
+    ref = refs[W, name]
+    e1 = ref.eng[mode]
+    outs = [out[name][mode] for out in ranks[W]]
+    one = lanczos_block(e1.matvec, **RW.BLOCK_KW)
+    for got in outs:
+        blk = got["block"]
+        assert blk["converged"]
+        np.testing.assert_allclose(blk["eigenvalues"], ref.block, rtol=0,
+                                   atol=1e-10)
+        assert blk["iters"] == one.num_iters
+        _same(blk["eigenvalues"], outs[0]["block"]["eigenvalues"],
+              "lanczos_block eigenvalues across ranks")
+    if not ref.real:
+        for got in outs:
+            assert "real sectors only" in got["lobpcg"]["refused"]
+        return
+    ev1, _, it1 = lobpcg(e1.matvec, ref.N, **RW.LOBPCG_KW)
+    h = ref.op_j.matvec_host
+    for got in outs:
+        lb = got["lobpcg"]
+        np.testing.assert_allclose(lb["eigenvalues"], ref.lobpcg, rtol=0,
+                                   atol=1e-10)
+        assert lb["iters"] == it1
+        _same(lb["eigenvalues"], outs[0]["lobpcg"]["eigenvalues"],
+              "lobpcg eigenvalues across ranks")
+        for i in range(RW.LOBPCG_KW["k"]):
+            v = lb["vectors"][:, i]
+            assert np.linalg.norm(h(v) - lb["eigenvalues"][i] * v) < 1e-6
+
+
+@pytest.mark.parametrize("W,name,mode", PIPE_CASES, ids=_ids(PIPE_CASES))
+def test_rank_pipelined_matvec(ranks, refs, W, name, mode):
+    """Pipelined applies on the rank engine at depth 2, 3 and past the
+    chunk count: the rank's sequential row bit for bit, and so the
+    one-process engine's; the depth reported is the resolved one."""
+    e1 = refs[W, name].eng[mode]
+    for r, out in enumerate(ranks[W]):
+        got = out[name][mode]
+        for depth, y in got["y_pipe"].items():
+            _same(y, got["y"], f"rank {r} depth {depth}")
+            want = 2 if mode == "fused" else min(depth, e1.nchunks)
+            assert got["pipe_reported"][depth] == want
+            rec = got["pipe_record"][depth]
+            assert rec["depth"] == want and rec["chunks"] == e1.nchunks
+            assert rec["barrier_ms"] >= 0.0
+        _same(got["Y_pipe"], got["Y"], f"rank {r} block at depth 2")
 
 
 @pytest.mark.parametrize("W", sorted(RW.CASES))
@@ -303,6 +370,19 @@ def test_rank_wire_formats(ranks, W):
             [[s, -s] for s in range(W)], dtype=torch.complex128))
         assert float(wire["sum"]) == sum(s + 0.25 for s in range(W))
         assert int(wire["max"]) == W - 1
+
+
+@pytest.mark.parametrize("W", sorted(RW.CASES))
+def test_rank_staged_exchange(ranks, W):
+    """The staged exchange (W − 1 point-to-point rounds and the local
+    copy) gives what ``exchange`` gives, element for element, in every
+    wire dtype."""
+    for r, out in enumerate(ranks[W]):
+        wire = out["wire"]
+        for name in RW.WIRE_DTYPES:
+            got, want = wire["staged"][name], wire[name]
+            assert got.dtype == want.dtype, name
+            assert torch.equal(got, want), (r, name)
 
 
 @pytest.mark.parametrize("W", sorted(RW.CASES))
@@ -347,3 +427,89 @@ def test_rank_engine_arguments():
     e_shared = DistributedEngine(op_t, n_devices=2, mode="fused",
                                  device="cpu", layout=e2.layout)
     assert e_shared.layout is e2.layout
+
+
+# -- the block solvers' distributed pieces, ranks as threads ------------------
+
+def _thread_ranks(W, fn):
+    """Run ``fn(q, gather)`` for q = 0 … W−1 in W threads, ``gather(t)``
+    stacking every thread's ``t`` in rank order as ``all_gather`` does;
+    returns the results in rank order."""
+    import threading
+
+    barrier = threading.Barrier(W, timeout=60)
+    slots, out, errs = [None] * W, [None] * W, []
+
+    def run(q):
+        def gather(t):
+            slots[q] = t
+            barrier.wait()
+            got = torch.stack(list(slots))
+            barrier.wait()
+            return got
+
+        try:
+            out[q] = fn(q, gather)
+        except BaseException as e:       # reported on the main thread
+            errs.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(q,)) for q in range(W)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    if errs:
+        raise errs[0]
+    return out
+
+
+@pytest.mark.parametrize("W,M,p", [(2, 40, 3), (4, 5, 3), (4, 2, 3)])
+def test_tsqr_across_ranks(W, M, p):
+    """TSQR of an ``[W·M, p]`` block held M rows per rank (fewer rows than
+    columns included): Q's rows stacked are orthonormal and give back the
+    block with R, R equals the whole block's QR with a non-negative
+    diagonal, and every rank holds the same bits of R."""
+    from distributed_matvec_tpu_torch.solve.lanczos import _tsqr
+
+    X = torch.from_numpy(np.random.default_rng(W * 100 + M).standard_normal(
+        (W * M, p)))
+
+    class G:
+        def __init__(self, q, gather):
+            self.rank, self.all_gather = q, gather
+
+    outs = _thread_ranks(W, lambda q, gather: _tsqr(
+        X[q * M:(q + 1) * M], G(q, gather)))
+    Q = torch.cat([o[0] for o in outs])
+    R = outs[0][1]
+    for _, Rq in outs[1:]:
+        assert torch.equal(Rq, R)
+    np.testing.assert_allclose(Q @ R, X, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(Q.T @ Q, np.eye(p), rtol=0, atol=1e-13)
+    Qw, Rw = torch.linalg.qr(X)
+    sgn = torch.where(torch.diagonal(Rw) < 0, -1.0, 1.0)
+    np.testing.assert_allclose(R, sgn[:, None] * Rw, rtol=0, atol=1e-13)
+    assert bool((torch.diagonal(R) >= 0).all())
+
+
+@pytest.mark.parametrize("W,M,k", [(2, 30, 2), (4, 3, 2), (4, 1, 2)])
+def test_lobpcg_basis_extension_across_ranks(W, M, k):
+    """LOBPCG's basis extension where the k + m leading rows it reads may
+    span ranks (M < 2k): the rows of every rank's extension stacked equal
+    the one-process extension's (atol 1e-14) and extend X orthonormally."""
+    from distributed_matvec_tpu_torch.solve.lobpcg import (_extend_basis,
+                                                           _Rows)
+
+    n = W * M
+    X, _ = torch.linalg.qr(torch.from_numpy(np.random.default_rng(
+        n + k).standard_normal((n, k))))
+    want = _extend_basis(X, k, _Rows(n))
+    outs = _thread_ranks(W, lambda q, gather: _extend_basis(
+        X[q * M:(q + 1) * M], k, _Rows(n, M, red=None, gather=gather,
+                                      row0=q * M)))
+    got = torch.cat(outs)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-14)
+    B = torch.cat([X, got], dim=1)
+    np.testing.assert_allclose(B.T @ B, np.eye(2 * k), rtol=0, atol=1e-13)

@@ -5,10 +5,10 @@
 
 Starts a gloo group on the CPU, builds every case of ``CASES[WORLD]`` as a
 rank engine (one shard per process), runs the checks' inputs through it —
-plan and tables, matvec, Lanczos, KPM, Krylov evolution, bound
-observables, the fused-capacity overflow and the block solvers' refusal —
-and saves what it saw to ``OUT_DIR/rank{RANK}.pt``.  It imports the port
-only, never JAX; the parent test compares against both packages.
+plan and tables, matvec (sequential and pipelined), Lanczos, the block
+solvers, KPM, Krylov evolution, bound observables and the fused-capacity
+overflow — and saves what it saw to ``OUT_DIR/rank{RANK}.pt``.  It imports
+the port only, never JAX; the parent test compares against both packages.
 """
 
 import os
@@ -48,6 +48,20 @@ DYNAMICS = {"chain_12_symm": ("streamed", "ell"),
 
 #: the fixed inputs, block order, made from seeds
 KPM_BOUNDS = (-24.0, 14.0)
+
+#: the chunked modes' pipelined applies: depths beside 0 (the last, past
+#: the chunk count, clamps to it)
+PIPE_MODES = ("streamed", "fused")
+
+
+def pipe_depths(nchunks):
+    return (2, 3, nchunks + 7)
+
+
+#: the block solvers' arguments (the parent runs the same on one process
+#: and in JAX)
+BLOCK_KW = {"k": 2, "tol": 1e-11}
+LOBPCG_KW = {"k": 2, "tol": 1e-12}
 
 
 def build_op(n, hw, inv, syms):
@@ -140,14 +154,26 @@ def run_case(g, name, spec):
             r["expectation"] = bo.expectation(eng.to_hashed(psi))
             r["expectation_c"] = bo.expectation(
                 eng.to_hashed(psi * np.exp(0.3j)))
-        for solver, call in (
-                ("lanczos_block", lambda: lanczos_block(eng.matvec, k=1)),
-                ("lobpcg", lambda: lobpcg(eng.matvec, N, k=1))):
-            try:
-                call()
-                r[f"{solver}_refused"] = None
-            except NotImplementedError as e:
-                r[f"{solver}_refused"] = str(e)
+        if mode in PIPE_MODES:
+            xh = eng.to_hashed(x)
+            r["y_pipe"], r["pipe_reported"], r["pipe_record"] = {}, {}, {}
+            for depth in pipe_depths(eng.nchunks):
+                eng.pipeline_depth = depth
+                r["y_pipe"][depth] = eng.matvec(xh)[0].numpy().copy()
+                r["pipe_reported"][depth] = eng.pipeline_depth
+                r["pipe_record"][depth] = dict(eng.last_pipeline)
+            eng.pipeline_depth = 2
+            r["Y_pipe"] = eng.matvec(X)[0].numpy().copy()
+            eng.pipeline_depth = 0
+        lb = lanczos_block(eng.matvec, **BLOCK_KW)
+        r["block"] = {"eigenvalues": lb.eigenvalues, "iters": lb.num_iters,
+                      "converged": lb.converged}
+        try:
+            ev, vecs, it = lobpcg(eng.matvec, N, **LOBPCG_KW)
+            r["lobpcg"] = {"eigenvalues": ev, "iters": it,
+                           "vectors": vecs.numpy()}
+        except ValueError as e:
+            r["lobpcg"] = {"refused": str(e)}
         res[mode] = r
         del eng
     return res
@@ -169,14 +195,16 @@ def wire_block(src, dst, dtype_name):
 
 
 def run_wire(g):
-    """Every wire dtype through ``exchange``, a variable-size exchange,
-    an all-gather and both reductions, as received here."""
+    """Every wire dtype through ``exchange`` and the staged exchange, a
+    variable-size exchange, an all-gather and both reductions, as received
+    here."""
     W, r = g.world_size, g.rank
     out = {}
+    out["staged"] = {}
     for name in WIRE_DTYPES:
-        got = g.exchange(torch.stack([wire_block(r, p, name)
-                                      for p in range(W)]))
-        out[name] = got
+        send = torch.stack([wire_block(r, p, name) for p in range(W)])
+        out[name] = g.exchange(send)
+        out["staged"][name] = g.exchange_staged(send)
     out["lists"] = g.exchange_lists(
         [torch.arange(r + p + 1, dtype=torch.int64) + 1000 * r
          for p in range(W)])
