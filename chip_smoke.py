@@ -133,7 +133,35 @@ Phases, one JSON line each with its seconds:
    complex128 Lanczos to a converged E0(k=1) strictly above the full
    leg's E0(k=0), with the peak memory, and a native-complex
    ``krylov_evolve`` of a random state to t = 0.25 (norm drift below
-   1e-10).
+   1e-10).  It keeps one ell apply of a seeded state for
+   ``streamed_complex`` and frees its engines.
+13. ``tiers`` (after ``pipeline``): the full leg's chain_32_symm operator
+   through the streamed engine's other tiers and forms, each held to the
+   full leg's lossless D = 1 apply of one seeded state: ``off`` (the raw
+   layout; plan bytes; the apply bit-equal under
+   ``torch.use_deterministic_algorithms``; decode path ``torch``, no
+   decode-kernel launch); ``f32`` and ``bf16`` (decode path ``cuda``: the
+   unchanged kernel on quantized dictionaries, held against its plain
+   version on one real chunk, launched once per chunk per apply, counted
+   from 0 around an apply and a Lanczos solve; the apply's largest error
+   relative to the largest lossless value within 1e-6 and 1e-2; the E0
+   each finds beside the lossless one, no bound); raw coefficient streams
+   (``ops.plan_codec.DICT_MAX`` lowered around one lossless build:
+   ``coeff == "raw"``, bit-equal apply); ``hybrid`` at ``all-stream``,
+   ``stream:<even terms>`` and ``all-recompute`` (one chunk's send buffer
+   bit-equal to the lossless engine's, the apply bit-equal at depth 0 and
+   2, ``hybrid_stream_fraction``, plan bytes, host and device ms).  Each
+   build's seconds; no engine outlives its leg.
+14. ``streamed_complex`` (after ``local_complex``): the same k = 1 sector
+   of the 32-ring through ``DistributedEngine(op)`` — the streamed engine,
+   lossless, a complex dictionary, decode path ``torch``: build seconds,
+   plan bytes, codec spec and peak memory; the apply against
+   ``local_complex``'s ell apply (atol 1e-13 / rtol 1e-12); 3 timed
+   applies (host wall and CUDA events) and a ``torch.profiler`` breakdown
+   of one (decode, host → device copy, ``index_add_``); complex-Hermitian
+   Lanczos to E0(k = 1) within 1e-10 of ``local_complex``'s
+   −55.581030569044785; a ``[1, M, 3]`` apply against three single-column
+   ones (atol 1e-13); no decode-kernel launch.
 
 ``local_small`` runs after ``small``: chain_16_symm through ``LocalEngine``
 in ``ell``, ``compact`` and ``fused`` mode at ``batch_size=61`` (chunking
@@ -143,8 +171,9 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full``, ``solvers``, ``sharded``, ``pipeline`` and ``ranks``, and
-apart at one shard, at four, in the pipelined applies and on the ranks;
+of ``full``, ``solvers``, ``sharded``, ``pipeline``, ``tiers`` and
+``ranks``, and apart at one shard, at four, in the pipelined applies, in
+the quantized tiers and on the ranks;
 largest error against the plain version, time per launch beside its bound
 and the plain version's time, at one shard and at four), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -699,8 +728,9 @@ def profile_apply(fn, top=8):
     """Device time of one apply ``fn()`` by kernel (and host → device
     copy), from ``torch.profiler``: the ``top`` largest as
     ``[name, ms, calls]``, the sum over all of them, every fill kernel's
-    row, and every ``aten::fill_``/``aten::zero_`` call grouped by the
-    shape it filled as ``[op, shapes, calls]``."""
+    row, every ``aten::fill_``/``aten::zero_`` call grouped by the
+    shape it filled as ``[op, shapes, calls]``, and the device ms by part
+    (host → device copies, ``index_add_`` kernels, the rest)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -723,8 +753,17 @@ def profile_apply(fn, top=8):
     fill_ops = [[e.key, e.input_shapes, e.count]
                 for e in prof.key_averages(group_by_input_shape=True)
                 if e.key in ("aten::fill_", "aten::zero_")]
+    # the streamed apply's parts: the plan's host → device copy, the
+    # receive side's index_add_, and the rest (decode, exchange copy)
+    parts = {"h2d_ms": 0.0, "index_add_ms": 0.0, "rest_ms": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        part = ("h2d_ms" if "htod" in low else "index_add_ms"
+                if "indexfunc" in low or "index_add" in low else "rest_ms")
+        parts[part] += ms
     return {"device_ms_total": sum(r[1] for r in rows),
-            "top": rows[:top], "fill_kernels": fills, "fill_ops": fill_ops}
+            "top": rows[:top], "fill_kernels": fills, "fill_ops": fill_ops,
+            "parts": parts}
 
 
 def cross_sector_phase(device, e0_full, n=32):
@@ -1385,6 +1424,189 @@ def pipeline_phase(device, full_eng, sharded_engs):
     return out, launches
 
 
+# -- phase 13: tiers -------------------------------------------------------------
+
+#: the quantized tiers' documented bounds on an apply's largest error
+#: relative to the largest lossless value (tests/test_plan_codec.py)
+TIER_BOUNDS = {"f32": 1e-6, "bf16": 1e-2}
+
+
+def release(device) -> None:
+    """Collect what the caller dropped (an engine: its pinned plan goes
+    back to torch's host cache) and return the device memory."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def send_buffer(eng, ci, x_c):
+    """Chunk ci's send buffer of a D = 1 streamed or hybrid engine,
+    ``[n_recv]``, from a device copy of its record: the decode kernel's
+    output on the ``cuda`` path, the torch decode (and, in hybrid mode,
+    the recompute side) otherwise."""
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    spec = eng._codec.spec
+    views = eng._chunk_views(eng._plan_host[ci, 0].to(eng.device))
+    if eng.stream_kernel == "cuda":
+        out = PC.fused_decode_gather_scatter(spec, views[0], views[1],
+                                             views[4], eng._cdict[0], x_c)
+        return out[:spec["n_recv"]]
+    send = torch.empty((spec["n_recv"] + 1, 1), dtype=x_c.dtype,
+                       device=x_c.device)
+    eng._decode_send(send, views, 0, ci, x_c[:, None])
+    return send[:spec["n_recv"], 0]
+
+
+def tiers_phase(device, full_eng, e0_full):
+    """The streamed engine's other tiers and forms on the full leg's
+    operator, against its lossless D = 1 engine; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    op = full_eng.operator
+    xh = full_eng.random_hashed(19)
+    y_ref = deterministic(lambda: full_eng.matvec(xh))
+    ref_scale = float(y_ref.abs().max())
+    ci = full_eng.nchunks // 2
+    x_c = xh[0, ci * full_eng.batch_size:(ci + 1) * full_eng.batch_size]
+    send_ref = send_buffer(full_eng, ci, x_c)
+    out = {"n_states": int(op.basis.number_states),
+           "reference": "the full leg's lossless D = 1 engine",
+           "lossless_plan_bytes": int(full_eng.plan_bytes)}
+
+    def build(**kw):
+        eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+            op, batch_size=full_eng.batch_size, device=device, **kw))
+        return eng, {"build_s": build_s, "build_peak_bytes": peak,
+                     "timings": eng.timings, "spec": eng._codec.spec,
+                     "plan_bytes": int(eng.plan_bytes),
+                     "plan_bytes_raw": int(eng.plan_bytes_raw),
+                     "stream_kernel": eng.stream_kernel}
+
+    def bit_equal(eng, what, depths=(0,)):
+        """The engine's apply, counted from 0, against the reference bit
+        for bit (deterministic) at each depth; no decode launch."""
+        PC.fused_decode_gather_scatter.launches = 0
+        for depth in depths:
+            eng.pipeline_depth = depth
+            y = deterministic(lambda: eng.matvec(xh))
+            if not torch.equal(y, y_ref):
+                raise AssertionError(
+                    f"{what} at depth {depth} differs from the lossless "
+                    f"apply: max abs err {float((y - y_ref).abs().max())}")
+        eng.pipeline_depth = 0
+        if eng.stream_kernel != "torch" \
+                or PC.fused_decode_gather_scatter.launches:
+            raise AssertionError(
+                f"{what}: decode path {eng.stream_kernel}, "
+                f"{PC.fused_decode_gather_scatter.launches} kernel launches")
+        return list(depths)
+
+    # off: the raw layout
+    eng, info = build(stream_compress="off")
+    info["bit_equal_at_depth"] = bit_equal(eng, "off")
+    info.update(apply_times(device, eng, xh, applies=3))
+    out["off"] = info
+    del eng
+    release(device)
+
+    # f32 and bf16: the unchanged kernel on quantized dictionaries
+    launches = 0
+    for tier in ("f32", "bf16"):
+        eng, info = build(stream_compress=tier)
+        if eng.stream_kernel != "cuda" or eng._codec.spec["coeff"] != "dict":
+            raise AssertionError(f"{tier}: decode path {eng.stream_kernel}, "
+                                 f"coeff {eng._codec.spec['coeff']}")
+        views = eng._chunk_views(eng._plan_host[ci, 0].to(device))
+        info["chunk_max_abs_err"] = check_kernel(
+            (eng._codec.spec, views[0], views[1], views[4], eng._cdict[0],
+             x_c))
+        del views
+        PC.fused_decode_gather_scatter.launches = 0
+        eng.n_applies = 0
+        y = eng.matvec(xh)
+        rel = float((y - y_ref).abs().max()) / ref_scale
+        t0 = time.perf_counter()
+        res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                      device=device)
+        _sync(device)
+        n = PC.fused_decode_gather_scatter.launches
+        if device.type == "cuda" and (
+                n == 0 or n != eng.nchunks * eng.n_applies):
+            raise AssertionError(f"{tier}: {n} decode launches for "
+                                 f"{eng.n_applies} applies of "
+                                 f"{eng.nchunks} chunks")
+        if not rel <= TIER_BOUNDS[tier]:
+            raise AssertionError(f"{tier}: relative apply error {rel} above "
+                                 f"{TIER_BOUNDS[tier]}")
+        launches += n
+        e0 = float(res.eigenvalues[0])
+        info.update(rel_err_vs_lossless=rel, bound=TIER_BOUNDS[tier],
+                    launches=n, applies=eng.n_applies,
+                    lanczos_s=time.perf_counter() - t0,
+                    lanczos_iters=int(res.num_iters), e0=e0,
+                    e0_lossless=e0_full, e0_minus_lossless=e0 - e0_full)
+        info.update(apply_times(device, eng, xh, applies=3))
+        out[tier] = info
+        del eng, y, res
+        release(device)
+    out["launches"] = launches
+    out["kernel_max_abs_err"] = max(out[t]["chunk_max_abs_err"]
+                                    for t in ("f32", "bf16"))
+
+    # raw coefficient streams: the dictionary ceiling lowered for a build
+    saved = PC.DICT_MAX
+    PC.DICT_MAX = 8
+    try:
+        eng, info = build()
+    finally:
+        PC.DICT_MAX = saved
+    if eng._codec.spec["coeff"] != "raw":
+        raise AssertionError("DICT_MAX = 8 left a dictionary")
+    info["dict_max"] = 8
+    info["bit_equal_at_depth"] = bit_equal(eng, "raw coefficients")
+    info.update(apply_times(device, eng, xh, applies=3))
+    out["raw_coeff"] = info
+    del eng
+    release(device)
+
+    # hybrid: the send buffer and the apply bit for bit
+    even = "stream:" + ",".join(map(str, range(0, full_eng.num_terms, 2)))
+    out["hybrid"] = {}
+    for split in ("all-stream", even, "all-recompute"):
+        eng, info = build(mode="hybrid", hybrid_split=split)
+        send = send_buffer(eng, ci, x_c)
+        if not torch.equal(send, send_ref):
+            raise AssertionError(
+                f"hybrid {split}: chunk {ci}'s send buffer differs from the "
+                f"streamed one by {float((send - send_ref).abs().max())}")
+        del send
+        info.update(hybrid_split=split,
+                    hybrid_stream_fraction=eng.hybrid_stream_fraction,
+                    send_buffer_bit_equal_chunk=ci,
+                    bit_equal_at_depth=bit_equal(eng, f"hybrid {split}",
+                                                 depths=(0, 2)))
+        # a recompute apply costs seconds: one timed apply of each split
+        # that recomputes
+        info.update(apply_times(device, eng, xh, applies=3 if split
+                                == "all-stream" else 1))
+        out["hybrid"][split] = info
+        del eng
+        release(device)
+    return out, launches
+
+
 # -- phase 11: ranks ------------------------------------------------------------
 
 #: the ranks leg: two ranks sharing the one card over gloo, each holding one
@@ -1892,7 +2114,9 @@ def local_complex_phase(device, e0_full, n=32):
     fused_info = {"vs_ell_max_abs_err": assert_close(yf, y,
                                                      "fused vs ell apply"),
                   "first_apply_s": time.perf_counter() - t0}
-    del fused, yf, y
+    # the ell apply, kept on the host for streamed_complex
+    kept = (x.cpu().numpy(), y.cpu().numpy())
+    del fused, yf, y, x
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -1923,6 +2147,76 @@ def local_complex_phase(device, e0_full, n=32):
                                  energy_drift=evo.energy_drift)
     if not (evo.norm_drift < 1e-10 and abs(evo.times[-1] - 0.25) < 1e-12):
         raise AssertionError(f"k = 1 evolve norm drift {evo.norm_drift}")
+    return info, op, kept
+
+
+#: local_complex's E0 of the 32-ring's translation-only k = 1 sector (the
+#: LocalEngine ell solve on an H100)
+RING32_K1_E0 = -55.581030569044785
+
+
+def streamed_complex_phase(device, op, kept):
+    """The 32-ring's k = 1 sector through the streamed engine; see the
+    module docstring."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    x, y_ell = kept
+    eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+        op, device=device))
+    spec = eng._codec.spec
+    if eng.real or eng.stream_kernel != "torch" or spec["ckind"] != \
+            "complex":
+        raise AssertionError(f"k = 1 streamed: real {eng.real}, decode path "
+                             f"{eng.stream_kernel}, ckind {spec['ckind']}")
+    info = {"n_states": int(op.basis.number_states), "build_s": build_s,
+            "build_peak_bytes": peak, "timings": eng.timings,
+            "plan_bytes": int(eng.plan_bytes),
+            "plan_bytes_raw": int(eng.plan_bytes_raw),
+            "nchunks": eng.nchunks,
+            "spec": {k: spec[k] for k in ("ckind", "coeff", "ndict",
+                                          "code_bits", "n_live", "n_recv",
+                                          "cap_eff")},
+            "stream_kernel": eng.stream_kernel,
+            "receive_add": "index_add_ through view_as_real (f64 [n, 2])"}
+    PC.fused_decode_gather_scatter.launches = 0
+    y = eng.matvec_global(x)
+    info["vs_ell_max_abs_err"] = assert_close(
+        torch.from_numpy(y), torch.from_numpy(y_ell),
+        "k = 1 streamed vs ell apply")
+    del y, y_ell
+    xh = eng.to_hashed(x)
+    info.update(apply_times(device, eng, xh, applies=3))
+    prof = profile_apply(lambda: eng.matvec(xh), top=12)
+    info["profile"] = {k: prof[k] for k in ("device_ms_total", "top",
+                                             "parts")}
+    t0 = time.perf_counter()
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device=device)
+    _sync(device)
+    e0 = float(res.eigenvalues[0])
+    info.update(lanczos_s=time.perf_counter() - t0,
+                lanczos_iters=int(res.num_iters), e0=e0,
+                e0_minus_local_complex=e0 - RING32_K1_E0)
+    if not (res.converged and abs(e0 - RING32_K1_E0) < 1e-10):
+        raise AssertionError(f"k = 1 streamed E0 {e0} != local_complex's "
+                             f"{RING32_K1_E0} (converged {res.converged})")
+    del res
+    rng = np.random.default_rng(14)
+    X = eng.to_hashed(rng.standard_normal((x.size, 3))
+                      + 1j * rng.standard_normal((x.size, 3)))
+    Y = eng.matvec(X)
+    info["block_r3_max_abs_err"] = max(
+        assert_close(Y[..., r], eng.matvec(X[..., r].contiguous()),
+                     f"[1, M, 3] column {r} vs its own apply")
+        for r in range(3))
+    info["launches"] = PC.fused_decode_gather_scatter.launches
+    if info["launches"]:
+        raise AssertionError(f"{info['launches']} decode kernel launches "
+                             "in a complex streamed engine")
     return info
 
 
@@ -1963,6 +2257,8 @@ def main() -> int:
     pipe, pipe_launches = run_phase("pipeline", pipeline_phase, device, eng,
                                     sharded.pop("engines"))
     torch.cuda.empty_cache()
+    tiers, tier_launches = run_phase("tiers", tiers_phase, device, eng,
+                                 full["e0"])
     block_ref = {name: solvers[name]["eigenvalues"]
                  for name in ("lanczos_block", "lobpcg")}
     ranks = run_phase("ranks", ranks_phase, device, op, ell, eng,
@@ -1971,16 +2267,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
     torch.cuda.empty_cache()
-    run_phase("local_complex", local_complex_phase, device, full["e0"])
+    _, k1_op, kept = run_phase("local_complex", local_complex_phase, device,
+                               full["e0"])
+    torch.cuda.empty_cache()
+    run_phase("streamed_complex", streamed_complex_phase, device, k1_op, kept)
+    del k1_op, kept
     emit({"kernels": [{
         "name": "fused_decode_gather_scatter",
         "route": "cuda",
         "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
-        + pipe_launches + ranks["launches"],
+        + pipe_launches + tier_launches + ranks["launches"],
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
+                           tiers["kernel_max_abs_err"],
                            ranks["kernel_max_abs_err"]),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
@@ -1992,6 +2293,8 @@ def main() -> int:
         "launches_d4": sharded["launches"],
         # the pipelined applies of the pipeline phase (D = 1 and D = 4)
         "launches_pipeline": pipe_launches,
+        # the f32 and bf16 tiers' applies and Lanczos solves (D = 1)
+        "launches_tiers": tier_launches,
         # each rank's own launches on its shard (gloo ranks on the card at
         # depth 0 and 2, and the one-rank NCCL group)
         "launches_ranks": ranks["launches"],

@@ -11,9 +11,9 @@ their own layout: no re-enumeration, no shuffle.
   apply and one dot each), as the JAX function's do.
 * Over a ``DistributedEngine`` they are ``DistributedEngine``s with the
   solve engine's shard count, row chunk, exchange capacity, device, rank
-  group and hashed layout (shared, not recomputed), in any of its modes —
-  ``streamed`` for real sectors only; complex sectors take ``fused`` or
-  ``ell``.  On a rank engine every rank binds and evaluates together.
+  group and hashed layout (shared, not recomputed), in any of its modes but
+  ``hybrid``, which needs a split this function does not pass.  On a rank
+  engine every rank binds and evaluates together.
 
 State forms handled:
 

@@ -48,24 +48,42 @@ Modes (``mode=``):
 
 * ``"streamed"`` (the default): a build pass resolves every row chunk's
   structure once — kernels and orbit scan, bucket routing, one exchange of
-  the target states, the receive-side basis lookup — into a host-RAM plan,
-  encoded with the ``lossless`` codec (``ops/plan_codec.py``) and kept in
-  pinned host memory.  Every apply streams the encoded chunks host → device
-  on a side stream through a ring of ``max(2, depth)`` buffers, and per
-  chunk
+  the target states, the receive-side basis lookup — into a host-RAM plan
+  (the scatter form: conj(row coefficient), as the JAX build stores it),
+  encoded with the ``stream_compress`` tier's codec (``ops/plan_codec.py``:
+  ``off``, ``lossless``, ``f32``, ``bf16``; dictionary-coded or raw
+  coefficients; real or complex128) and kept in pinned host memory.  Every
+  apply streams the encoded chunks host → device on a side stream through
+  a ring of ``max(2, depth)`` buffers, and per chunk
 
-      send[s] = fused_decode_gather_scatter(chunk[s], x[s] rows)  (CUDA)
+      send[s] = decode + gather x[s] rows + multiply + scatter
       recv = all_to_all(send)
       y[d][ridx] += rok ? recv[d] : 0                             (index_add_)
 
-  followed by the diagonal epilogue ``y += diag·x``.  The decode kernel runs
-  once per shard per chunk per column; it zeroes the send slots no entry
+  followed by the diagonal epilogue ``y += diag·x``.  The send side runs
+  one of two decode paths, fixed at build time by the plan's shape and
+  reported in ``stream_kernel``: ``"cuda"`` — real sector, dictionary
+  codes, not the ``off`` tier, not hybrid (where JAX would let its Pallas
+  kernel run) — launches the decode kernel ``fused_decode_gather_scatter``
+  once per shard per chunk per column, which zeroes the send slots no entry
   writes from the chunk's per-bucket fill counts (the send side's
-  occupancy), which ride beside the encoded streams.  Real sectors, the
-  ``lossless`` tier, dictionary-coded coefficients.  A block of R > 4
-  columns is applied in column groups of 4, each streaming the plan once
-  (JAX ``run``): per-chunk scratch grows with R, and streamed mode is for
-  sectors that crowd device memory.
+  occupancy, stored beside the encoded streams); ``"torch"`` — every other
+  case, the counterpart of JAX's XLA decode — unpacks with
+  :func:`~..ops.plan_codec.decode_plan_shard`, gathers ``x[row]`` (or, in
+  the ``off`` tier, the implicit row ``i // T``), multiplies and scatters
+  all R columns at once into a zeroed send buffer.  Complex products run
+  on real components, so every element rounds alike whatever the block's
+  shape, and complex receive blocks are added through ``view_as_real``.  A
+  block of R > 4 columns is applied in column groups of 4, each streaming
+  the plan once (JAX ``run``): per-chunk scratch grows with R, and
+  streamed mode is for sectors that crowd device memory.
+* ``"hybrid"``: the streamed plan for the terms a ``hybrid_split`` streams
+  (``"all-stream"``, ``"all-recompute"``, ``"stream:<t,t,…>"``; the
+  ``off`` tier maps to ``lossless``); the other terms are recomputed per
+  chunk on the device (kernels, orbit scan, routing), and each bucket's
+  j-th recompute entry takes the bucket's j-th slot the streamed entries
+  left free, so the send buffer — and the apply — equal the streamed
+  engine's bit for bit.  Decodes through the ``"torch"`` path.
 * ``"ell"``: the static routing plan.  The build deduplicates each shard's
   remote targets per peer into query lists ``qin``; every apply is
   ``x[qin]`` → exchange → ``[x; R]`` → a per-term ELL gather·multiply·add
@@ -79,9 +97,10 @@ Modes (``mode=``):
   Overflow and out-of-basis targets are counted and checked on the first
   apply of each row-chunk size.  Real and complex128 sectors.
 
-The JAX engine's ``hybrid`` mode, ``pipeline_depth="auto"`` and
-``DMT_PIPELINE``, the threaded plan prefetch, ``from_shards``, the
-structure and plan caches and autotuning are not in the port.
+The JAX engine's ``pipeline_depth="auto"`` and ``hybrid_split="auto"``
+(both priced by its ``obs/`` roofline calibration), the compress-drift
+probe, the ``DMT_*`` knobs, the threaded plan prefetch, ``from_shards``,
+the structure and plan caches and autotuning are not in the port.
 """
 
 from __future__ import annotations
@@ -122,7 +141,7 @@ DEFAULT_BATCH_SIZE = 1 << 16
 ALL_TO_ALL_CAPACITY_FACTOR = 1.25
 REMOTE_BUFFER_SIZE = 150_000
 
-MODES = ("streamed", "ell", "compact", "fused")
+MODES = ("streamed", "hybrid", "ell", "compact", "fused")
 
 #: The host plan's per-record stride is a multiple of this many bytes.
 _ALIGN = 16
@@ -162,6 +181,54 @@ def _bucket_positions(key: torch.Tensor, D: int) -> torch.Tensor:
     return pos_s[inv]
 
 
+def _mul(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``c · x`` elementwise, broadcasting.  A complex product runs on the
+    real components, one kernel per operation, so every element rounds the
+    same whatever the operands' shapes (torch's vectorized complex product
+    rounds a broadcast element otherwise than a lone one on the CPU)."""
+    if not c.is_complex():
+        return c * x
+    cr, ci, xr, xi = c.real, c.imag, x.real, x.imag
+    return torch.complex(cr * xr - ci * xi, cr * xi + ci * xr)
+
+
+def _static_hybrid_mask(split, num_terms: int) -> np.ndarray:
+    """The [T] stream mask (True = the term's entries travel in the plan)
+    of a static hybrid split: ``"all-stream"``, ``"all-recompute"`` or
+    ``"stream:<t,t,…>"`` (JAX ``_init_hybrid_policy`` and
+    ``_static_hybrid_mask``).  ``"auto"`` — also the JAX default, taken
+    for None — prices the split with the JAX package's roofline
+    calibration, which the port does not have."""
+    T = int(num_terms)
+    s = "" if split is None else str(split).strip().lower()
+    s = s or "auto"
+    if s == "auto":
+        raise NotImplementedError(
+            "hybrid_split='auto' prices the split with the roofline "
+            "calibration of the JAX package's obs/, which is not in the "
+            "port yet; pass all-stream | all-recompute | "
+            "stream:<term,term,...>")
+    if s == "all-stream":
+        return np.ones(T, bool)
+    if s == "all-recompute":
+        return np.zeros(T, bool)
+    bad_split = ValueError(
+        f"bad hybrid split {split!r}: pick all-stream | all-recompute | "
+        "stream:<term,term,...> ('auto' is not in the port yet)")
+    if not s.startswith("stream:"):
+        raise bad_split
+    try:
+        idx = [int(t) for t in s[len("stream:"):].split(",") if t.strip()]
+    except ValueError:
+        raise bad_split from None
+    bad = [t for t in idx if not 0 <= t < T]
+    if bad:
+        raise ValueError(f"hybrid stream terms {bad} outside [0, {T})")
+    mask = np.zeros(T, bool)
+    mask[idx] = True
+    return mask
+
+
 def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
     """The exchange: shard d's receive block s is shard s's send block d.
     ``send`` is ``[D_src, D_dst, C, …]``; returns ``[D_dst, D_src, C, …]``,
@@ -187,7 +254,10 @@ class DistributedEngine:
 
     ``n_devices`` is the shard count D (default 1).  ``batch_size`` is the
     row chunk B of the plan builds and the chunked applies (default 65536,
-    at most M); ``stream_compress`` the streamed codec tier.
+    at most M); ``stream_compress`` the streamed codec tier (``off``,
+    ``lossless``, ``f32``, ``bf16``), and ``hybrid_split`` the static split
+    of ``mode="hybrid"`` (``"auto"`` raises ``NotImplementedError``).  The
+    dictionary ceiling is ``ops.plan_codec.DICT_MAX``, read at build time.
     ``all_to_all_capacity_factor`` and ``remote_buffer_size`` size the
     chunked modes' exchange buckets as the JAX config does.  ``device``
     defaults to ``cuda`` and raises when there is none.  ``layout`` shares
@@ -217,7 +287,7 @@ class DistributedEngine:
                  ALL_TO_ALL_CAPACITY_FACTOR,
                  remote_buffer_size: int = REMOTE_BUFFER_SIZE,
                  layout: Optional[HashedLayout] = None, group=None,
-                 pipeline_depth=None):
+                 pipeline_depth=None, hybrid_split=None):
         if group is not None:
             if n_devices is not None and int(n_devices) != group.world_size:
                 raise ValueError(
@@ -228,10 +298,6 @@ class DistributedEngine:
                                  f"on {group.device}")
             n_devices, device = group.world_size, group.device
         self.device = dev = resolve_device(device)
-        if mode == "hybrid":
-            raise NotImplementedError(
-                "engine mode 'hybrid': the port has "
-                f"{'|'.join(MODES)}")
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}")
         D = 1 if n_devices is None else int(n_devices)
@@ -240,15 +306,11 @@ class DistributedEngine:
         if not operator.is_hermitian:
             raise ValueError("the engine requires a Hermitian operator")
         self.real = operator.effective_is_real
-        if mode == "streamed":
-            if stream_compress not in PC.TIERS:
-                raise NotImplementedError(
-                    f"stream_compress={stream_compress!r}: the port has "
-                    f"{'|'.join(PC.TIERS)} only")
-            if not self.real:
-                raise NotImplementedError(
-                    "complex sectors are not in the port's streamed engine "
-                    "yet (use mode='ell' or 'fused')")
+        if mode in ("streamed", "hybrid") \
+                and stream_compress not in PC.TIERS:
+            raise ValueError(
+                f"unknown stream_compress tier {stream_compress!r}; pick "
+                f"one of {'|'.join(PC.TIERS)}")
         if mode == "compact" and not self.real:
             raise ValueError(
                 "compact mode requires a real sector (use mode='ell' "
@@ -263,6 +325,18 @@ class DistributedEngine:
         #: bytes this process has put into the exchange so far
         self.exchange_bytes = 0
         self.stream_compress = stream_compress
+        #: the tier the plan encodes at: hybrid plans need a compacted
+        #: encoding (a term subset cannot ride the raw [B, T] layout), so
+        #: "off" maps to "lossless", as in the JAX engine
+        self._codec_tier = "lossless" if (
+            mode == "hybrid" and stream_compress == "off") \
+            else stream_compress
+        #: the streamed decode path ("cuda" or "torch"; None in the
+        #: unstreamed modes), fixed when the plan is encoded
+        self._stream_kernel: Optional[str] = None
+        #: hybrid: the [T] stream mask and the recompute terms' tables
+        self._hybrid_mask: Optional[np.ndarray] = None
+        self._hyb_tables: Optional[K.OperatorTables] = None
         self.all_to_all_capacity_factor = float(all_to_all_capacity_factor)
         self.remote_buffer_size = int(remote_buffer_size)
         self._dtype = torch.float64 if self.real else torch.complex128
@@ -295,6 +369,10 @@ class DistributedEngine:
 
         self.tables = K.device_tables(operator, dev)
         self.num_terms = int(self.tables.off.x.shape[0])
+        if mode == "hybrid":
+            # validated before any collective: every rank raises alike
+            self._hybrid_mask = _static_hybrid_mask(hybrid_split,
+                                                     self.num_terms)
         L = len(self._shards)
         self._alphas = u64.from_numpy(alphas_np[self._shards], dev)  # [L, M]
         self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
@@ -335,6 +413,12 @@ class DistributedEngine:
         self.timings["plan_encode_s"] = time.perf_counter() - t0
         self._cdict = torch.from_numpy(np.stack(
             [self._codec.dict_device_row(d) for d in self._shards])).to(dev)
+        spec = self._codec.spec
+        self._stream_kernel = "cuda" if (
+            mode == "streamed" and self.real and spec["tier"] != "off"
+            and spec["coeff"] == "dict") else "torch"
+        if mode == "hybrid":
+            self._setup_hybrid_recompute()
         if dev.type == "cuda":
             self._copy_stream = torch.cuda.Stream(dev)
             self._grow_ring(2)
@@ -405,6 +489,15 @@ class DistributedEngine:
     def pipeline_depth(self, value) -> None:
         self._pipeline_depth = self._resolve_pipeline_depth(value)
 
+    @property
+    def stream_kernel(self) -> Optional[str]:
+        """The streamed (and hybrid) apply's send-side decode path, fixed
+        by the plan's shape at build time: ``"cuda"`` — the decode kernel
+        ``fused_decode_gather_scatter`` (real sector, dictionary codes, not
+        ``off``, not hybrid; on CPU tensors its wrapper takes the plain
+        version) — or ``"torch"``; None in the other modes."""
+        return self._stream_kernel
+
     def _resolve_pipeline_depth(self, value) -> int:
         """JAX ``_resolve_pipeline_depth`` for this engine's chunk count:
         ell and compact have no chunk sequence and resolve 0; None, "",
@@ -412,7 +505,7 @@ class DistributedEngine:
         clamped to the chunk count, and a clamp below 2 is 0; fused runs at
         most 2.  ``"auto"`` prices the overlap with the JAX package's
         roofline calibration, which the port does not have."""
-        if self.mode not in ("fused", "streamed"):
+        if self.mode not in ("fused", "streamed", "hybrid"):
             return 0
         s = "" if value is None else str(value).strip().lower()
         if s in ("", "off", "0", "1", "false", "no", "none"):
@@ -578,8 +671,9 @@ class DistributedEngine:
         routing, one exchange of the target states, each shard's
         receive-side lookup.  Returns ``({shard: raw chunk}, overflow,
         invalid)``, a raw chunk being the host arrays ``dest`` [B·T] i32,
-        ``coeff`` [B, T] f64, ``ridx`` [D·Cap] i32 and ``rok`` [D·Cap]
-        bool."""
+        ``coeff`` [B, T] f64 or c128 — the scatter form, conj(row
+        coefficient), as the JAX build stores it — ``ridx`` [D·Cap] i32
+        and ``rok`` [D·Cap] bool."""
         D, Cap, L = self.n_devices, self._capacity, len(self._shards)
         send_b = torch.full((L, D * Cap + 1), SENTINEL_STATE,
                             dtype=torch.int64, device=self.device)
@@ -594,7 +688,7 @@ class DistributedEngine:
             # the trailing slot takes the dropped (dead) entries
             send_b[i, dest] = flat_b
             per[s] = {"dest": dest.to(torch.int32).cpu().numpy(),
-                      "coeff": torch.where(nz, gcoeff,
+                      "coeff": torch.where(nz, gcoeff.conj(),
                                            torch.zeros_like(gcoeff))
                       .cpu().numpy()}
         recv_b = self._exchange(send_b[:, :D * Cap].reshape(L, D, Cap))
@@ -637,37 +731,68 @@ class DistributedEngine:
         return (bool(g[:, 0].min()), int(g[:, 1].max()),
                 int(g[:, 2].max()), int(g[:, 3].max()))
 
+    def _codec_check(self) -> None:
+        """On ranks: the codec's tier and hybrid stream mask must be the
+        same on every rank (the encoded shapes enter every rank's apply);
+        all-gathered before the codec is built, so a mismatch raises on
+        every rank together."""
+        mask = self._hybrid_mask
+        bits = np.zeros(self.num_terms, bool) if mask is None else mask
+        g = self.group.all_gather(torch.tensor(
+            [PC.TIERS.index(self._codec_tier), int(mask is not None),
+             *bits.astype(np.int64).tolist()],
+            dtype=torch.int64, device=self.device)).cpu().numpy()
+        if not (g == g[0]).all():
+            seen = [(PC.TIERS[r[0]], r[2:].tolist() if r[1] else None)
+                    for r in g]
+            raise RuntimeError(
+                f"the ranks' plan codecs differ (tier, hybrid stream "
+                f"mask): {seen}")
+
+    def _record_sizes(self, spec: Dict) -> Dict[str, int]:
+        """Bytes of each section of one (chunk, shard) record: the codec's
+        encoded arrays and the fill counts."""
+        D, B, T = self.n_devices, self.batch_size, self.num_terms
+        nl, n_recv = spec["n_live"], spec["n_recv"]
+        ncomp = 1 if spec["ckind"] == "real" else 2
+        if spec["tier"] == "off":
+            # raw dest i32 [B·T], coeff f64/c128 [B, T], ridx i32
+            sizes = {"dest": 4 * B * T, "ridx": 4 * n_recv,
+                     "coeff": 8 * ncomp * B * T}
+        else:
+            value_bytes = {"lossless": 8, "f32": 4, "bf16": 2}[spec["tier"]]
+            sizes = {"dest": 4 * (PC.packed_words(nl, spec["w_dest"])
+                                  + PC.packed_words(nl, spec["w_row"])),
+                     "ridx": 4 * PC.packed_words(n_recv, spec["w_ridx"]),
+                     "coeff": (nl * spec["code_bits"] // 8
+                               if spec["coeff"] == "dict"
+                               else nl * ncomp * value_bytes)}
+        sizes.update(rok=4 * PC.packed_words(n_recv, 1), fill=4 * D)
+        return sizes
+
     def _encode_stream_plan(self, raw) -> None:
         """Encode the raw chunks with the codec and pack them into one host
         buffer (pinned on CUDA) of ``[nchunks, L]`` equal-stride records,
-        one per shard held here: dest+row words | ridx words | rok words |
-        codes | fill counts."""
+        one per shard held here: dest | ridx | rok | coeff | fill counts,
+        each section at a 16-byte offset (so a f64 or c128 section views in
+        place)."""
         D, B, T = self.n_devices, self.batch_size, self.num_terms
         L = len(self._shards)
+        if self.group is not None:
+            self._codec_check()
         self._codec = codec = PC.PlanCodec.build(
-            self.stream_compress, raw, n_dest=B * T,
+            self._codec_tier, raw, n_dest=B * T,
             cap_build=self._capacity, n_devices=D,
-            shard_size=self.shard_size, cshape=(B, T), ckind="real",
-            agree=None if self.group is None else self._codec_agree)
-        spec = codec.spec
-        if spec["coeff"] != "dict":
-            raise NotImplementedError(
-                f"{spec['ndict']} distinct coefficients exceed the "
-                "dictionary: raw coefficient streams are not in the port "
-                "yet")
-        nl, n_recv = spec["n_live"], spec["n_recv"]
-        sizes = {"dest": 4 * (PC.packed_words(nl, spec["w_dest"])
-                              + PC.packed_words(nl, spec["w_row"])),
-                 "ridx": 4 * PC.packed_words(n_recv, spec["w_ridx"]),
-                 "rok": 4 * PC.packed_words(n_recv, 1),
-                 "coeff": nl * spec["code_bits"] // 8,
-                 "fill": 4 * D}
+            shard_size=self.shard_size, cshape=(B, T),
+            ckind="real" if self.real else "complex",
+            agree=None if self.group is None else self._codec_agree,
+            dict_max=PC.DICT_MAX, term_mask=self._hybrid_mask)
+        sizes = self._record_sizes(codec.spec)
         layout, off = {}, 0
-        # every size is a multiple of 4 bytes (n_live is a multiple of 8)
         for k in ("dest", "ridx", "rok", "coeff", "fill"):
             layout[k] = (off, sizes[k])
-            off += sizes[k]
-        self._chunk_stride = _round_up(off, _ALIGN)
+            off = _round_up(off + sizes[k], _ALIGN)
+        self._chunk_stride = off
         self._chunk_layout = layout
         n = self.nchunks
         self._plan_host = torch.zeros(
@@ -684,7 +809,8 @@ class DistributedEngine:
                 enc = codec.encode_chunk(pc, d)
                 enc["fill"] = PC.send_fill(pc["dest"], D, self._capacity)
                 for k, (o, nb) in layout.items():
-                    a = np.ascontiguousarray(enc[k]).view(np.uint8)
+                    a = np.ascontiguousarray(enc[k]).reshape(-1).view(
+                        np.uint8)
                     if a.size != nb:
                         raise ValueError(f"encoded {k} has {a.size} bytes, "
                                          f"the chunk layout {nb}")
@@ -702,34 +828,78 @@ class DistributedEngine:
         self.plan_bytes = enc_bytes
         self.plan_bytes_raw = codec.raw_chunk_bytes() * n * L
 
+    def _setup_hybrid_recompute(self) -> None:
+        """The recompute side's tables (JAX ``_setup_hybrid_recompute``):
+        the recompute terms' rows of the off-diagonal tables, with the
+        trailing kernel columns that are zero for all of them trimmed (a
+        zero column adds exactly 0, so the values are the build's bit for
+        bit), and ``hybrid_stream_fraction``, the share of terms
+        streamed."""
+        mask = self._hybrid_mask
+        sel = np.nonzero(~mask)[0]
+        #: the share of the operator's terms whose entries are streamed
+        self.hybrid_stream_fraction = float(mask.mean()) if mask.size \
+            else 1.0
+        if not sel.size:
+            return
+        off = self.tables.off
+        idx = torch.from_numpy(sel).to(self.device)
+        v = off.v[idx]
+        knz = torch.nonzero((v != 0).any(dim=0)).reshape(-1)
+        kmax = int(knz.max()) + 1 if knz.numel() else 1
+        sub = K.OffDiagKernelTables(
+            x=off.x[idx], v=v[:, :kmax], s=off.s[idx, :kmax],
+            m=off.m[idx, :kmax], r=off.r[idx, :kmax])
+        self._hyb_tables = K.OperatorTables(
+            diag=self.tables.diag, off=sub, group=self.tables.group)
+
     # -- streamed: plan access ------------------------------------------------
 
     def _chunk_views(self, buf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """(dest+row words, codes, ridx words, rok words, fill counts) of
-        one (chunk, shard) record, as int32 / uint8-or-int16 views of its
-        bytes."""
+        """(dest, coeff, ridx, rok words, fill counts) of one (chunk,
+        shard) record, as views of its bytes: ``dest`` and ``ridx`` int32
+        (word streams, or the ``off`` tier's raw arrays); ``coeff`` the
+        codes (uint8, or int16 for u16), or raw values — f64, f32 or bf16
+        bits as int16, ``[n_live, 2]`` in a complex sector — or the ``off``
+        tier's ``[B, T]`` f64/c128; ``fill`` int32 [D]."""
+        spec = self._codec.spec
+
         def view(k, dtype):
             o, nb = self._chunk_layout[k]
             return buf[o:o + nb].view(dtype)
 
-        code_dtype = torch.uint8 if self._codec.spec["code_bits"] == 8 \
-            else torch.int16
-        return (view("dest", torch.int32), view("coeff", code_dtype),
-                view("ridx", torch.int32), view("rok", torch.int32),
-                view("fill", torch.int32))
+        cplx = spec["ckind"] == "complex"
+        if spec["tier"] == "off":
+            coeff = view("coeff", torch.float64)
+            if cplx:
+                coeff = torch.view_as_complex(coeff.reshape(-1, 2))
+            coeff = coeff.reshape(self.batch_size, self.num_terms)
+        elif spec["coeff"] == "dict":
+            coeff = view("coeff", torch.uint8 if spec["code_bits"] == 8
+                         else torch.int16)
+        else:
+            coeff = view("coeff", {"lossless": torch.float64,
+                                   "f32": torch.float32,
+                                   "bf16": torch.int16}[spec["tier"]])
+            if cplx:
+                coeff = coeff.reshape(-1, 2)
+        return (view("dest", torch.int32), coeff, view("ridx", torch.int32),
+                view("rok", torch.int32), view("fill", torch.int32))
 
     def plan_chunk(self, ci: int, d: Optional[int] = None
                    ) -> Dict[str, np.ndarray]:
         """Shard d's encoded chunk ``ci`` (default: the first shard held
-        here) as NumPy arrays in the JAX engine's form (``dest``/``ridx``/
-        ``rok`` u32 word streams, ``coeff`` u8/u16 codes), plus its
-        ``fill`` counts [D] int32."""
-        dest, codes, ridx, rok, fill = self._chunk_views(
+        here) as NumPy arrays in the JAX engine's form (``dest``/``ridx``
+        u32 word streams or the ``off`` tier's raw i32, ``rok`` u32 words,
+        ``coeff`` u8/u16 codes or the raw f64/f32/u16/c128 values), plus
+        its ``fill`` counts [D] int32."""
+        dest, coeff, ridx, rok, fill = self._chunk_views(
             self._plan_host[ci, self._local(d)])
-        code_np = np.uint8 if codes.dtype == torch.uint8 else np.uint16
-        return {"dest": dest.numpy().view(np.uint32),
-                "coeff": codes.numpy().view(code_np),
-                "ridx": ridx.numpy().view(np.uint32),
+        words = np.int32 if self._codec.spec["tier"] == "off" else np.uint32
+        cf = coeff.numpy()
+        return {"dest": dest.numpy().view(words),
+                "coeff": cf.view(np.uint16) if cf.dtype == np.int16 else cf,
+                "ridx": ridx.numpy().view(words),
                 "rok": rok.numpy().view(np.uint32),
                 "fill": fill.numpy().copy()}
 
@@ -791,55 +961,138 @@ class DistributedEngine:
     # -- streamed: apply -----------------------------------------------------
 
     def _apply(self, xh: torch.Tensor, chunks=None) -> torch.Tensor:
-        """The streamed apply of at most 4 columns over ``chunks``, an
-        iterable of the plan's per-chunk shard views on the device in chunk
-        order (default: :meth:`_stream_chunks` streams them from host
-        memory), in :meth:`_run_chunks`' schedule.  Produce: per chunk one
-        decode launch per shard and column into one of ``max(1, depth)``
-        ``[L, R, D·cap + 1]`` send slots (L the shards held here), and the
-        chunk's ridx/rok unpacked.  Consume: per shard one ``index_add_`` of
+        """The streamed (and hybrid) apply of at most 4 columns over
+        ``chunks``, an iterable of the plan's per-chunk shard views on the
+        device in chunk order (default: :meth:`_stream_chunks` streams them
+        from host memory), in :meth:`_run_chunks`' schedule.  Produce: per
+        chunk and shard the send side into one of ``max(1, depth)`` send
+        slots (L the shards held here) — on the ``"cuda"`` path one decode
+        launch per column into ``[L, R, D·cap + 1]``, on the ``"torch"``
+        path :meth:`_decode_send` into ``[L, D·cap + 1, R]`` — and the
+        chunk's ridx/rok decoded.  Consume: per shard one ``index_add_`` of
         its ``[n_recv, R]`` receive block.  A send slot is written again
         only after the chunk that last used it has retired."""
         D, M, B = self.n_devices, self.shard_size, self.batch_size
         L = len(self._shards)
         spec = self._codec.spec
-        n_recv, w_ridx, cap = spec["n_recv"], spec["w_ridx"], spec["cap_eff"]
+        n_recv, cap = spec["n_recv"], spec["cap_eff"]
         x = xh.reshape(L, M, -1)                       # [L, M, R]
         R = x.shape[2]
         if chunks is None:
             chunks = self._stream_chunks()
-        # column-major copy: each column's chunk rows are contiguous, as
-        # the kernel takes them
-        xp = torch.zeros((L, R, self.nchunks * B), dtype=torch.float64,
-                         device=self.device)
-        xp[:, :, :M] = x.transpose(1, 2)
-        y = torch.zeros((L, M, R), dtype=torch.float64, device=self.device)
-        sends = torch.empty((max(self.pipeline_depth, 1), L, R, n_recv + 1),
-                            dtype=torch.float64, device=self.device)
+        dt, dev = self._dtype, self.device
+        S, Mp = max(self.pipeline_depth, 1), self.nchunks * B
+        kernel = self._stream_kernel == "cuda"
+        if kernel:
+            # column-major copy: each column's chunk rows are contiguous,
+            # as the kernel takes them
+            xp = torch.zeros((L, R, Mp), dtype=dt, device=dev)
+            xp[:, :, :M] = x.transpose(1, 2)
+            sends = torch.empty((S, L, R, n_recv + 1), dtype=dt, device=dev)
+        else:
+            xp = torch.zeros((L, Mp, R), dtype=dt, device=dev)
+            xp[:, :M] = x
+            sends = torch.empty((S, L, n_recv + 1, R), dtype=dt, device=dev)
+        y = torch.zeros((L, M, R), dtype=dt, device=dev)
 
         def produce(ci, views):
-            send = sends[ci % sends.shape[0]]
+            send = sends[ci % S]
+            rows = slice(ci * B, (ci + 1) * B)
             recv_side = []
             for s in range(L):
+                if not kernel:
+                    recv_side.append(self._decode_send(send[s], views[s], s,
+                                                       ci, xp[s, rows]))
+                    continue
                 edest, codes, ridx_w, rok_w, fill = views[s]
                 for r in range(R):
                     PC.fused_decode_gather_scatter(
                         spec, edest, codes, fill, self._cdict[s],
-                        xp[s, r, ci * B:(ci + 1) * B], out=send[s, r])
-                recv_side.append((
-                    PC.unpack_bits(ridx_w, n_recv, w_ridx),
-                    PC.unpack_bits(rok_w, n_recv, 1).to(torch.bool)))
-            # [L, D, cap, R]
-            return ((send[:, :, :n_recv].reshape(L, R, D, cap)
-                     .permute(0, 2, 3, 1),), recv_side)
+                        xp[s, r, rows], out=send[s, r])
+                recv_side.append(PC.decode_recv(spec, ridx_w, rok_w))
+            if kernel:                                 # [L, D, cap, R]
+                return ((send[:, :, :n_recv].reshape(L, R, D, cap)
+                         .permute(0, 2, 3, 1),), recv_side)
+            return (send[:, :n_recv].reshape(L, D, cap, R),), recv_side
 
         def consume(recv_side, recv):
             for d, (ridx, rok) in enumerate(recv_side):
-                y[d].index_add_(0, ridx, torch.where(
-                    rok[:, None], recv[d].reshape(n_recv, R), 0.0))
+                add = torch.where(rok[:, None], recv[d].reshape(n_recv, R),
+                                  0)
+                if dt.is_complex:
+                    # the components, added in the same order
+                    torch.view_as_real(y[d]).index_add_(
+                        0, ridx, torch.view_as_real(add))
+                else:
+                    y[d].index_add_(0, ridx, add)
 
         self._run_chunks(chunks, produce, consume)
-        return (y + self._diag[:, :, None] * x).reshape(xh.shape)
+        return (y + self._diag.to(dt)[:, :, None] * x).reshape(xh.shape)
+
+    def _decode_send(self, send: torch.Tensor, views, s: int, ci: int,
+                     x_c: torch.Tensor):
+        """The ``"torch"`` decode path of local shard row s's chunk ci (JAX
+        ``decode_send``'s XLA branch): zero the ``[D·cap + 1, R]`` send
+        buffer, decode the chunk (:func:`~..ops.plan_codec.
+        decode_plan_shard`), multiply each entry's coefficient by its row
+        of ``x_c`` ([B, R]: ``x[row]``, or in the ``off`` tier the implicit
+        row ``i // T``) and scatter by the decoded destinations (padding
+        and dead entries land in the trailing drop slot); in hybrid mode
+        add the recompute terms (:meth:`_recompute`).  Returns the chunk's
+        decoded ``(ridx, rok)``."""
+        spec = self._codec.spec
+        edest, coeff, ridx_w, rok_w, _ = views
+        send.zero_()
+        dec = PC.decode_plan_shard(spec, edest, coeff, ridx_w, rok_w,
+                                   self._cdict[s])
+        if spec["tier"] == "off":
+            dest, cf, ridx, rok = dec
+            amps = _mul(cf[:, :, None], x_c[:, None, :])
+        else:
+            dest, row, cf, ridx, rok = dec
+            amps = _mul(cf[:, None], x_c[row])
+        send[dest] = amps.reshape(-1, x_c.shape[1])
+        if self._hyb_tables is not None:
+            self._recompute(send, s, ci, x_c, dest)
+        return ridx, rok
+
+    def _recompute(self, send: torch.Tensor, s: int, ci: int,
+                   x_c: torch.Tensor, dest_s: torch.Tensor) -> None:
+        """Hybrid's recompute side (JAX ``make_recompute``): re-derive the
+        recompute terms' entries of local shard row s's chunk ci on the
+        device — the build's kernels, orbit scan and bucket routing on the
+        term subset, whose values equal the build's bit for bit — and
+        scatter their amplitudes into ``send`` at their merged slots.  In
+        the full plan each bucket's live entries hold its slot prefix in
+        (row, term) order, so the recompute entries hold the slots the
+        streamed entries (``dest_s``, pads at the drop slot) leave free, in
+        increasing order: the j-th recompute entry of a bucket lands on its
+        j-th free slot (a cumsum over the free mask)."""
+        D = self.n_devices
+        spec = self._codec.spec
+        cap, n_recv = spec["cap_eff"], spec["n_recv"]
+        dev = send.device
+        a_c, n_c = self._chunk_rows(s, ci)
+        betas, gcoeff = K.gather_coefficients(self._hyb_tables, a_c, n_c)
+        nz = (gcoeff != 0) & (a_c != SENTINEL_STATE)[:, None]
+        cf = torch.where(nz, gcoeff.conj(), torch.zeros_like(gcoeff))
+        key = torch.where(nz.reshape(-1), shard_index(
+            betas.reshape(-1), D).to(torch.int64), D)
+        pos = _bucket_positions(key, D)
+        occ = torch.zeros(n_recv + 1, dtype=torch.bool, device=dev)
+        occ[dest_s] = True
+        free = ~occ[:n_recv].reshape(D, cap)
+        slots = torch.arange(n_recv, device=dev).reshape(D, cap)
+        # slot_of[k·cap + j] = bucket k's j-th free slot (within the bucket)
+        tgt = torch.where(free, slots - slots % cap
+                          + torch.cumsum(free, dim=1) - 1, n_recv)
+        slot_of = torch.zeros(n_recv + 1, dtype=torch.int64, device=dev)
+        slot_of[tgt.reshape(-1)] = (slots % cap).reshape(-1)
+        safe = key.clamp(0, D - 1) * cap + pos.clamp(max=cap - 1)
+        dest_r = torch.where((key < D) & (pos < cap),
+                             key * cap + slot_of[safe], n_recv)
+        send[dest_r] = _mul(cf[:, :, None], x_c[:, None, :]).reshape(
+            -1, x_c.shape[1])
 
     # -- fused ---------------------------------------------------------------
 
@@ -1308,7 +1561,7 @@ class DistributedEngine:
         self.n_applies += 1
         self.last_pipeline = None
         x = xh.reshape(D, M, -1)
-        if self.mode == "streamed":
+        if self.mode in ("streamed", "hybrid"):
             if x.shape[2] <= 4:
                 return self._apply(xh)
             # wide blocks in column groups of 4, each streaming the plan

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA decode kernel against its plain version
-(synthetic chunks, and every chunk of a real D = 4 plan), and the streamed
-engine, the hash-sharded engine at D = 4 in every mode and ``LocalEngine``
-on the card against the same engines on the CPU.
+(synthetic chunks, every chunk of a real D = 4 plan and of an ``f32``
+tier's plan), and the streamed engine (real and complex sectors, hybrid
+mode's send buffer), the hash-sharded engine at D = 4 in every mode and
+``LocalEngine`` on the card against the same engines on the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device.  Run them on a
 machine with one as ``python -m pytest --noconftest tests/test_torch_cuda.py``
@@ -331,3 +332,72 @@ def test_rank_engine_pipelined_on_card(cuda, backend, tmp_path):
             assert e.last_pipeline["chunks"] == e.nchunks
     finally:
         dist.destroy_process_group()
+
+
+def test_kernel_on_f32_dictionary_chunks(cuda):
+    """The unchanged kernel on an f32 tier's chunks (a dictionary of
+    quantized values): equal to its plain version on every chunk, and the
+    engine's apply launches it once per chunk."""
+    op = heisenberg_chain(16, symmetric=True)
+    eng = DistributedEngine(op, batch_size=64, stream_compress="f32",
+                            device=cuda)
+    spec = eng._codec.spec
+    assert eng.stream_kernel == "cuda" and spec["coeff"] == "dict"
+    rng = np.random.default_rng(6)
+    for ci in range(eng.nchunks):
+        v = eng._chunk_views(eng._plan_host[ci, 0].to(cuda))
+        x_c = torch.from_numpy(rng.standard_normal(eng.batch_size)).to(cuda)
+        assert chip_smoke.check_kernel(
+            (spec, v[0], v[1], v[4], eng._cdict[0], x_c)) == 0.0
+    before = PC.fused_decode_gather_scatter.launches
+    eng.matvec(eng.random_hashed(1))
+    torch.cuda.synchronize()
+    assert PC.fused_decode_gather_scatter.launches - before == eng.nchunks
+
+
+def test_complex_streamed_on_card_matches_cpu(cuda):
+    """The 16-ring's k = 1 sector through the streamed engine on the card:
+    the torch decode path, no kernel launch, the apply within atol 1e-13 /
+    rtol 1e-12 of the same engine on the CPU, and a ``[1, M, 3]`` apply
+    column by column against its single-column applies."""
+    op = _k1_ring(16)
+    e_gpu = DistributedEngine(op, batch_size=256, device=cuda)
+    e_cpu = DistributedEngine(op, batch_size=256, device="cpu")
+    assert e_gpu.stream_kernel == "torch" and not e_gpu.real
+    rng = np.random.default_rng(3)
+    n = op.basis.number_states
+    x = rng.random(n) - 0.5 + 1j * (rng.random(n) - 0.5)
+    before = PC.fused_decode_gather_scatter.launches
+    np.testing.assert_allclose(e_gpu.matvec_global(x),
+                               e_cpu.matvec_global(x),
+                               atol=1e-13, rtol=1e-12)
+    X = e_gpu.to_hashed(x[:, None] * np.array([1.0, -0.5j, 2.0]))
+    Y = e_gpu.matvec(X)
+    for r in range(3):
+        torch.testing.assert_close(Y[..., r],
+                                   e_gpu.matvec(X[..., r].contiguous()),
+                                   rtol=0, atol=1e-13)
+    torch.cuda.synchronize()
+    assert PC.fused_decode_gather_scatter.launches == before
+
+
+def test_hybrid_send_buffer_on_card(cuda):
+    """One hybrid chunk's send buffer (streamed terms decoded, the others
+    recomputed) equals the lossless streamed engine's kernel output bit for
+    bit, and the hybrid apply equals the streamed one under deterministic
+    algorithms."""
+    op = heisenberg_chain(16, symmetric=True)
+    es = DistributedEngine(op, batch_size=64, device=cuda)
+    eh = DistributedEngine(op, batch_size=64, mode="hybrid",
+                           hybrid_split="stream:0,2,5", device=cuda)
+    assert es.stream_kernel == "cuda" and eh.stream_kernel == "torch"
+    xh = es.random_hashed(2)
+    for ci in range(es.nchunks):
+        x_c = xh[0, ci * 64:(ci + 1) * 64]
+        assert torch.equal(chip_smoke.send_buffer(eh, ci, x_c),
+                           chip_smoke.send_buffer(es, ci, x_c)), ci
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert torch.equal(eh.matvec(xh), es.matvec(xh))
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -412,8 +412,9 @@ def test_evolve_and_lobpcg_sharded_match_jax(chain12, sharded12, D):
 @pytest.mark.parametrize("D,mode", [(D, m) for D in (2, 4)
                                     for m in ("ell", "fused")])
 def test_bound_observables_complex_sector_sharded(ring8_k1, D, mode):
-    """A complex sector binds over ell or fused (streamed refuses it), and
-    its expectation values equal the JAX function's at the same D."""
+    """A complex sector binds over ell or fused, and its expectation
+    values equal the JAX function's at the same D; the streamed engine
+    binds it too and gives the same value."""
     je_l, _, h = ring8_k1
     op_j = je_l.operator
     op_t = operator_from_reference(operator_arrays(op_j))
@@ -429,8 +430,10 @@ def test_bound_observables_complex_sector_sharded(ring8_k1, D, mode):
     assert got == pytest.approx(want, abs=1e-12)
     assert got == pytest.approx(float(np.real(psi.conj() @ (h @ psi))),
                                 abs=1e-12)
-    with pytest.raises(NotImplementedError, match="complex"):
-        obs.bind_observables([op_t], te, mode="streamed")
+    bs = obs.bind_observables([op_t], te, mode="streamed")[0]
+    assert bs.engine.stream_kernel == "torch" and not bs.engine.real
+    assert bs.expectation(te.to_hashed(psi)) == pytest.approx(want,
+                                                              abs=1e-12)
 
 
 # -- refusals ----------------------------------------------------------------------

@@ -82,15 +82,24 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
 
 
 def test_out_of_scope_raises_not_implemented():
+    """What the port does not have raises NotImplementedError: the two
+    "auto" policies (the hybrid split, also the JAX default, and the
+    pipeline depth), priced by the JAX package's obs/.  What earlier slices
+    refused builds now: every codec tier, complex sectors in the streamed
+    engine, and hybrid mode with a static split."""
     op = heisenberg_chain(8, symmetric=True)
-    for kw in ({"mode": "hybrid"}, {"stream_compress": "off"},
-               {"n_devices": 2, "stream_compress": "bf16"}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"mode": "hybrid"}, {"mode": "hybrid", "hybrid_split": "auto"},
+               {"pipeline_depth": "auto"}):
+        with pytest.raises(NotImplementedError, match="auto"):
             port.DistributedEngine(op, batch_size=64, device="cpu", **kw)
+    for kw in ({"stream_compress": "off"},
+               {"n_devices": 2, "stream_compress": "bf16"},
+               {"mode": "hybrid", "hybrid_split": "all-recompute"}):
+        port.DistributedEngine(op, batch_size=64, device="cpu", **kw)
     # a k = 1 momentum sector has complex characters
     basis = port.SpinBasis(8, 4, None, [([*range(1, 8), 0], 1)])
     complex_op = heisenberg_from_edges(basis, chain_edges(8))
     for D in (1, 2):
-        with pytest.raises(NotImplementedError, match="complex"):
-            port.DistributedEngine(complex_op, n_devices=D, batch_size=64,
-                                   device="cpu")
+        eng = port.DistributedEngine(complex_op, n_devices=D, batch_size=64,
+                                     device="cpu")
+        assert not eng.real and eng.stream_kernel == "torch"

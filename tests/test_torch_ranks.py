@@ -513,3 +513,39 @@ def test_lobpcg_basis_extension_across_ranks(W, M, k):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-14)
     B = torch.cat([X, got], dim=1)
     np.testing.assert_allclose(B.T @ B, np.eye(2 * k), rtol=0, atol=1e-13)
+
+
+# -- the streamed engine's other forms (W = 2) -----------------------------------
+
+@pytest.mark.parametrize("name", sorted(RW.FORMS))
+def test_rank_stream_forms(ranks, name):
+    """A mixed hybrid split and an ``f32`` engine with raw coefficient
+    streams on two ranks: each rank's plan is the one-process engine's
+    shard, and the gathered apply at depth 0 and 2 equals the one-process
+    apply bit for bit."""
+    spec = RW.FORMS[name]
+    op = RW.build_op(*spec[:4])
+    e1 = RW.build_form(op, spec, n_devices=2)
+    x = RW.inputs(op.basis.number_states, e1.real)
+    want = e1.matvec_global(x)
+    for r, out in enumerate(ranks[2]):
+        got = out["forms"][name]
+        assert got["spec"] == e1._codec.spec
+        assert got["kernel"] == e1.stream_kernel == "torch"
+        for ci, chunk in enumerate(got["chunks"]):
+            for k, v in e1.plan_chunk(ci, r).items():
+                _same(chunk[k], v, f"rank {r} chunk {ci} {k}")
+        _same(got["y_global"], want, f"rank {r} gathered apply")
+        _same(got["y_global_depth2"], want, f"rank {r} at depth 2")
+    if name == "f32_raw":
+        assert e1._codec.spec["coeff"] == "raw"
+    else:
+        assert 0 < e1.hybrid_stream_fraction < 1
+
+
+def test_rank_codec_mismatch_raises_on_every_rank(ranks):
+    """Ranks that ask for different tiers raise together, before the codec
+    is built, with the same message."""
+    msgs = [out["forms"]["mismatch"] for out in ranks[2]]
+    assert all(m is not None and "codecs differ" in m for m in msgs), msgs
+    assert len(set(msgs)) == 1

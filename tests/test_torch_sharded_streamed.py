@@ -47,8 +47,9 @@ from test_operator import build_heisenberg
 ATOL, RTOL = 1e-14, 1e-12
 
 #: (n, hw, inv, syms, D, batch_size): the shapes of
-#: test_engine_distributed.DIST_CONFIGS, real sectors (the streamed engine
-#: takes real sectors only), at D = 2, 4, 8
+#: test_engine_distributed.DIST_CONFIGS, real sectors (complex ones, the
+#: other tiers and hybrid mode are in test_torch_stream_tiers.py), at D = 2,
+#: 4, 8
 STREAMED_CONFIGS = {
     "chain_8_d2": (8, 4, None, (), 2, 16),
     "chain_10_d4": (10, 5, None, (), 4, 16),

@@ -7,8 +7,10 @@ Starts a gloo group on the CPU, builds every case of ``CASES[WORLD]`` as a
 rank engine (one shard per process), runs the checks' inputs through it —
 plan and tables, matvec (sequential and pipelined), Lanczos, the block
 solvers, KPM, Krylov evolution, bound observables and the fused-capacity
-overflow — and saves what it saw to ``OUT_DIR/rank{RANK}.pt``.  It imports
-the port only, never JAX; the parent test compares against both packages.
+overflow — then, at W = 2, the streamed engine's other forms (``FORMS``)
+and a codec mismatch — and saves what it saw to ``OUT_DIR/rank{RANK}.pt``.
+It imports the port only, never JAX; the parent test compares against both
+packages.
 """
 
 import os
@@ -27,7 +29,7 @@ TIMEOUT_S = 60.0
 SYMS_12_K0 = [([*range(1, 12), 0], 0)]
 RING_8_K1 = [([*range(1, 8), 0], 1)]
 REAL_MODES = ("streamed", "ell", "compact", "fused")
-COMPLEX_MODES = ("ell", "fused")
+COMPLEX_MODES = ("streamed", "ell", "fused")
 
 #: per world size W: name → (n, hw, inv, syms, batch_size, modes) — the
 #: shapes of test_torch_sharded_streamed.STREAMED_CONFIGS, plus the
@@ -56,6 +58,33 @@ PIPE_MODES = ("streamed", "fused")
 
 def pipe_depths(nchunks):
     return (2, 3, nchunks + 7)
+
+
+#: W = 2 only: the streamed engine's other forms, each rank's plan and the
+#: gathered apply (depth 0 and 2) held to the one-process engine: name →
+#: (n, hw, inv, syms, batch_size, engine keywords, DICT_MAX for the build
+#: or None)
+FORMS = {
+    "hybrid_mixed": (12, 6, 1, SYMS_12_K0, 32,
+                     {"mode": "hybrid", "hybrid_split": "stream:0,2,5"},
+                     None),
+    "f32_raw": (12, 6, 1, SYMS_12_K0, 32, {"stream_compress": "f32"}, 2),
+}
+
+
+def build_form(op, spec, **kw):
+    """The engine of a FORMS entry (``kw``: ``group``/``n_devices``),
+    with the dictionary ceiling lowered around the build where it asks."""
+    from distributed_matvec_tpu_torch import DistributedEngine
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+
+    _, _, _, _, B, ekw, dict_max = spec
+    saved = PC.DICT_MAX
+    PC.DICT_MAX = dict_max or saved
+    try:
+        return DistributedEngine(op, batch_size=B, device="cpu", **ekw, **kw)
+    finally:
+        PC.DICT_MAX = saved
 
 
 #: the block solvers' arguments (the parent runs the same on one process
@@ -215,6 +244,35 @@ def run_wire(g):
     return out
 
 
+def run_forms(g):
+    """Every FORMS entry on this rank, and a codec mismatch — rank 0 asks
+    for the lossless tier, the others for f32 — which must raise on every
+    rank."""
+    from distributed_matvec_tpu_torch import DistributedEngine
+
+    out = {}
+    for name, spec in FORMS.items():
+        op = build_op(*spec[:4])
+        eng = build_form(op, spec, group=g)
+        x = inputs(op.basis.number_states, eng.real)
+        xh = eng.to_hashed(x)
+        r = {"spec": dict(eng._codec.spec), "kernel": eng.stream_kernel,
+             "chunks": [eng.plan_chunk(ci) for ci in range(eng.nchunks)],
+             "y_global": eng.from_hashed(eng.matvec(xh))}
+        eng.pipeline_depth = 2
+        r["y_global_depth2"] = eng.from_hashed(eng.matvec(xh))
+        out[name] = r
+    op = build_op(12, 6, 1, SYMS_12_K0)
+    try:
+        DistributedEngine(op, batch_size=32, group=g, device="cpu",
+                          stream_compress="lossless" if g.rank == 0
+                          else "f32")
+        out["mismatch"] = None
+    except RuntimeError as e:
+        out["mismatch"] = str(e)
+    return out
+
+
 def run_overflow(g):
     """A capacity too small for the exchange: the streamed build and the
     first fused apply must raise on every rank."""
@@ -255,6 +313,8 @@ def main(argv):
             t0 = time.perf_counter()
             out[name] = run_case(g, name, spec)
             out["seconds"][name] = time.perf_counter() - t0
+        if world == 2:
+            out["forms"] = run_forms(g)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             out["overflow"] = run_overflow(g)
