@@ -99,8 +99,9 @@ Phases, one JSON line each with its seconds:
    applies' host times.
 11. ``ranks``: the rank engine, ``DistributedEngine(op, group=g)`` — one
    hash shard per process rank, meeting only in ``torch.distributed``
-   collectives — on the same chain_32_symm operator.  (a) Two ranks share
-   the one card over gloo (spawned; each builds the basis itself): ``ell``
+   collectives.  (a) Two ranks share the one card over gloo on ``tiers``'
+   chain_30_symm (cut from chain_32_symm to fit the time limit; spawned,
+   each loading the parent's basis): ``ell``
    (build, apply, 3 timed applies, Lanczos to E0, then ``lanczos_block(k=4,
    block_size=4)`` and ``lobpcg(k=4)`` as ``solvers`` runs them) and
    ``streamed`` at B = 65 536 with 2²¹-entry buckets (build, the decode
@@ -108,10 +109,11 @@ Phases, one JSON line each with its seconds:
    applies with its launches counted from 0: one per plan chunk per apply;
    then at depth 2 an apply bit-equal to depth 0 under deterministic
    algorithms, and 3 more timed applies, counted alike).  Rank 0 gathers
-   each apply, which must equal ``local_full``'s ell apply (atol 1e-13 /
-   rtol 1e-12); both ranks' E0 must be the same bits and within 1e-10 of
-   the full leg's; both ranks' block-solver eigenvalues the same bits and
-   within 1e-10 of ``solvers``' one-process ones.  Per rank: build
+   each apply, which must equal a one-process ``LocalEngine`` ell apply
+   (atol 1e-13 / rtol 1e-12); both ranks' E0 must be the same bits and
+   within 1e-10 of the one-process Lanczos; both ranks' block-solver
+   eigenvalues the same bits and within 1e-10 of the same solvers run in
+   one process, as ``solvers`` runs them.  Per rank: build
    seconds, apply ms (host wall and CUDA events), the exchange's ms and
    bytes per apply, the host ms waiting in retires at depth 2, each block
    solver's seconds, applies, share outside the applies and count of
@@ -122,7 +124,7 @@ Phases, one JSON line each with its seconds:
    one-rank NCCL group in this process: the streamed engine at D = 1 with
    every exchange through ``all_to_all_single``; its plan must equal the
    full leg's byte for byte and its apply the full leg's bit for bit at
-   depth 0 and at depth 2 (all applies under
+   depth 0 and at depth 2 (chain_32_symm) (all applies under
    ``torch.use_deterministic_algorithms``).  (c) With two or more cards,
    leg (a) over NCCL, one rank per card; on one card a line says it did
    not run and why.
@@ -133,11 +135,13 @@ Phases, one JSON line each with its seconds:
    complex128 Lanczos to a converged E0(k=1) strictly above the full
    leg's E0(k=0), with the peak memory, and a native-complex
    ``krylov_evolve`` of a random state to t = 0.25 (norm drift below
-   1e-10).  It keeps one ell apply of a seeded state for
-   ``streamed_complex`` and frees its engines.
-13. ``tiers`` (after ``pipeline``): the full leg's chain_32_symm operator
-   through the streamed engine's other tiers and forms, each held to the
-   full leg's lossless D = 1 apply of one seeded state: ``off`` (the raw
+   1e-10).  It keeps one ell apply of a seeded state, and the lowest Ritz
+   value of a 32-step Lanczos from that state, for ``streamed_complex``,
+   and frees its engines.
+13. ``tiers`` (after ``pipeline``): chain_30_symm (cut from chain_32_symm
+   to fit the time limit, at the full leg's row chunk) through the
+   streamed engine's other tiers and forms, each held to a lossless D = 1
+   engine's apply of one seeded state and its Lanczos E0: ``off`` (the raw
    layout; plan bytes; the apply bit-equal under
    ``torch.use_deterministic_algorithms``; decode path ``torch``, no
    decode-kernel launch); ``f32`` and ``bf16`` (decode path ``cuda``: the
@@ -158,10 +162,43 @@ Phases, one JSON line each with its seconds:
    plan bytes, codec spec and peak memory; the apply against
    ``local_complex``'s ell apply (atol 1e-13 / rtol 1e-12); 3 timed
    applies (host wall and CUDA events) and a ``torch.profiler`` breakdown
-   of one (decode, host → device copy, ``index_add_``); complex-Hermitian
-   Lanczos to E0(k = 1) within 1e-10 of ``local_complex``'s
-   −55.581030569044785; a ``[1, M, 3]`` apply against three single-column
-   ones (atol 1e-13); no decode-kernel launch.
+   of one (decode, host → device copy, ``index_add_``); a complex-Hermitian
+   Lanczos of 32 steps from ``local_complex``'s state (cut from a solve to
+   E0 to fit the time limit), its lowest Ritz value within 1e-10 relative
+   of ``local_complex``'s; a ``[1, M, 3]`` apply against three
+   single-column ones (atol 1e-13); no decode-kernel launch.
+
+``serve`` runs after ``solvers``: the port's ``SolveService`` drains a
+spool of real jobs on the card, all on ``heisenberg_chain(32,
+symmetric=True)`` (each spec carries the basis with its generators and
+``n_states``), with ``DMT_OBS_DIR`` pointed at a temporary run directory,
+``stream_compress`` ``lossless`` through ``update_config``, the pool budget
+``SERVE_POOL_GB`` (both engines fit) and admission priced against the
+card's memory: four ``eigs`` jobs on the ell engine (k = 1, tol 1e-10 /
+1e-9 / 1e-10 / 1e-8: one build, one batch of 4), one ``eigs`` job on the
+streamed engine (k = 2: the decode kernel runs under the service, its
+launches counted from 0 around the drain as ``launches_serve``), a ``kpm``
+job (128 moments × 4 vectors) and an ``evolve`` job (t = 0.25), both pool
+hits, and a 40-spin spec that cannot fit (rejected, with its ``done/``
+record).  Checks: every status; 2 builds, 2 hits, no eviction; each E0
+within 1e-9 of the CPU value (or within its residual when that is
+larger); each batched E0 within 1e-10 relative of a solo
+``lanczos_block`` on the same engine from the job's ``column_seed()``;
+the batch replayed from a start block drawn here (column j from job j's
+``column_seed()``, job j's target on it) giving each job its record's
+iteration count and E0 (1e-12 relative); the kpm job's moments within
+1e-12, DOS peak within 1e-10 relative, bounds and applies equal to
+``kpm_dos`` called directly;
+``job_event`` sequences ``queued → running → done`` (``queued →
+rejected``) and every ``job:`` span a child of a ``serve_batch`` span in
+``rank_0/events.jsonl``; the decode kernel against its plain version on
+one of the served engine's chunks.  Then the service process
+(``python -m distributed_matvec_tpu_torch.apps.solve_service``) with two
+ell jobs gets SIGTERM once they run: exit 75, both specs still in
+``queue/``, ``done/`` empty; the same argv again exits 0 with E0s within
+1e-10 of the in-process ones.  Prints per-job latency, build seconds per
+engine, the batch's seconds, block applies and share outside them, the
+streamed apply's ms, and the seconds from SIGTERM to exit.
 
 ``local_small`` runs after ``small``: chain_16_symm through ``LocalEngine``
 in ``ell``, ``compact`` and ``fused`` mode at ``batch_size=61`` (chunking
@@ -171,9 +208,9 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full``, ``solvers``, ``sharded``, ``pipeline``, ``tiers`` and
-``ranks``, and apart at one shard, at four, in the pipelined applies, in
-the quantized tiers and on the ranks;
+of ``full``, ``solvers``, ``serve``, ``sharded``, ``pipeline``, ``tiers``
+and ``ranks``, and apart at one shard, at four, in the pipelined applies,
+in the quantized tiers, on the ranks and under the service;
 largest error against the plain version, time per launch beside its bound
 and the plain version's time, at one shard and at four), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -406,7 +443,8 @@ def small_phase(device):
     from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
 
     op = heisenberg_chain(16, symmetric=True)
-    eng = DistributedEngine(op, device=device)
+    eng = DistributedEngine(op, device=device,
+                            mode="streamed", stream_compress="lossless")
     x = np.random.default_rng(5).random(op.basis.number_states) - 0.5
     y = eng.matvec_global(x)
     ref = op.matvec_host(x)
@@ -513,7 +551,8 @@ def full_phase(device, n=32, expect_states=CHAIN32_STATES,
         raise AssertionError(f"{n_states} representatives, expected "
                              f"{expect_states}")
     t0 = time.perf_counter()
-    eng = DistributedEngine(op, device=device)
+    eng = DistributedEngine(op, device=device,
+                            mode="streamed", stream_compress="lossless")
     engine_s = time.perf_counter() - t0
 
     # one real plan chunk, kernel vs plain version
@@ -779,7 +818,8 @@ def cross_sector_phase(device, e0_full, n=32):
     enum_s = time.perf_counter() - t0
     op = heisenberg_from_edges(basis, chain_edges(n))
     t0 = time.perf_counter()
-    eng = DistributedEngine(op, device=device)
+    eng = DistributedEngine(op, device=device,
+                            mode="streamed", stream_compress="lossless")
     engine_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
@@ -1103,6 +1143,374 @@ def solvers_phase(device, streamed, eng, e0_full):
     return out, launches
 
 
+# -- the solve service ----------------------------------------------------------
+
+#: the serve phase's engine-pool budget (GB): the chain_32_symm ell tables
+#: (1.17 GB) and streamed lossless plan (0.86 GB) together; the config's
+#: 2.0 GB default is just below their sum and would evict one for the other
+SERVE_POOL_GB = 4.0
+
+
+def _chain32_basis():
+    """chain_32_symm's basis as a job spec carries it (JSON lists)."""
+    n = 32
+    return {"number_spins": n, "hamming_weight": n // 2,
+            "spin_inversion": 1,
+            "symmetries": [[[*range(1, n), 0], 0],
+                           [[*reversed(range(n))], 0]]}
+
+
+def _read_events(run_dir):
+    path = os.path.join(run_dir, "rank_0", "events.jsonl")
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _timed_engine(device, eng, log):
+    """``eng.matvec`` as a bound wrapper that synchronizes around each
+    apply and appends ``(start, seconds)`` to ``log`` (the solvers still
+    see the engine behind it as ``matvec.__self__``)."""
+    def matvec(self, x, *args, **kwargs):
+        _sync(device)
+        t0 = time.time()
+        y = type(self).matvec(self, x, *args, **kwargs)
+        _sync(device)
+        log.append((t0, time.time() - t0))
+        return y
+
+    eng.matvec = types.MethodType(matvec, eng)
+    return eng
+
+
+def _service_argv(spool, run_dir, hbm_gb):
+    return [sys.executable, "-m",
+            "distributed_matvec_tpu_torch.apps.solve_service", spool,
+            "--drain", "--obs-dir", run_dir, "--hbm-gb", repr(hbm_gb)]
+
+
+def serve_preempt_leg(tmp, basis, hbm_gb, e0_served):
+    """The service process under SIGTERM at full width: two ell eigs jobs,
+    SIGTERM once both run, exit 75 with both still spooled, then the same
+    argv again drains them to the in-process E0s."""
+    import signal as _signal
+
+    from distributed_matvec_tpu_torch.serve import JobSpec, submit_to_spool
+
+    spool, run_dir = os.path.join(tmp, "spool_pre"), \
+        os.path.join(tmp, "run_pre")
+    for i in range(2):
+        submit_to_spool(spool, JobSpec(job_id=f"pre{i}", basis=basis, k=1,
+                                       tol=1e-10, n_states=CHAIN32_STATES))
+    argv = _service_argv(spool, run_dir, hbm_gb)
+    # the environment's DMT_OBS_DIR would outrank --obs-dir
+    env = {k: v for k, v in os.environ.items() if k != "DMT_OBS_DIR"}
+    env["PYTHONPATH"] = ROOT
+    events = os.path.join(run_dir, "rank_0", "events.jsonl")
+    out = {}
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "preempt_log.txt"), "w") as log:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 300
+            while True:
+                if os.path.exists(events):
+                    with open(events) as f:
+                        if '"status": "running"' in f.read():
+                            break
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"the service exited {proc.returncode} before its "
+                        "jobs ran")
+                if time.monotonic() > deadline:
+                    raise AssertionError("no running job within 300 s")
+                time.sleep(0.05)
+            out["to_running_s"] = time.perf_counter() - t0
+            t_sig = time.perf_counter()
+            proc.send_signal(_signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+            out["sigterm_to_exit_s"] = time.perf_counter() - t_sig
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    queued = sorted(os.listdir(os.path.join(spool, "queue")))
+    done = os.listdir(os.path.join(spool, "done"))
+    out.update(exit_code=rc, queued_after=queued, done_after=done)
+    if not (rc == 75 and queued == ["pre0.json", "pre1.json"]
+            and done == []):
+        with open(os.path.join(tmp, "preempt_log.txt")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"SIGTERM: exit {rc}, queue {queued}, done "
+                             f"{done}\n{tail}")
+    t0 = time.perf_counter()
+    again = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+    out["relaunch_s"] = time.perf_counter() - t0
+    out["relaunch_exit_code"] = again.returncode
+    if again.returncode != 0:
+        raise AssertionError(f"relaunch exited {again.returncode}:\n"
+                             f"{again.stdout[-2000:]}{again.stderr[-2000:]}")
+    e0s = []
+    for i in range(2):
+        with open(os.path.join(spool, "done", f"pre{i}.json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "done":
+            raise AssertionError(f"relaunched pre{i}: {rec['status']}")
+        e0s.append(rec["eigenvalues"][0])
+    out["e0"] = e0s
+    out["e0_minus_served"] = [e - e0_served for e in e0s]
+    if not all(abs(e - e0_served) < 1e-10 for e in e0s):
+        raise AssertionError(f"relaunched E0s {e0s} != the in-process "
+                             f"{e0_served}")
+    return out
+
+
+def serve_phase(device, e0_full):
+    """The port's ``SolveService`` draining a spool of chain_32_symm jobs
+    on the card; see the module docstring for the jobs and the checks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import kpm_dos, lanczos_block, obs
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.serve import (EnginePool, JobSpec,
+                                                    SolveService,
+                                                    build_engine,
+                                                    submit_to_spool)
+    from distributed_matvec_tpu_torch.utils.config import (get_config,
+                                                           update_config)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    spool, run_dir = os.path.join(tmp, "spool"), os.path.join(tmp, "run")
+    saved_env = os.environ.get("DMT_OBS_DIR")
+    saved_cfg = (get_config().stream_compress, get_config().serve_pool_gb)
+    os.environ["DMT_OBS_DIR"] = run_dir
+    obs.reset()
+    obs.reset_trace()
+    update_config(stream_compress="lossless", serve_pool_gb=SERVE_POOL_GB)
+    hbm_gb = torch.cuda.get_device_properties(device).total_memory / 1e9
+    basis = _chain32_basis()
+    common = {"basis": basis, "n_states": CHAIN32_STATES}
+    specs = [JobSpec(job_id=f"ell{i}", k=1, tol=tol, **common)
+             for i, tol in enumerate((1e-10, 1e-9, 1e-10, 1e-8))]
+    specs += [JobSpec(job_id="streamed", k=2, tol=1e-10, mode="streamed",
+                      **common),
+              JobSpec(job_id="kpm", solver="kpm", n_moments=128,
+                      n_vectors=4, **common),
+              JobSpec(job_id="evolve", solver="evolve", t_final=0.25,
+                      tol=1e-10, **common),
+              # 40 spins with no n_states: priced at C(40, 20) rows
+              JobSpec(job_id="too_big", basis={"number_spins": 40,
+                                               "hamming_weight": 20})]
+    for s in specs:                 # stamped in this order: FIFO
+        submit_to_spool(spool, s)
+
+    builds, applies = {}, {}
+
+    def builder(spec):
+        t0 = time.perf_counter()
+        eng = build_engine(spec, live_devices=1, device=device)
+        _sync(device)
+        builds[spec.mode] = time.perf_counter() - t0
+        applies[spec.mode] = []
+        return _timed_engine(device, eng, applies[spec.mode])
+
+    pool = EnginePool(builder=builder, device=device)
+    svc = SolveService(spool, pool=pool, hbm_gb=hbm_gb)
+    try:
+        # the main path, with the launch counts set to 0 just before it
+        PC.fused_decode_gather_scatter.launches = 0
+        t0 = time.perf_counter()
+        rc = svc.run(drain=True)
+        _sync(device)
+        drain_s = time.perf_counter() - t0
+        launches = PC.fused_decode_gather_scatter.launches
+        obs.flush()
+        if rc != 0:
+            raise AssertionError(f"the service exited {rc}")
+        recs = {}
+        for s in specs:
+            with open(os.path.join(spool, "done",
+                                   f"{s.job_id}.json")) as f:
+                recs[s.job_id] = json.load(f)
+        status = {j: r["status"] for j, r in recs.items()}
+        want = {s.job_id: "rejected" if s.job_id == "too_big" else "done"
+                for s in specs}
+        if status != want:
+            raise AssertionError(f"job statuses {status}")
+        counts = (pool.builds, pool.hits, pool.evictions)
+        if counts != (2, 2, 0):
+            raise AssertionError(f"pool builds/hits/evictions {counts}")
+        if launches == 0:
+            raise AssertionError("the streamed job launched no decode "
+                                 "kernel")
+        info = {"n_states": CHAIN32_STATES, "pool_gb": SERVE_POOL_GB,
+                "hbm_gb": hbm_gb, "drain_s": drain_s,
+                "pool": {"builds": pool.builds, "hits": pool.hits,
+                         "evictions": pool.evictions,
+                         "bytes": pool.total_bytes()},
+                "build_s": builds, "launches_serve": launches,
+                "latency_ms": {j: r.get("latency_ms")
+                               for j, r in recs.items()},
+                "reject_reason": recs["too_big"].get("reason")}
+
+        # E0s: 1e-9 of the CPU value, or the residual's bound if larger
+        e0s = {}
+        for s in specs[:5]:
+            r = recs[s.job_id]
+            e0, res = r["eigenvalues"][0], r["residuals"][0]
+            bound = max(1e-9, res)
+            e0s[s.job_id] = {"e0": e0, "residual": res, "iters": r["iters"],
+                             "minus_cpu": e0 - CHAIN32_E0_CPU,
+                             "bound": bound}
+            if not (r["converged"] and abs(e0 - CHAIN32_E0_CPU) <= bound):
+                raise AssertionError(f"{s.job_id}: E0 {e0} vs "
+                                     f"{CHAIN32_E0_CPU} (bound {bound})")
+        info["eigs"] = e0s
+        info["streamed_eigenvalues"] = recs["streamed"]["eigenvalues"]
+
+        # the batch, from the trace: serve_batch spans and job spans
+        evs = _read_events(run_dir)
+        spans = [e for e in evs if e["kind"] == "span"]
+        batches = {e["span_id"]: e for e in spans if e["cat"] == "batch"}
+        jobs = [e for e in spans if e["cat"] == "job"]
+        if sorted(e["name"] for e in jobs) != sorted(
+                f"job:{s.job_id}" for s in specs[:7]):
+            raise AssertionError(f"job spans {[e['name'] for e in jobs]}")
+        for e in jobs:
+            if e["parent_span_id"] not in batches:
+                raise AssertionError(f"{e['name']} is no child of a "
+                                     "serve_batch span")
+        for s in specs:
+            seq = [e["status"] for e in evs if e["kind"] == "job_event"
+                   and e.get("job_id") == s.job_id]
+            want_seq = ["queued", "rejected"] if s.job_id == "too_big" \
+                else ["queued", "running", "done"]
+            if seq != want_seq:
+                raise AssertionError(f"{s.job_id} events {seq}")
+        # each batch span holds its engine's build (a pool miss): the
+        # solve is the span less the build
+        def batch_info(span, mode):
+            t0, span_s = span["t0"], span["dur_ms"] / 1e3
+            inside = [d for t, d in applies[mode] if t0 <= t <= t0 + span_s]
+            solve_s = span_s - builds[mode]
+            return {"span_s": span_s, "build_s": builds[mode],
+                    "solve_s": solve_s, "block_applies": len(inside),
+                    "apply_seconds": sum(inside),
+                    "share_outside_applies": 1.0 - sum(inside) / solve_s}
+
+        ell_batch = next(b for b in batches.values() if b["jobs"] == 4)
+        info["batch4"] = dict(batch_info(ell_batch, "ell"), columns=max(
+            r["iters"] for j, r in recs.items() if j.startswith("ell")))
+        st_batch = next(b for b in batches.values()
+                        if b["engine_key"] == specs[4].engine_key())
+        info["streamed_batch"] = dict(batch_info(st_batch, "streamed"),
+                                      columns=recs["streamed"]["iters"])
+        info["batches"] = sorted(
+            ({"jobs": b["jobs"], "seconds": b["dur_ms"] / 1e3}
+             for b in batches.values()), key=lambda b: -b["jobs"])
+        st = [d for _, d in applies["streamed"]]
+        info["streamed_apply_ms"] = {
+            "applies": len(st), "median": statistics.median(st) * 1e3,
+            "mean": sum(st) / len(st) * 1e3}
+
+        # each batched job against a solo lanczos_block on the same engine
+        ell_eng = pool._engines[specs[0].engine_key()]
+        solo = {}
+        for s in specs[:4]:
+            r = lanczos_block(ell_eng.matvec, n=ell_eng.n_states, k=s.k,
+                              tol=s.tol, max_iters=s.max_iters,
+                              seed=s.column_seed(), device=device)
+            w_b = recs[s.job_id]["eigenvalues"][0]
+            w_s = float(r.eigenvalues[0])
+            solo[s.job_id] = w_b - w_s
+            if not abs(w_b - w_s) <= 1e-10 * abs(w_s):
+                raise AssertionError(f"{s.job_id}: batched {w_b} vs solo "
+                                     f"{w_s}")
+        info["batched_minus_solo"] = solo
+        # the batch replayed with its start block drawn here, column j from
+        # job j's column_seed, and job j's target on column j: every job's
+        # eigenvalue and iteration count must come out as its record says,
+        # so a batch whose seeds or targets were out of order would fail
+        V0 = np.stack([np.random.default_rng(s.column_seed()).standard_normal(
+            ell_eng.n_states) for s in specs[:4]], axis=1)
+        V0 /= np.linalg.norm(V0, axis=0, keepdims=True)
+        rep = lanczos_block(
+            ell_eng.matvec, k=1, block_size=4, V0=V0,
+            max_iters=max(s.max_iters for s in specs[:4]),
+            tol=min(s.tol for s in specs[:4]),
+            column_targets=[{"k": s.k, "tol": s.tol,
+                             "max_iters": s.max_iters, "job_id": s.job_id}
+                            for s in specs[:4]], device=device)
+        info["replay_iters"] = {}
+        for s, cr in zip(specs[:4], rep.column_results):
+            rec = recs[s.job_id]
+            w = float(np.atleast_1d(cr["eigenvalues"])[0])
+            info["replay_iters"][s.job_id] = int(cr["iters"])
+            if int(cr["iters"]) != rec["iters"] or not abs(
+                    w - rec["eigenvalues"][0]) <= 1e-12 * abs(w):
+                raise AssertionError(
+                    f"{s.job_id}: replay {w} after {cr['iters']} columns, "
+                    f"record {rec['eigenvalues'][0]} after {rec['iters']}")
+
+        # the kpm job against kpm_dos called directly with its seed
+        kspec = specs[5]
+        _, rho, kres = kpm_dos(ell_eng.matvec, n_moments=128,
+                               n=ell_eng.n_states, n_vectors=4,
+                               seed=kspec.column_seed(), device=device)
+        krec = recs["kpm"]
+        dmu = float(np.abs(np.asarray(krec["moments_head"])
+                           - kres.moments[:8]).max())
+        # the record keeps 8 moments; its DOS peak depends on all 128
+        dpeak = abs(krec["dos_peak"] - float(np.max(rho)))
+        info["kpm"] = {"moments_max_abs_diff": dmu,
+                       "dos_peak_abs_diff": dpeak,
+                       "moments_per_s": krec["moments_per_s"],
+                       "bounds": krec["bounds"]}
+        if not (dmu < 1e-12 and dpeak <= 1e-10 * abs(krec["dos_peak"])
+                and krec["iters"] == kres.num_applies
+                and np.allclose(krec["bounds"], kres.bounds, rtol=1e-12,
+                                atol=0)):
+            raise AssertionError(f"kpm job: moments differ by {dmu}, DOS "
+                                 f"peak by {dpeak}, record {krec} against "
+                                 f"{kres.num_applies} applies, bounds "
+                                 f"{kres.bounds}")
+        info["evolve"] = {k: recs["evolve"][k] for k in
+                          ("steps", "norm_drift", "energy_drift",
+                           "energy_final", "converged")}
+
+        # the decode kernel against its plain version on one of the
+        # served streamed engine's own chunks
+        st_eng = pool._engines[specs[4].engine_key()]
+        ci = st_eng.nchunks // 3
+        views = st_eng._chunk_views(st_eng._plan_host[ci, 0].to(device))
+        x_c = torch.from_numpy(np.random.default_rng(19).standard_normal(
+            st_eng.batch_size)).to(device)
+        info["kernel_max_abs_err"] = check_kernel(
+            (st_eng._codec.spec, views[0], views[1], views[4],
+             st_eng._cdict[0], x_c))
+        info["streamed_kernel"] = st_eng.stream_kernel
+
+        del ell_eng, st_eng
+        pool._engines.clear()
+        release(device)
+        info["preempt"] = serve_preempt_leg(
+            tmp, basis, hbm_gb, e0s["ell0"]["e0"])
+    finally:
+        update_config(stream_compress=saved_cfg[0],
+                      serve_pool_gb=saved_cfg[1])
+        if saved_env is None:
+            os.environ.pop("DMT_OBS_DIR", None)
+        else:
+            os.environ["DMT_OBS_DIR"] = saved_env
+        obs.reset()
+        obs.reset_trace()
+    return info, launches, info["kernel_max_abs_err"]
+
+
 #: the sharded leg: shards on the one card, and the row chunk that keeps a
 #: chunk's ~85 k live entries per bucket under the 150 000 default (the
 #: default B = 65 536 would put ~339 k in each and overflow)
@@ -1129,7 +1537,8 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
     kernel = {"engines": {}}
     for mode in ("streamed", "ell", "compact", "fused"):
         eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
-            op, n_devices=D, mode=mode, batch_size=B, device=device))
+            op, n_devices=D, mode=mode, batch_size=B, device=device,
+            stream_compress="lossless"))
         info = {"build_s": build_s, "build_peak_bytes": peak,
                 "timings": eng.timings, "shard_size": eng.shard_size,
                 "counts": [int(c) for c in eng.counts]}
@@ -1429,6 +1838,21 @@ def pipeline_phase(device, full_eng, sharded_engs):
 #: the quantized tiers' documented bounds on an apply's largest error
 #: relative to the largest lossless value (tests/test_plan_codec.py)
 TIER_BOUNDS = {"f32": 1e-6, "bf16": 1e-2}
+#: the ring of the legs cut to fit the script's time limit (``tiers`` and
+#: the gloo ranks of ``ranks``): chain_30_symm, about 3.6× fewer states
+#: than chain_32_symm, held to references of its own size
+CUT_N = 30
+
+
+def cut_operator():
+    """chain_{CUT_N}_symm, enumerated by the native enumerator."""
+    from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
+
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    op = heisenberg_chain(CUT_N, symmetric=True)
+    t0 = time.perf_counter()
+    op.basis.build()
+    return op, time.perf_counter() - t0
 
 
 def release(device) -> None:
@@ -1464,35 +1888,49 @@ def send_buffer(eng, ci, x_c):
     return send[:spec["n_recv"], 0]
 
 
-def tiers_phase(device, full_eng, e0_full):
-    """The streamed engine's other tiers and forms on the full leg's
-    operator, against its lossless D = 1 engine; see the module
-    docstring."""
-    import numpy as np
+def tiers_phase(device, batch_size):
+    """The streamed engine's other tiers and forms on chain_{CUT_N}_symm,
+    against a lossless D = 1 engine of the same operator; see the module
+    docstring.  Returns the operator too, for ``ranks``."""
     import torch
 
     from distributed_matvec_tpu_torch import DistributedEngine, lanczos
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
-    op = full_eng.operator
-    xh = full_eng.random_hashed(19)
-    y_ref = deterministic(lambda: full_eng.matvec(xh))
-    ref_scale = float(y_ref.abs().max())
-    ci = full_eng.nchunks // 2
-    x_c = xh[0, ci * full_eng.batch_size:(ci + 1) * full_eng.batch_size]
-    send_ref = send_buffer(full_eng, ci, x_c)
-    out = {"n_states": int(op.basis.number_states),
-           "reference": "the full leg's lossless D = 1 engine",
-           "lossless_plan_bytes": int(full_eng.plan_bytes)}
+    op, enum_s = cut_operator()
 
     def build(**kw):
+        kw = {"mode": "streamed", "stream_compress": "lossless", **kw}
         eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
-            op, batch_size=full_eng.batch_size, device=device, **kw))
+            op, batch_size=batch_size, device=device, **kw))
         return eng, {"build_s": build_s, "build_peak_bytes": peak,
                      "timings": eng.timings, "spec": eng._codec.spec,
                      "plan_bytes": int(eng.plan_bytes),
                      "plan_bytes_raw": int(eng.plan_bytes_raw),
                      "stream_kernel": eng.stream_kernel}
+
+    ref_eng, ref = build()
+    xh = ref_eng.random_hashed(19)
+    y_ref = deterministic(lambda: ref_eng.matvec(xh))
+    ref_scale = float(y_ref.abs().max())
+    ci = ref_eng.nchunks // 2
+    x_c = xh[0, ci * batch_size:(ci + 1) * batch_size]
+    send_ref = send_buffer(ref_eng, ci, x_c)
+    res = lanczos(ref_eng.matvec, v0=ref_eng.random_hashed(0), k=1,
+                  tol=1e-10, device=device)
+    e0_ref = float(res.eigenvalues[0])
+    if not res.converged:
+        raise AssertionError(f"chain_{CUT_N}_symm lossless Lanczos did not "
+                             "converge")
+    ref.update(nchunks=ref_eng.nchunks, e0=e0_ref,
+               lanczos_iters=int(res.num_iters))
+    num_terms = ref_eng.num_terms
+    del ref_eng, res
+    release(device)
+    out = {"n_states": int(op.basis.number_states), "n": CUT_N,
+           "enumeration_s": enum_s,
+           "reference": f"a lossless D = 1 engine of chain_{CUT_N}_symm",
+           "lossless": ref}
 
     def bit_equal(eng, what, depths=(0,)):
         """The engine's apply, counted from 0, against the reference bit
@@ -1556,7 +1994,7 @@ def tiers_phase(device, full_eng, e0_full):
                     launches=n, applies=eng.n_applies,
                     lanczos_s=time.perf_counter() - t0,
                     lanczos_iters=int(res.num_iters), e0=e0,
-                    e0_lossless=e0_full, e0_minus_lossless=e0 - e0_full)
+                    e0_lossless=e0_ref, e0_minus_lossless=e0 - e0_ref)
         info.update(apply_times(device, eng, xh, applies=3))
         out[tier] = info
         del eng, y, res
@@ -1582,7 +2020,7 @@ def tiers_phase(device, full_eng, e0_full):
     release(device)
 
     # hybrid: the send buffer and the apply bit for bit
-    even = "stream:" + ",".join(map(str, range(0, full_eng.num_terms, 2)))
+    even = "stream:" + ",".join(map(str, range(0, num_terms, 2)))
     out["hybrid"] = {}
     for split in ("all-stream", even, "all-recompute"):
         eng, info = build(mode="hybrid", hybrid_split=split)
@@ -1604,7 +2042,7 @@ def tiers_phase(device, full_eng, e0_full):
         out["hybrid"][split] = info
         del eng
         release(device)
-    return out, launches
+    return out, launches, op
 
 
 # -- phase 11: ranks ------------------------------------------------------------
@@ -1752,7 +2190,8 @@ def gloo_cuda_probe(device):
 
 def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
                 device_type):
-    """One rank of the ranks leg: chain_n_symm built here, then ``ell``
+    """One rank of the ranks leg: chain_n_symm on the parent's basis
+    (``representatives.npy``/``norms.npy`` in ``tmp``), then ``ell``
     (build, apply, Lanczos, ``lanczos_block`` and ``lobpcg``) and
     ``streamed`` (build, the decode kernel on this rank's chunks against
     its plain version, 3 counted and timed applies at depth 0, the apply at
@@ -1783,8 +2222,12 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
     out["wire_dtypes_checked"] = wire_check(g, device)
     op = heisenberg_chain(n, symmetric=True)
     t0 = time.perf_counter()
-    op.basis.build()
-    out["enumeration_s"] = time.perf_counter() - t0
+    # the parent's basis (its enumeration is the full leg's), not one
+    # enumeration per rank
+    op.basis.unchecked_set_representatives(
+        np.load(os.path.join(tmp, "representatives.npy")),
+        np.load(os.path.join(tmp, "norms.npy")))
+    out["basis_load_s"] = time.perf_counter() - t0
     N = op.basis.number_states
     x = np.random.default_rng(13).standard_normal(N)
 
@@ -1834,7 +2277,7 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
     # streamed: build, the kernel on this rank's chunks, counted applies
     eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
         op, mode="streamed", batch_size=batch,
-        remote_buffer_size=remote_buffer, group=g))
+        remote_buffer_size=remote_buffer, group=g, stream_compress="lossless"))
     spec = eng._codec.spec
     info = {"build_s": build_s, "build_peak_bytes": peak,
             "timings": eng.timings, "plan_bytes": int(eng.plan_bytes),
@@ -1927,11 +2370,11 @@ def spawn_ranks(backend, world, tmp, n, device_type="cuda"):
     return outs
 
 
-def check_ranks(tmp, backend, outs, y_ref, e0_full, block_ref):
+def check_ranks(tmp, backend, outs, y_ref, e0_ref, block_ref):
     """Rank 0's gathered applies against ``y_ref`` (atol 1e-13 / rtol
-    1e-12), every rank's E0 against the full leg's (1e-10), and the block
-    solvers' eigenvalues the same bits on every rank and within 1e-10 of
-    the one-process solves' (``block_ref``: solver → eigenvalues)."""
+    1e-12), every rank's E0 against the one-process one (1e-10), and the
+    block solvers' eigenvalues the same bits on every rank and within 1e-10
+    of the one-process solves' (``block_ref``: solver → eigenvalues)."""
     import numpy as np
 
     errs = {}
@@ -1942,9 +2385,9 @@ def check_ranks(tmp, backend, outs, y_ref, e0_full, block_ref):
     e0s = [o["ell"]["e0"] for o in outs]
     if len(set(e0s)) != 1 or not all(o["ell"]["lanczos_converged"]
                                      for o in outs) \
-            or abs(e0s[0] - e0_full) > 1e-10:
-        raise AssertionError(f"{backend} ranks E0 {e0s}, full leg "
-                             f"{e0_full}")
+            or abs(e0s[0] - e0_ref) > 1e-10:
+        raise AssertionError(f"{backend} ranks E0 {e0s}, one process "
+                             f"{e0_ref}")
     block = {}
     for name, want in block_ref.items():
         evs = [o["ell"][name]["eigenvalues"] for o in outs]
@@ -1956,7 +2399,7 @@ def check_ranks(tmp, backend, outs, y_ref, e0_full, block_ref):
         block[name] = {"max_abs_diff_vs_one_process": d,
                        "same_bits_on_every_rank": True}
     return {"vs_local_ell_max_abs_err": errs, "e0": e0s[0],
-            "e0_minus_full": e0s[0] - e0_full, "block_solvers": block}
+            "e0_minus_ref": e0s[0] - e0_ref, "block_solvers": block}
 
 
 def nccl_one_rank_leg(device, full_eng, tmp):
@@ -1977,7 +2420,8 @@ def nccl_one_rank_leg(device, full_eng, tmp):
     try:
         wire = wire_check(g, device)
         eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
-            full_eng.operator, batch_size=full_eng.batch_size, group=g))
+            full_eng.operator, batch_size=full_eng.batch_size, group=g,
+            mode="streamed", stream_compress="lossless"))
         if not torch.equal(eng._plan_host, full_eng._plan_host):
             raise AssertionError("the one-rank NCCL plan differs from the "
                                  "full leg's")
@@ -2030,35 +2474,61 @@ def nccl_one_rank_leg(device, full_eng, tmp):
     return info
 
 
-def ranks_phase(device, op, ell_ref, full_eng, e0_full, block_ref):
-    """The rank engine on the card; see the module docstring."""
+def ranks_phase(device, op, full_eng):
+    """The rank engine on the card; see the module docstring.  ``op`` is
+    ``tiers``' chain_{CUT_N}_symm: its one-process references (the ell
+    apply, E0 and the block solvers as ``solvers`` runs them) are made
+    here; the one-rank NCCL leg runs on the full leg's engine."""
     import tempfile
 
     import numpy as np
     import torch
 
+    from distributed_matvec_tpu_torch import (LocalEngine, lanczos,
+                                              lanczos_block, lobpcg)
+
     n = op.basis.number_states
+    ell_ref = LocalEngine(op, mode="ell", device=device)
     x = torch.from_numpy(np.random.default_rng(13).standard_normal(n)).to(
         device)
     y_ref = ell_ref.matvec(x).cpu().numpy()
-    out = {"n_states": n, "world_size": RANKS, "batch_size": RANKS_BATCH,
+    t0 = time.perf_counter()
+    res = lanczos(ell_ref.matvec, n, k=1, tol=1e-10, device=device)
+    e0_ref = float(res.eigenvalues[0])
+    rb = lanczos_block(ell_ref.matvec, n, k=4, block_size=4, max_iters=800,
+                       tol=1e-10, device=device)
+    ev, _, _ = lobpcg(ell_ref.matvec, n, k=4, tol=1e-15, max_iters=400,
+                      device=device)
+    if not (res.converged and rb.converged):
+        raise AssertionError(f"chain_{CUT_N}_symm references did not "
+                             "converge")
+    block_ref = {"lanczos_block": rb.eigenvalues.tolist(),
+                 "lobpcg": ev.tolist()}
+    out = {"n_states": n, "n": CUT_N, "world_size": RANKS,
+           "batch_size": RANKS_BATCH,
            "remote_buffer_size": RANKS_REMOTE_BUFFER,
+           "references_s": time.perf_counter() - t0, "e0_ref": e0_ref,
            "note": "two ranks sharing one card over gloo: not a two-card "
                    "result"}
+    del ell_ref, res, rb
+    release(device)
     with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "representatives.npy"),
+                op.basis.representatives)
+        np.save(os.path.join(tmp, "norms.npy"), op.basis.norms)
         t0 = time.perf_counter()
-        outs = spawn_ranks("gloo", RANKS, tmp, 32)
+        outs = spawn_ranks("gloo", RANKS, tmp, CUT_N)
         out["gloo"] = {"seconds": time.perf_counter() - t0, "ranks": outs,
-                       **check_ranks(tmp, "gloo", outs, y_ref, e0_full,
+                       **check_ranks(tmp, "gloo", outs, y_ref, e0_ref,
                                      block_ref)}
         launches = sum(o["streamed"]["launches"] for o in outs)
         cards = torch.cuda.device_count()
         if cards >= RANKS:
             t0 = time.perf_counter()
-            outs = spawn_ranks("nccl", RANKS, tmp, 32)
+            outs = spawn_ranks("nccl", RANKS, tmp, CUT_N)
             out["nccl"] = {"seconds": time.perf_counter() - t0,
                            "ranks": outs,
-                           **check_ranks(tmp, "nccl", outs, y_ref, e0_full,
+                           **check_ranks(tmp, "nccl", outs, y_ref, e0_ref,
                                          block_ref)}
             launches += sum(o["streamed"]["launches"] for o in outs)
         else:
@@ -2114,9 +2584,13 @@ def local_complex_phase(device, e0_full, n=32):
     fused_info = {"vs_ell_max_abs_err": assert_close(yf, y,
                                                      "fused vs ell apply"),
                   "first_apply_s": time.perf_counter() - t0}
-    # the ell apply, kept on the host for streamed_complex
-    kept = (x.cpu().numpy(), y.cpu().numpy())
-    del fused, yf, y, x
+    # the ell apply, and a Lanczos of COMPLEX_HELD_STEPS steps from the same
+    # state, kept on the host for streamed_complex
+    r_held = lanczos(eng.matvec, v0=x, k=1, max_iters=COMPLEX_HELD_STEPS,
+                     tol=0.0, reorth="full", device=device)
+    kept = (x.cpu().numpy(), y.cpu().numpy(),
+            float(r_held.eigenvalues[0]))
+    del fused, yf, y, x, r_held
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -2150,9 +2624,10 @@ def local_complex_phase(device, e0_full, n=32):
     return info, op, kept
 
 
-#: local_complex's E0 of the 32-ring's translation-only k = 1 sector (the
-#: LocalEngine ell solve on an H100)
-RING32_K1_E0 = -55.581030569044785
+#: the steps of the Lanczos that holds streamed_complex to local_complex
+#: (full reorthogonalization, no convergence test): the lowest Ritz value
+#: of both, from the same state, within 1e-10 relative
+COMPLEX_HELD_STEPS = 32
 
 
 def streamed_complex_phase(device, op, kept):
@@ -2164,9 +2639,9 @@ def streamed_complex_phase(device, op, kept):
     from distributed_matvec_tpu_torch import DistributedEngine, lanczos
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
-    x, y_ell = kept
+    x, y_ell, ritz_ell = kept
     eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
-        op, device=device))
+        op, device=device, mode="streamed", stream_compress="lossless"))
     spec = eng._codec.spec
     if eng.real or eng.stream_kernel != "torch" or spec["ckind"] != \
             "complex":
@@ -2194,16 +2669,18 @@ def streamed_complex_phase(device, op, kept):
     info["profile"] = {k: prof[k] for k in ("device_ms_total", "top",
                                              "parts")}
     t0 = time.perf_counter()
-    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
-                  device=device)
+    res = lanczos(eng.matvec, v0=xh, k=1, max_iters=COMPLEX_HELD_STEPS,
+                  tol=0.0, reorth="full", device=device)
     _sync(device)
-    e0 = float(res.eigenvalues[0])
+    ritz = float(res.eigenvalues[0])
     info.update(lanczos_s=time.perf_counter() - t0,
-                lanczos_iters=int(res.num_iters), e0=e0,
-                e0_minus_local_complex=e0 - RING32_K1_E0)
-    if not (res.converged and abs(e0 - RING32_K1_E0) < 1e-10):
-        raise AssertionError(f"k = 1 streamed E0 {e0} != local_complex's "
-                             f"{RING32_K1_E0} (converged {res.converged})")
+                lanczos_iters=int(res.num_iters), ritz=ritz,
+                ritz_minus_local_complex=ritz - ritz_ell)
+    if not (int(res.num_iters) == COMPLEX_HELD_STEPS
+            and abs(ritz - ritz_ell) <= 1e-10 * abs(ritz_ell)):
+        raise AssertionError(
+            f"k = 1 streamed Ritz value {ritz} after {res.num_iters} steps "
+            f"!= local_complex's {ritz_ell}")
     del res
     rng = np.random.default_rng(14)
     X = eng.to_hashed(rng.standard_normal((x.size, 3))
@@ -2249,6 +2726,8 @@ def main() -> int:
                        full["e0"])
     solvers, solver_launches = run_phase("solvers", solvers_phase, device,
                                          eng, ell, full["e0"])
+    _, serve_launches, serve_err = run_phase("serve", serve_phase, device,
+                                             full["e0"])
     op = eng.operator
     torch.cuda.empty_cache()
     _, sharded = run_phase("sharded", sharded_phase, device, op, ell,
@@ -2257,13 +2736,10 @@ def main() -> int:
     pipe, pipe_launches = run_phase("pipeline", pipeline_phase, device, eng,
                                     sharded.pop("engines"))
     torch.cuda.empty_cache()
-    tiers, tier_launches = run_phase("tiers", tiers_phase, device, eng,
-                                 full["e0"])
-    block_ref = {name: solvers[name]["eigenvalues"]
-                 for name in ("lanczos_block", "lobpcg")}
-    ranks = run_phase("ranks", ranks_phase, device, op, ell, eng,
-                      full["e0"], block_ref)
-    del ell, op, eng
+    tiers, tier_launches, op_cut = run_phase("tiers", tiers_phase, device,
+                                             eng.batch_size)
+    ranks = run_phase("ranks", ranks_phase, device, op_cut, eng)
+    del ell, op, eng, op_cut
     torch.cuda.empty_cache()
     run_phase("cross_sector", cross_sector_phase, device, full["e0"])
     torch.cuda.empty_cache()
@@ -2278,11 +2754,12 @@ def main() -> int:
         "source": "distributed_matvec_tpu_torch/csrc/fused_decode.cu",
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
-        + pipe_launches + tier_launches + ranks["launches"],
+        + pipe_launches + tier_launches + ranks["launches"]
+        + serve_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            tiers["kernel_max_abs_err"],
-                           ranks["kernel_max_abs_err"]),
+                           ranks["kernel_max_abs_err"], serve_err),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
         "bound_ms": split["bound_ms_per_launch"],
@@ -2298,6 +2775,8 @@ def main() -> int:
         # each rank's own launches on its shard (gloo ranks on the card at
         # depth 0 and 2, and the one-rank NCCL group)
         "launches_ranks": ranks["launches"],
+        # the served streamed job's applies under the solve service (D = 1)
+        "launches_serve": serve_launches,
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],

@@ -5,9 +5,8 @@ Dispatch (the ``_enumerateStates`` analog, StatesEnumeration.chpl:257-265):
 the streaming C++ kernel handles projected sectors (compiled on first use,
 ``native.py``); the NumPy path covers trivial/spin-inversion-only sectors and
 acts as the portable fallback.  ``enumeration_backend`` config: ``auto`` |
-``native`` | ``numpy``, read from ``DMT_ENUMERATION_BACKEND`` (as the JAX
-package's config reads it); ``native`` raises when the C++ kernel cannot be
-built instead of falling back.
+``native`` | ``numpy`` (``DMT_ENUMERATION_BACKEND``); ``native`` raises when
+the C++ kernel cannot be built instead of falling back.
 """
 
 import os
@@ -15,6 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.config import get_config
 from . import host  # noqa: F401
 
 __all__ = ["host", "enumerate_representatives"]
@@ -23,7 +23,10 @@ __all__ = ["host", "enumerate_representatives"]
 def enumerate_representatives(
     n_sites: int, hamming_weight: Optional[int], group
 ) -> Tuple[np.ndarray, np.ndarray]:
-    backend = os.environ.get("DMT_ENUMERATION_BACKEND", "auto")
+    # the env var first, as the obs switches read theirs, so a harness can
+    # flip it after the config was read
+    backend = os.environ.get("DMT_ENUMERATION_BACKEND") \
+        or get_config().enumeration_backend
     projected = group is not None and not group.is_trivial
     spin_inv_only = (
         projected and len(group.perms) == 2 and group.flip[1]

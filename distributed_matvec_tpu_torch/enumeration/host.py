@@ -169,8 +169,10 @@ def enumerate_representatives(
     ``is_representative`` filtering (:158-200).  States ascend.
     """
     if batch_size is None:
+        from ..utils.config import get_config
+
         # the reference's kIsRepresentativeBatchSize (CommonParameters.chpl:5)
-        batch_size = 10240
+        batch_size = max(get_config().is_representative_batch_size, 1)
     candidates = all_states(n_sites, hamming_weight)
     if group is None or group.is_trivial:
         return candidates, np.ones(candidates.size, dtype=np.float64)

@@ -46,7 +46,7 @@ spent waiting in its retires); a sequential apply sets it to None.
 
 Modes (``mode=``):
 
-* ``"streamed"`` (the default): a build pass resolves every row chunk's
+* ``"streamed"``: a build pass resolves every row chunk's
   structure once — kernels and orbit scan, bucket routing, one exchange of
   the target states, the receive-side basis lookup — into a host-RAM plan
   (the scatter form: conj(row coefficient), as the JAX build stores it),
@@ -67,8 +67,9 @@ Modes (``mode=``):
   kernel run) — launches the decode kernel ``fused_decode_gather_scatter``
   once per shard per chunk per column, which zeroes the send slots no entry
   writes from the chunk's per-bucket fill counts (the send side's
-  occupancy, stored beside the encoded streams); ``"torch"`` — every other
-  case, the counterpart of JAX's XLA decode — unpacks with
+  occupancy, stored beside the encoded streams); ``"torch"`` — every
+  other case, the
+  counterpart of JAX's XLA decode — unpacks with
   :func:`~..ops.plan_codec.decode_plan_shard`, gathers ``x[row]`` (or, in
   the ``off`` tier, the implicit row ``i // T``), multiplies and scatters
   all R columns at once into a zeroed send buffer.  Complex products run
@@ -97,10 +98,23 @@ Modes (``mode=``):
   Overflow and out-of-basis targets are counted and checked on the first
   apply of each row-chunk size.  Real and complex128 sectors.
 
+Unset constructor arguments come from the runtime config
+(``utils/config.py``, the ``DMT_*`` knobs) where the JAX engine reads
+them: ``mode`` ← ``matvec_mode`` (default ``"ell"``), ``stream_compress``
+← ``stream_compress`` (default ``"off"``), ``batch_size`` ←
+``matvec_batch_size``, ``pipeline_depth`` ← ``pipeline``,
+``hybrid_split`` ← ``hybrid``, and the bucket sizing ←
+``all_to_all_capacity_factor`` and ``remote_buffer_size``.  The config's
+``stream_kernel`` is validated: ``auto`` and ``pallas`` both mean the
+decode kernel wherever it is eligible, and ``xla`` — the JAX package's
+switch to its plain decode — raises, since the port never sends a chunk
+the kernel can take through the plain path.
+
 The JAX engine's ``pipeline_depth="auto"`` and ``hybrid_split="auto"``
-(both priced by its ``obs/`` roofline calibration), the compress-drift
-probe, the ``DMT_*`` knobs, the threaded plan prefetch, ``from_shards``,
-the structure and plan caches and autotuning are not in the port.
+(both priced by its ``obs/`` roofline calibration; ``"auto"`` is the
+config's ``hybrid`` default, so a hybrid engine needs an explicit split),
+the compress-drift probe, the threaded plan prefetch, ``from_shards``, the
+structure and plan caches and autotuning are not in the port.
 """
 
 from __future__ import annotations
@@ -121,6 +135,7 @@ from ..ops import plan_codec as PC
 from ..ops.bits import build_sorted_lookup, choose_dir_bits, shard_index
 from ..ops.bits import state_index_bucketed
 from ..utils import u64
+from ..utils.config import get_config
 from ..utils.device import resolve_device
 from .shuffle import HashedLayout
 
@@ -129,17 +144,6 @@ __all__ = ["DistributedEngine", "SENTINEL_STATE", "all_to_all"]
 #: Padding state of the hashed layout: the all-ones u64, as int64 bits.
 SENTINEL_STATE = -1
 _SENTINEL_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
-
-#: Row chunk B of the plan build and the apply (the JAX config's
-#: ``matvec_batch_size`` default).
-DEFAULT_BATCH_SIZE = 1 << 16
-
-#: The JAX config's ``all_to_all_capacity_factor`` and
-#: ``remote_buffer_size`` defaults (``utils/config.py``): a bucket of the
-#: chunked modes' exchange holds ``min(max(⌈factor·B·T/D⌉, 64), B·T,
-#: remote_buffer_size)`` entries.
-ALL_TO_ALL_CAPACITY_FACTOR = 1.25
-REMOTE_BUFFER_SIZE = 150_000
 
 MODES = ("streamed", "hybrid", "ell", "compact", "fused")
 
@@ -190,6 +194,25 @@ def _mul(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return c * x
     cr, ci, xr, xi = c.real, c.imag, x.real, x.imag
     return torch.complex(cr * xr - ci * xi, cr * xi + ci * xr)
+
+
+def _check_stream_kernel() -> None:
+    """Validate the config's ``stream_kernel`` (``DMT_STREAM_KERNEL``).
+    ``auto`` and ``pallas`` take the CUDA decode kernel wherever it is
+    eligible (the JAX package's ``auto`` is its XLA decode: one
+    deliberate difference, see ``utils/config.py``).  ``xla`` asks for
+    the plain decode on chunks the kernel can take, which the port does
+    not do: it raises."""
+    sk = str(get_config().stream_kernel).strip().lower() or "auto"
+    if sk == "xla":
+        raise NotImplementedError(
+            "stream_kernel='xla' (DMT_STREAM_KERNEL): the port decodes "
+            "every chunk the CUDA decode kernel can take with that kernel "
+            "and has no switch to its plain version; unset it or pick "
+            "auto|pallas")
+    if sk not in ("auto", "pallas"):
+        raise ValueError(f"unknown stream_kernel {sk!r}; pick "
+                         "auto|xla|pallas")
 
 
 def _static_hybrid_mask(split, num_terms: int) -> np.ndarray:
@@ -252,21 +275,27 @@ class DistributedEngine:
         yh = eng.matvec(xh)
         y = eng.from_hashed(yh)
 
+    ``mode`` is one of ``streamed``, ``hybrid``, ``ell``, ``compact`` and
+    ``fused`` (default: the config's ``matvec_mode``, ``"ell"``).
     ``n_devices`` is the shard count D (default 1).  ``batch_size`` is the
-    row chunk B of the plan builds and the chunked applies (default 65536,
-    at most M); ``stream_compress`` the streamed codec tier (``off``,
-    ``lossless``, ``f32``, ``bf16``), and ``hybrid_split`` the static split
-    of ``mode="hybrid"`` (``"auto"`` raises ``NotImplementedError``).  The
-    dictionary ceiling is ``ops.plan_codec.DICT_MAX``, read at build time.
+    row chunk B of the plan builds and the chunked applies (default: the
+    config's ``matvec_batch_size``, 65536, at most M); ``stream_compress``
+    the streamed codec tier (``off``, ``lossless``, ``f32``, ``bf16``;
+    default: the config's, ``"off"``), and ``hybrid_split`` the static
+    split of ``mode="hybrid"`` (default: the config's ``hybrid``;
+    ``"auto"`` raises ``NotImplementedError``).  The dictionary ceiling
+    is ``ops.plan_codec.DICT_MAX``, read at build time.
     ``all_to_all_capacity_factor`` and ``remote_buffer_size`` size the
-    chunked modes' exchange buckets as the JAX config does.  ``device``
-    defaults to ``cuda`` and raises when there is none.  ``layout`` shares
+    chunked modes' exchange buckets (default: the config's, 1.25 and
+    150 000).  ``device`` defaults to ``cuda`` and raises when there is
+    none.  ``layout`` shares
     another engine's :class:`~.shuffle.HashedLayout` of the same basis at
     the same D (bound observables do).
 
     ``pipeline_depth`` (streamed and fused mode): the number of chunks
     whose exchanges may be in flight at once (see the module docstring);
-    None, 0, 1 and ``"off"`` are the sequential schedule.
+    0, 1 and ``"off"`` are the sequential schedule, and None takes the
+    config's ``pipeline`` (default ``"off"``).
 
     ``group`` (a :class:`~.mesh.ShardGroup`) makes this a rank engine: D is
     the group's world size, this process holds shard ``group.rank``, and
@@ -281,11 +310,11 @@ class DistributedEngine:
     """
 
     def __init__(self, operator: Operator, n_devices: Optional[int] = None,
-                 batch_size: Optional[int] = None, mode: str = "streamed",
-                 stream_compress: str = "lossless", device=None,
-                 all_to_all_capacity_factor: float =
-                 ALL_TO_ALL_CAPACITY_FACTOR,
-                 remote_buffer_size: int = REMOTE_BUFFER_SIZE,
+                 batch_size: Optional[int] = None,
+                 mode: Optional[str] = None,
+                 stream_compress: Optional[str] = None, device=None,
+                 all_to_all_capacity_factor: Optional[float] = None,
+                 remote_buffer_size: Optional[int] = None,
                  layout: Optional[HashedLayout] = None, group=None,
                  pipeline_depth=None, hybrid_split=None):
         if group is not None:
@@ -298,6 +327,11 @@ class DistributedEngine:
                                  f"on {group.device}")
             n_devices, device = group.world_size, group.device
         self.device = dev = resolve_device(device)
+        cfg = get_config()
+        mode = mode or cfg.matvec_mode
+        if stream_compress is None:
+            stream_compress = str(cfg.stream_compress).strip().lower() \
+                or "off"
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}")
         D = 1 if n_devices is None else int(n_devices)
@@ -306,6 +340,8 @@ class DistributedEngine:
         if not operator.is_hermitian:
             raise ValueError("the engine requires a Hermitian operator")
         self.real = operator.effective_is_real
+        if mode in ("streamed", "hybrid"):
+            _check_stream_kernel()
         if mode in ("streamed", "hybrid") \
                 and stream_compress not in PC.TIERS:
             raise ValueError(
@@ -337,8 +373,13 @@ class DistributedEngine:
         #: hybrid: the [T] stream mask and the recompute terms' tables
         self._hybrid_mask: Optional[np.ndarray] = None
         self._hyb_tables: Optional[K.OperatorTables] = None
-        self.all_to_all_capacity_factor = float(all_to_all_capacity_factor)
-        self.remote_buffer_size = int(remote_buffer_size)
+        self.all_to_all_capacity_factor = float(
+            cfg.all_to_all_capacity_factor
+            if all_to_all_capacity_factor is None
+            else all_to_all_capacity_factor)
+        self.remote_buffer_size = int(
+            cfg.remote_buffer_size if remote_buffer_size is None
+            else remote_buffer_size)
         self._dtype = torch.float64 if self.real else torch.complex128
         #: seconds of each construction phase
         self.timings: Dict[str, float] = {}
@@ -371,8 +412,9 @@ class DistributedEngine:
         self.num_terms = int(self.tables.off.x.shape[0])
         if mode == "hybrid":
             # validated before any collective: every rank raises alike
-            self._hybrid_mask = _static_hybrid_mask(hybrid_split,
-                                                     self.num_terms)
+            self._hybrid_mask = _static_hybrid_mask(
+                cfg.hybrid if hybrid_split is None else hybrid_split,
+                self.num_terms)
         L = len(self._shards)
         self._alphas = u64.from_numpy(alphas_np[self._shards], dev)  # [L, M]
         self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
@@ -382,7 +424,7 @@ class DistributedEngine:
             self._diag[i] = torch.where(self._alphas[i] != SENTINEL_STATE,
                                         dd, torch.zeros_like(dd))
 
-        b = min(batch_size or DEFAULT_BATCH_SIZE, M)
+        b = min(batch_size or cfg.matvec_batch_size, M)
         self.batch_size = _round_up(min(b, M), 8)
         self.pipeline_depth = pipeline_depth
         #: the last pipelined apply's record (None after a sequential one)
@@ -507,7 +549,9 @@ class DistributedEngine:
         roofline calibration, which the port does not have."""
         if self.mode not in ("fused", "streamed", "hybrid"):
             return 0
-        s = "" if value is None else str(value).strip().lower()
+        if value is None:
+            value = get_config().pipeline
+        s = str(value).strip().lower()
         if s in ("", "off", "0", "1", "false", "no", "none"):
             return 0
         if s == "auto":

@@ -42,8 +42,8 @@ from ..models.operator import Operator
 from ..ops import kernels as K
 from ..ops.bits import build_sorted_lookup, state_index_bucketed
 from ..utils import u64
+from ..utils.config import get_config
 from ..utils.device import resolve_device
-from .distributed import DEFAULT_BATCH_SIZE
 from .distributed import SENTINEL_STATE as _SENTINEL_BITS
 
 __all__ = ["LocalEngine", "pad_to_multiple", "SENTINEL_STATE",
@@ -220,16 +220,22 @@ class LocalEngine:
     ``mode='ell'`` precomputes the sparse structure (fast apply, O(N·T)
     device memory), ``'compact'`` stores 4 bytes per entry for real
     single-magnitude operators, and ``'fused'`` recomputes the structure
-    on every apply (low memory).  ``batch_size`` is the row chunk
-    (default 65536); the one-pass ELL build is taken while 1.6× its
-    full-width tables fit ``build_budget_gb``.  ``device`` defaults to
-    ``cuda`` and raises when there is none.
+    on every apply (low memory); the default is the config's
+    ``matvec_mode`` (``DMT_MATVEC_MODE``, ``'ell'``).  ``batch_size`` is
+    the row chunk (default: the config's ``matvec_batch_size``, 65536);
+    the one-pass ELL build is taken while 1.6× its full-width tables fit
+    ``build_budget_gb`` (default: the config's ``ell_build_budget_gb``,
+    12).  ``device`` defaults to ``cuda`` and raises when there is none.
     """
 
     def __init__(self, operator: Operator, batch_size: Optional[int] = None,
-                 mode: str = "ell", build_budget_gb: float = 12.0,
-                 device=None):
+                 mode: Optional[str] = None,
+                 build_budget_gb: Optional[float] = None, device=None):
         self.device = dev = resolve_device(device)
+        cfg = get_config()
+        mode = mode or cfg.matvec_mode
+        if build_budget_gb is None:
+            build_budget_gb = cfg.ell_build_budget_gb
         if mode in ("streamed", "hybrid"):
             raise ValueError(
                 f"mode={mode!r} lives on DistributedEngine (the plan "
@@ -251,7 +257,7 @@ class LocalEngine:
         self._dtype = torch.float64 if self.real else torch.complex128
         self.build_budget_gb = build_budget_gb
         n = basis.number_states
-        b = min(batch_size or DEFAULT_BATCH_SIZE, max(n, 1))
+        b = min(batch_size or cfg.matvec_batch_size, max(n, 1))
         n_pad = pad_to_multiple(n, b)
         self.n_states = n
         self.n_padded = n_pad

@@ -24,12 +24,16 @@ committed.  Acceptance is deterministic in the state.
 
 Norm drift ``| ||psi|| - 1 |`` (the propagator is unitary; drift is pure
 roundoff) and energy drift ``|E(t) - E(0)|`` (the recurrence's first alpha
-is <psi|H|psi> for free) are recorded per step.  Checkpoint/resume, the
-preemption latch and tracing of the JAX module are not in the port.
+is <psi|H|psi> for free) are recorded per step.  A set preemption latch
+stops the trajectory before the next accepted step
+(``Preempted("evolve", steps, None)``), as the JAX solver does without a
+checkpoint.  Checkpoint/resume and tracing of the JAX module are not in
+the port.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -37,8 +41,11 @@ import numpy as np
 import torch
 
 from ..models.observables import _complex_native
+from ..utils import preempt
 from ..utils.device import start_device
-from .lanczos import _rand_like, _vdot, rank_reducer, refuse_checkpoint
+from .kpm import _sync
+from .lanczos import (_rand_like, _vdot, rank_owner, rank_reducer,
+                      refuse_checkpoint)
 
 __all__ = ["EvolveResult", "krylov_evolve"]
 
@@ -58,7 +65,20 @@ class EvolveResult:
     num_steps: int
     num_applies: int
     num_rejects: int = 0
+    resumed_from: int = 0           # accepted steps restored (always 0:
+    #   the port does not checkpoint yet)
     observables: Optional[dict] = None   # name -> [(t, value), ...]
+    first_step_seconds: float = 0.0
+    steady_seconds: float = 0.0
+
+    @property
+    def steady_steps_per_s(self) -> float:
+        """Accepted-step rate over the steady window: the steps taken
+        this run minus the first (which pays the first plan stream)."""
+        rest = self.num_steps - self.resumed_from - 1
+        if rest > 0 and self.steady_seconds > 0:
+            return rest / self.steady_seconds
+        return 0.0
 
 
 def krylov_evolve(
@@ -168,9 +188,17 @@ def krylov_evolve(
         for name, fn in obs_list:
             obs_vals.setdefault(name, []).append((t, fn(psi)))
 
+    ranks = rank_owner(matvec)
+    preempt.ensure_installed()
+    first_s = 0.0
+    steady_s = 0.0
     while t < t_final * (1.0 - 1e-15):
         if max_steps is not None and step >= int(max_steps):
             break
+        # safe point per accepted step (ranks agree on the latch first)
+        preempt.safe_point("evolve", step,
+                           ranks.group if ranks is not None else None)
+        t_wall = time.perf_counter()
         # -- Krylov basis for this state (valid for any dt) ----------------
         nrm = float(torch.sqrt(_vdot(psi, psi, red).real))
         V = [psi / nrm]
@@ -239,6 +267,12 @@ def krylov_evolve(
             dt = min(dt_try * 1.41421356, dt_max)
         else:
             dt = dt_try
+        _sync(psi)
+        dwall = time.perf_counter() - t_wall
+        if step == 1:
+            first_s = dwall
+        else:
+            steady_s += dwall
 
     # close the energy trajectory at the final state (one extra apply) so
     # energies aligns with times; this also covers a run that took no step
@@ -258,4 +292,5 @@ def krylov_evolve(
         psi=psi, times=np.asarray(times), energies=np.asarray(energies),
         norm_drift=float(norm_drift), energy_drift=float(energy_drift),
         num_steps=step, num_applies=napply, num_rejects=rejects,
-        observables=obs_vals if obs_list else None)
+        observables=obs_vals if obs_list else None,
+        first_step_seconds=first_s, steady_seconds=steady_s)

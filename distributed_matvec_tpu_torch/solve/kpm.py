@@ -28,24 +28,36 @@ operator.
 
 On a rank engine (one shard per process) every dot is summed over the
 ranks through the engine's all-reduce, so each rank holds the same moments.
-Checkpoint/resume, the preemption latch and tracing of the JAX module are
-not in the port; complex sectors run natively in complex128.
+A set preemption latch stops :func:`kpm_moments` at the next moment block
+(``Preempted("kpm", j, None)``), as the JAX solver does without a
+checkpoint.  Checkpoint/resume and tracing of the JAX module are not in
+the port; complex sectors run natively in complex128.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import preempt
 from ..utils.device import start_device
-from .lanczos import _rand_like, _vdot, rank_reducer, refuse_checkpoint
+from .lanczos import (_rand_like, _vdot, rank_owner, rank_reducer,
+                      refuse_checkpoint)
 
 __all__ = ["KPMResult", "spectral_bounds", "kpm_moments", "kpm_dos",
            "kpm_spectral_function", "jackson_kernel", "lorentz_kernel",
            "reconstruct_dos", "exact_moments"]
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the card's queued work on ``t``'s device, so a wall-clock
+    reading covers it (the JAX solver's ``block_until_ready``)."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
 
 
 def _mv_fn(matvec: Callable):
@@ -140,6 +152,20 @@ class KPMResult:
     scale: Tuple[float, float]     # (a, b): H~ = (H - b)/a
     n_vectors: int
     num_applies: int               # engine applies (bounds pass included)
+    resumed_from: int = 0          # moment steps restored (always 0: the
+    #   port does not checkpoint yet)
+    # rate bookkeeping: the first recurrence apply pays the first plan
+    # stream (and, on the card, the kernels' first launches)
+    first_block_seconds: float = 0.0
+    first_block_moments: int = 0
+    steady_seconds: float = 0.0
+
+    @property
+    def steady_moments_per_s(self) -> float:
+        rest = len(self.moments) - self.first_block_moments
+        if rest > 0 and self.steady_seconds > 0:
+            return rest / self.steady_seconds
+        return 0.0
 
 
 def kpm_moments(matvec: Callable, n_moments: int = 256,
@@ -186,10 +212,13 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     R = int(V0.shape[-1])
 
     # the probe apply is the j = 0 recurrence apply (it fixes the dtype)
+    t_wall = time.perf_counter()
     y0 = mv(V0)
     napply = 1
     dtype = torch.promote_types(V0.dtype, y0.dtype)
     t0 = V0.to(dtype)
+    _sync(t0)
+    first_s = time.perf_counter() - t_wall
 
     if bounds is None:
         # an explicit start block also seeds the bounds pass (its first
@@ -216,9 +245,18 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     filled = 2
     del y0
 
+    ranks = rank_owner(matvec)
+    preempt.ensure_installed()
+    steady_s = 0.0
+    # the probe apply is the first block; every pass after it is steady
+    first_moments = 2
     # each pass: harvest the doubling pair for the current t_j, then
     # advance the recurrence by one apply
     while filled < n_moments:
+        # safe point per moment block (ranks agree on the latch first)
+        preempt.safe_point("kpm", j,
+                           ranks.group if ranks is not None else None)
+        t_step = time.perf_counter()
         # doubling identities at index j (t_lo = t_{j-1}, t_hi = t_j)
         if 2 * j - 1 < n_moments and 2 * j - 1 >= filled:
             mu_cols[2 * j - 1] = 2.0 * _col_dots(t_hi, t_lo, red) \
@@ -231,13 +269,18 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
             y = mv(t_hi).to(dtype)
             napply += 1
             t_lo, t_hi = t_hi, (2.0 / a) * y - (2.0 * b / a) * t_hi - t_lo
+            _sync(t_hi)
             j += 1
+        steady_s += time.perf_counter() - t_step
 
     mu = mu_cols.mean(axis=1)
     stderr = (mu_cols.std(axis=1) / np.sqrt(max(R, 1))
               if R > 1 else np.zeros(n_moments))
     return KPMResult(moments=mu, moment_stderr=stderr, bounds=(emin, emax),
-                     scale=(a, b), n_vectors=R, num_applies=napply)
+                     scale=(a, b), n_vectors=R, num_applies=napply,
+                     first_block_seconds=first_s,
+                     first_block_moments=first_moments,
+                     steady_seconds=steady_s)
 
 
 # -- kernels and reconstruction ---------------------------------------------

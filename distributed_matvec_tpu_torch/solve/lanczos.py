@@ -51,6 +51,8 @@ import numpy as np
 import torch
 from scipy.linalg import eigh
 
+from ..utils import preempt
+from ..utils.config import get_config
 from ..utils.device import start_device
 
 __all__ = ["LanczosResult", "lanczos", "lanczos_block", "rank_reducer"]
@@ -67,7 +69,7 @@ _OMEGA_SQRT_EPS = 1e-8
 
 _NO_CHECKPOINT = ("checkpoint_path: solver checkpoint/resume writes HDF5 and "
                   "is not in the port yet (it comes with the CLI slice: "
-                  "apps, io/hdf5.py, utils/preempt.py)")
+                  "apps and io/hdf5.py)")
 
 
 def rank_owner(matvec: Callable):
@@ -321,7 +323,7 @@ def lanczos(
     max_basis_size: Optional[int] = None,
     min_restart_size: Optional[int] = None,
     check_every: int = 16,
-    reorth: str = "selective",
+    reorth: Optional[str] = None,
     checkpoint_path: Optional[str] = None,
     device=None,
     dtype: Optional[torch.dtype] = None,
@@ -336,8 +338,12 @@ def lanczos(
     ``reorth`` is ``"selective"`` (window passes gated by the ω estimate,
     redone with the full sweep when it crosses √ε; the first block after a
     restart and remainders shorter than half a block are always full) or
-    ``"full"`` (two full passes every step).  ``checkpoint_path`` is not
-    supported yet and raises ``NotImplementedError``.
+    ``"full"`` (two full passes every step); None takes the config's
+    ``lanczos_reorth`` (``DMT_LANCZOS_REORTH``, default selective).
+    ``checkpoint_path`` is not supported yet and raises
+    ``NotImplementedError``.  A set preemption latch stops the solve after
+    the next convergence-check block with ``Preempted("lanczos", iters,
+    None)``.
 
     ``device`` defaults to the device of ``v0`` when that is a tensor, else
     to ``cuda``, raising when there is none.  The vectors are ``dtype``
@@ -349,6 +355,9 @@ def lanczos(
     """
     refuse_checkpoint(checkpoint_path)
     red = rank_reducer(matvec)
+    ranks = rank_owner(matvec)
+    if reorth is None:
+        reorth = get_config().lanczos_reorth
     if reorth not in ("selective", "full"):
         raise ValueError(
             f"unknown reorth policy {reorth!r} (use selective | full)")
@@ -402,6 +411,7 @@ def lanczos(
     # arrowhead coupling row must be projected out against every locked row
     pending_full = False
     full_sweeps = 0
+    preempt.ensure_installed()
 
     while total_iters < max_iters and not converged:
         if m == mcap:
@@ -468,6 +478,10 @@ def lanczos(
             break
         if broke is not None:
             break
+        # safe point: the recurrence state is host-consistent and no
+        # collective is in flight; ranks agree on the latch first
+        preempt.safe_point("lanczos", total_iters,
+                           ranks.group if ranks is not None else None)
 
     kk = min(k, m)
     evecs = None
@@ -539,7 +553,9 @@ def lanczos_block(
     are the same bits on every rank.
 
     ``device`` defaults to the device of the start block when it is a
-    tensor, else to ``cuda`` (raising when there is none).
+    tensor, else to ``cuda`` (raising when there is none).  A set
+    preemption latch stops the solve at the next block boundary with
+    ``Preempted("lanczos_block", columns so far, None)``.
     """
     owner = getattr(matvec, "__self__", None)
     ranks = rank_owner(matvec)
@@ -661,8 +677,13 @@ def lanczos_block(
             out.append(e.reshape(vec_shape) if vec_shape else e)
         return out
 
+    preempt.ensure_installed()
     j = 0
     while True:
+        # safe point between block steps (the JAX solver's, without its
+        # checkpoint): a preempted solve stops at a block boundary
+        preempt.safe_point("lanczos_block", total,
+                           ranks.group if ranks is not None else None)
         Qj = blocks[-1]
         # step 0 reuses the probe's apply
         W = (W0 if j == 0 else mv(Qj)).to(dtype)

@@ -44,7 +44,9 @@ are drawn whole on every rank, which keeps its rows; and the basis
 extension gathers the few leading rows of the global space it reads.
 
 Real sectors only (the JAX solver's (re, im) pair form is not ported);
-checkpoint/resume is not in the port.
+checkpoint/resume is not in the port.  The JAX solver checks the
+preemption latch only between the segments it checkpoints; without a
+checkpoint it runs one-shot with no safe point, and so does this one.
 """
 
 from __future__ import annotations

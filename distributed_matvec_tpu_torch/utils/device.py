@@ -16,17 +16,15 @@ __all__ = ["resolve_device", "start_device"]
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``device`` as a :class:`torch.device`; ``None`` means ``cuda``, and
-    raises when no CUDA device is present.  A CUDA device gets its index
+    """``device`` as a :class:`torch.device`; ``None`` means ``cuda``.  A
+    CUDA device raises when none is present.  A CUDA device gets its index
     (the current device when none is given), so it compares equal to the
     device of the tensors made on it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -17,10 +17,12 @@ coefficients within 1e-15.  The streamed engine's multi-column apply is
 held column by column to its rank-1 applies at atol 1e-13 (the same
 per-column decode launches; the atomic adds of two applies need not run
 in the same order), and the block solvers on the card to the same solvers
-on the CPU: eigenvalues within 1e-10, KPM moments within 1e-11.  The
-synthetic chunks are ``chip_smoke.py``'s.
+on the CPU: eigenvalues within 1e-10, KPM moments within 1e-11; a job
+served on the card to the same job served on the CPU: eigenvalues within
+1e-13 relative.  The synthetic chunks are ``chip_smoke.py``'s.
 """
 
+import json
 import os
 import sys
 
@@ -101,7 +103,8 @@ def test_kernel_on_sharded_plan_chunks(cuda):
     """Every (chunk, shard) of a real D = 4 plan, whose rok streams differ
     from the send occupancy: the kernel equals the plain version."""
     op = heisenberg_chain(16, symmetric=True)
-    eng = DistributedEngine(op, n_devices=4, batch_size=32, device=cuda)
+    eng = DistributedEngine(op, n_devices=4, batch_size=32, device=cuda,
+                            mode="streamed", stream_compress="lossless")
     spec = eng._codec.spec
     assert spec["D"] == 4 and eng.nchunks > 1
     rng = np.random.default_rng(4)
@@ -120,9 +123,9 @@ def test_sharded_engine_on_card_matches_cpu(cuda, mode):
     streamed apply launches the decode kernel once per shard per chunk."""
     op = heisenberg_chain(16, symmetric=True)
     e_gpu = DistributedEngine(op, n_devices=4, mode=mode, batch_size=32,
-                              device=cuda)
+                              device=cuda, stream_compress="lossless")
     e_cpu = DistributedEngine(op, n_devices=4, mode=mode, batch_size=32,
-                              device="cpu")
+                              device="cpu", stream_compress="lossless")
     x = np.random.default_rng(1).random(op.basis.number_states) - 0.5
     before = PC.fused_decode_gather_scatter.launches
     np.testing.assert_allclose(e_gpu.matvec_global(x),
@@ -137,8 +140,10 @@ def test_sharded_engine_on_card_matches_cpu(cuda, mode):
 
 def test_engine_on_card_matches_cpu(cuda):
     op = heisenberg_chain(16, symmetric=True)
-    e_gpu = DistributedEngine(op, batch_size=64, device=cuda)
-    e_cpu = DistributedEngine(op, batch_size=64, device="cpu")
+    e_gpu = DistributedEngine(op, batch_size=64, device=cuda,
+                              mode="streamed", stream_compress="lossless")
+    e_cpu = DistributedEngine(op, batch_size=64, device="cpu",
+                              mode="streamed", stream_compress="lossless")
     x = np.random.default_rng(1).random(op.basis.number_states) - 0.5
     before = PC.fused_decode_gather_scatter.launches
     np.testing.assert_allclose(e_gpu.matvec_global(x),
@@ -206,8 +211,10 @@ def test_streamed_block_apply_on_card(cuda):
     """A [1, M, 4] apply launches the decode kernel once per column per
     chunk, and each column equals a rank-1 apply of that column."""
     op = heisenberg_chain(16, symmetric=True)
-    e_gpu = DistributedEngine(op, batch_size=64, device=cuda)
-    e_cpu = DistributedEngine(op, batch_size=64, device="cpu")
+    e_gpu = DistributedEngine(op, batch_size=64, device=cuda,
+                              mode="streamed", stream_compress="lossless")
+    e_cpu = DistributedEngine(op, batch_size=64, device="cpu",
+                              mode="streamed", stream_compress="lossless")
     X = e_gpu.random_hashed(3, cols=4)
     before = PC.fused_decode_gather_scatter.launches
     Y = e_gpu.matvec(X)
@@ -224,8 +231,10 @@ def test_streamed_block_apply_on_card(cuda):
 
 def test_block_solvers_on_card_match_cpu(cuda):
     op = heisenberg_chain(16, symmetric=True)
-    e_gpu = DistributedEngine(op, batch_size=64, device=cuda)
-    e_cpu = DistributedEngine(op, batch_size=64, device="cpu")
+    e_gpu = DistributedEngine(op, batch_size=64, device=cuda,
+                              mode="streamed", stream_compress="lossless")
+    e_cpu = DistributedEngine(op, batch_size=64, device="cpu",
+                              mode="streamed", stream_compress="lossless")
     got = lanczos_block(e_gpu.matvec, k=2, tol=1e-11, max_iters=400)
     want = lanczos_block(e_cpu.matvec, k=2, tol=1e-11, max_iters=400)
     assert got.converged and want.converged
@@ -257,9 +266,10 @@ def test_rank_engine_one_rank_on_card(cuda, backend, tmp_path):
         assert g.stages_host == (backend == "gloo")
         chip_smoke.wire_check(g, cuda)
         for mode in ("streamed", "ell", "fused"):
-            e = DistributedEngine(op, mode=mode, batch_size=64, group=g)
+            e = DistributedEngine(op, mode=mode, batch_size=64, group=g,
+                                  stream_compress="lossless")
             e_cpu = DistributedEngine(op, mode=mode, batch_size=64,
-                                      device="cpu")
+                                      device="cpu", stream_compress="lossless")
             assert e.device == cuda
             np.testing.assert_allclose(e.matvec_global(x),
                                        e_cpu.matvec_global(x),
@@ -281,7 +291,7 @@ def test_pipelined_applies_on_card(cuda):
     x = np.random.default_rng(8).random(op.basis.number_states) - 0.5
     for mode in ("streamed", "fused"):
         e = DistributedEngine(op, n_devices=4, mode=mode, batch_size=16,
-                              device=cuda)
+                              device=cuda, stream_compress="lossless")
         xh = e.to_hashed(x)
         torch.use_deterministic_algorithms(True)
         try:
@@ -292,7 +302,7 @@ def test_pipelined_applies_on_card(cuda):
         finally:
             torch.use_deterministic_algorithms(False)
         e_cpu = DistributedEngine(op, n_devices=4, mode=mode, batch_size=16,
-                                  device="cpu")
+                                  device="cpu", stream_compress="lossless")
         np.testing.assert_allclose(e.from_hashed(y0), e_cpu.matvec_global(x),
                                    atol=1e-13, rtol=1e-12)
 
@@ -319,7 +329,8 @@ def test_rank_engine_pipelined_on_card(cuda, backend, tmp_path):
             got, want = g.exchange_staged(v), g.exchange(v)
             assert got.dtype == want.dtype and torch.equal(got, want), name
         for mode in ("streamed", "fused"):
-            e = DistributedEngine(op, mode=mode, batch_size=32, group=g)
+            e = DistributedEngine(op, mode=mode, batch_size=32, group=g,
+                                  stream_compress="lossless")
             xh = e.to_hashed(x)
             torch.use_deterministic_algorithms(True)
             try:
@@ -340,7 +351,7 @@ def test_kernel_on_f32_dictionary_chunks(cuda):
     engine's apply launches it once per chunk."""
     op = heisenberg_chain(16, symmetric=True)
     eng = DistributedEngine(op, batch_size=64, stream_compress="f32",
-                            device=cuda)
+                            device=cuda, mode="streamed")
     spec = eng._codec.spec
     assert eng.stream_kernel == "cuda" and spec["coeff"] == "dict"
     rng = np.random.default_rng(6)
@@ -361,8 +372,10 @@ def test_complex_streamed_on_card_matches_cpu(cuda):
     rtol 1e-12 of the same engine on the CPU, and a ``[1, M, 3]`` apply
     column by column against its single-column applies."""
     op = _k1_ring(16)
-    e_gpu = DistributedEngine(op, batch_size=256, device=cuda)
-    e_cpu = DistributedEngine(op, batch_size=256, device="cpu")
+    e_gpu = DistributedEngine(op, batch_size=256, device=cuda,
+                              mode="streamed", stream_compress="lossless")
+    e_cpu = DistributedEngine(op, batch_size=256, device="cpu",
+                              mode="streamed", stream_compress="lossless")
     assert e_gpu.stream_kernel == "torch" and not e_gpu.real
     rng = np.random.default_rng(3)
     n = op.basis.number_states
@@ -387,9 +400,11 @@ def test_hybrid_send_buffer_on_card(cuda):
     bit, and the hybrid apply equals the streamed one under deterministic
     algorithms."""
     op = heisenberg_chain(16, symmetric=True)
-    es = DistributedEngine(op, batch_size=64, device=cuda)
+    es = DistributedEngine(op, batch_size=64, device=cuda,
+                           mode="streamed", stream_compress="lossless")
     eh = DistributedEngine(op, batch_size=64, mode="hybrid",
-                           hybrid_split="stream:0,2,5", device=cuda)
+                           hybrid_split="stream:0,2,5", device=cuda,
+                           stream_compress="lossless")
     assert es.stream_kernel == "cuda" and eh.stream_kernel == "torch"
     xh = es.random_hashed(2)
     for ci in range(es.nchunks):
@@ -401,3 +416,40 @@ def test_hybrid_send_buffer_on_card(cuda):
         assert torch.equal(eh.matvec(xh), es.matvec(xh))
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def test_served_streamed_job_on_card(cuda, tmp_path):
+    """A served ``mode="streamed"`` job at chain_20_symm (``lossless``
+    through the config): the decode kernel runs under the service, and
+    the job's eigenvalues equal the same job served on the CPU within
+    1e-13 relative."""
+    from distributed_matvec_tpu_torch.serve import (JobSpec, SolveService,
+                                                    submit_to_spool)
+    from distributed_matvec_tpu_torch.utils.config import (get_config,
+                                                           update_config)
+
+    n = 20
+    basis = {"number_spins": n, "hamming_weight": n // 2,
+             "spin_inversion": 1,
+             "symmetries": [[[*range(1, n), 0], 0],
+                            [[*reversed(range(n))], 0]]}
+    prev = get_config().stream_compress
+    update_config(stream_compress="lossless")
+    try:
+        recs, launches = {}, {}
+        for where in ("cuda", "cpu"):
+            spool = str(tmp_path / where)
+            submit_to_spool(spool, JobSpec(job_id="s20", basis=basis, k=2,
+                                           tol=1e-12, mode="streamed"))
+            PC.fused_decode_gather_scatter.launches = 0
+            assert SolveService(spool, device=where).run(drain=True) == 0
+            launches[where] = PC.fused_decode_gather_scatter.launches
+            with open(os.path.join(spool, "done", "s20.json")) as f:
+                recs[where] = json.load(f)
+    finally:
+        update_config(stream_compress=prev)
+    assert launches["cuda"] > 0 and launches["cpu"] == 0
+    assert recs["cuda"]["status"] == recs["cpu"]["status"] == "done"
+    np.testing.assert_allclose(recs["cuda"]["eigenvalues"],
+                               recs["cpu"]["eigenvalues"], rtol=1e-13,
+                               atol=0)

@@ -32,6 +32,10 @@ def test_import_pulls_in_no_jax():
     mods = _modules()
     assert "distributed_matvec_tpu_torch.parallel.distributed" in mods
     assert "distributed_matvec_tpu_torch.parallel.mesh" in mods
+    for sub in ("serve.capacity", "serve.scheduler", "serve.service",
+                "obs.export", "obs.flight", "utils.config",
+                "utils.preempt", "utils.logging", "apps.solve_service"):
+        assert f"distributed_matvec_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -69,16 +73,73 @@ def test_source_imports_no_jax(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+#: calls that load a module from a file path
+_PATH_LOADERS = ("spec_from_file_location", "SourceFileLoader", "run_path",
+                 "load_source", "exec_module")
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_loads_nothing_by_path(path):
+    """The port loads no module from a file path (the JAX scheduler loads
+    ``tools/capacity.py`` so), and no path of the port names ``tools/``
+    as a place to import from."""
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        name = f.attr if isinstance(f, ast.Attribute) else \
+            getattr(f, "id", "")
+        assert name not in _PATH_LOADERS, \
+            f"{path}:{node.lineno} loads a module by path ({name})"
+        if name in ("join", "insert", "append"):
+            consts = [a.value for a in node.args
+                      if isinstance(a, ast.Constant)
+                      and isinstance(a.value, str)]
+            assert not any(c.strip("/").split("/")[0] == "tools"
+                           for c in consts), \
+                f"{path}:{node.lineno} reaches into tools/"
+
+
 def test_entry_points_refuse_cpu_without_request(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     op = heisenberg_chain(8, symmetric=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        port.DistributedEngine(op, batch_size=64)
+        port.DistributedEngine(op, batch_size=64,
+                               mode="streamed", stream_compress="lossless")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.lanczos(lambda v: v, n=4)
     # asked for explicitly, the CPU runs
-    eng = port.DistributedEngine(op, batch_size=64, device="cpu")
+    eng = port.DistributedEngine(op, batch_size=64, device="cpu",
+                                 mode="streamed", stream_compress="lossless")
     assert eng.device.type == "cpu"
+
+
+def test_service_refuses_cpu_without_request(monkeypatch, tmp_path):
+    """The solve service's classes run on the card: without one they raise
+    unless the caller passes ``device="cpu"``; nothing falls back."""
+    from distributed_matvec_tpu_torch.apps import solve_service as app
+    from distributed_matvec_tpu_torch.serve import (EnginePool, JobSpec,
+                                                    Scheduler, SolveService,
+                                                    build_engine)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spool = str(tmp_path / "spool")
+    for make in (lambda: EnginePool(), lambda: Scheduler(),
+                 lambda: SolveService(spool),
+                 lambda: EnginePool(device="cuda"),
+                 lambda: build_engine(JobSpec(
+                     job_id="x", basis={"number_spins": 8}))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        app.main([spool, "--drain"])
+    assert EnginePool(device="cpu").device.type == "cpu"
+    assert Scheduler(device="cpu").device.type == "cpu"
+    svc = SolveService(spool, device="cpu")
+    assert svc.scheduler.device.type == "cpu"
+    assert app.main([spool, "--drain", "--device", "cpu"]) == 0
 
 
 def test_out_of_scope_raises_not_implemented():
@@ -89,11 +150,11 @@ def test_out_of_scope_raises_not_implemented():
     engine, and hybrid mode with a static split."""
     op = heisenberg_chain(8, symmetric=True)
     for kw in ({"mode": "hybrid"}, {"mode": "hybrid", "hybrid_split": "auto"},
-               {"pipeline_depth": "auto"}):
+               {"mode": "streamed", "pipeline_depth": "auto"}):
         with pytest.raises(NotImplementedError, match="auto"):
             port.DistributedEngine(op, batch_size=64, device="cpu", **kw)
-    for kw in ({"stream_compress": "off"},
-               {"n_devices": 2, "stream_compress": "bf16"},
+    for kw in ({"mode": "streamed", "stream_compress": "off"},
+               {"mode": "streamed", "n_devices": 2, "stream_compress": "bf16"},
                {"mode": "hybrid", "hybrid_split": "all-recompute"}):
         port.DistributedEngine(op, batch_size=64, device="cpu", **kw)
     # a k = 1 momentum sector has complex characters
@@ -101,5 +162,6 @@ def test_out_of_scope_raises_not_implemented():
     complex_op = heisenberg_from_edges(basis, chain_edges(8))
     for D in (1, 2):
         eng = port.DistributedEngine(complex_op, n_devices=D, batch_size=64,
-                                     device="cpu")
+                                     device="cpu", mode="streamed",
+                                     stream_compress="lossless")
         assert not eng.real and eng.stream_kernel == "torch"

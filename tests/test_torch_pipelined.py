@@ -66,6 +66,7 @@ class Config:
         return x if self.real else x + 1j * (rng.random(shape) - 0.5)
 
     def engine(self, D, mode, depth=None, **kw):
+        kw.setdefault("stream_compress", "lossless")
         return DistributedEngine(self.op_t, n_devices=D, mode=mode,
                                  batch_size=B, device="cpu",
                                  pipeline_depth=depth, **kw)
@@ -197,7 +198,8 @@ def test_depth_refusals_and_modes(chain10):
     for mode in ("ell", "compact"):
         assert c.engine(2, mode, depth=3).pipeline_depth == 0
     one = DistributedEngine(c.op_t, n_devices=2, mode="streamed",
-                            batch_size=4096, device="cpu", pipeline_depth=4)
+                            batch_size=4096, device="cpu", pipeline_depth=4,
+                            stream_compress="lossless")
     assert one.nchunks == 1 and one.pipeline_depth == 0
 
 

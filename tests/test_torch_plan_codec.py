@@ -303,7 +303,8 @@ def plans(request):
         update_config(stream_compress="off")
     e_t = TorchEngine(operator_from_reference(operator_arrays(op_j),
                                               device="cpu"),
-                      batch_size=32, device="cpu")
+                      batch_size=32, device="cpu", mode="streamed",
+                      stream_compress="lossless")
     return {
         "jax": (e_j._codec.spec, e_j._codec.dict_device_row(0),
                 [c[0] for c in e_j._plan_chunks]),

@@ -121,7 +121,8 @@ class Ref:
         self.N = self.op_j.basis.number_states
         self.real = self.op_j.effective_is_real
         self.eng = {m: DistributedEngine(self.op_t, n_devices=W, mode=m,
-                                         batch_size=B, device="cpu")
+                                         batch_size=B, device="cpu",
+                                         stream_compress="lossless")
                     for m in modes}
         self.jax = JaxEngine(self.op_j, n_devices=W, mode="ell",
                              batch_size=B)
@@ -418,7 +419,8 @@ def test_rank_engine_arguments():
     g = mesh.ShardGroup(rank=0, world_size=2, backend="gloo",
                         device=torch.device("cpu"))
     with pytest.raises(ValueError, match="one shard per rank"):
-        DistributedEngine(op_t, n_devices=4, group=g)
+        DistributedEngine(op_t, n_devices=4, group=g,
+                          mode="streamed", stream_compress="lossless")
     e2 = DistributedEngine(op_t, n_devices=2, mode="fused", device="cpu")
     with pytest.raises(ValueError, match="shared layout is for 70 states "
                                          "on 2 shards, engine needs 70 on 4"):
@@ -549,3 +551,31 @@ def test_rank_codec_mismatch_raises_on_every_rank(ranks):
     msgs = [out["forms"]["mismatch"] for out in ranks[2]]
     assert all(m is not None and "codecs differ" in m for m in msgs), msgs
     assert len(set(msgs)) == 1
+
+
+# -- the preemption latch on ranks --------------------------------------------
+
+@pytest.mark.parametrize("W", sorted(RW.CASES))
+def test_rank_preempt_agreed(ranks, W):
+    """``preempt.agreed(group)`` max-reduces the latch: when only the last
+    rank latches, every rank sees it set.  Each solver's safe point on a
+    rank engine, with only rank 0 latched after its third apply, raises
+    ``Preempted`` on every rank at the same iteration; a one-shot
+    ``lobpcg`` (no checkpoint, no safe point) finishes on every rank."""
+    outs = [out["preempt"] for out in ranks[W]]
+    for r, o in enumerate(outs):
+        assert not o["agreed_before"] and not o["agreed_after"]
+        assert o["local"] == (r == W - 1)
+        assert o["agreed"]
+    assert all(o["lobpcg"] is None for o in outs)
+    for name in ("lanczos", "lanczos_block", "kpm", "evolve"):
+        got = {o[name] for o in outs}
+        assert len(got) == 1, (name, got)
+        solver, iters, ckpt = got.pop()
+        assert solver == name and ckpt is None
+        # the first safe point after the third apply: lanczos after its
+        # first 16-step block; lanczos_block before step 3 (the probe is
+        # step 0's apply; 3 steps of 2 columns); kpm before moment step
+        # 3; evolve after its first accepted step (8 Krylov applies)
+        want = {"lanczos": 16, "lanczos_block": 6, "kpm": 3, "evolve": 1}
+        assert iters == want[name], (name, iters)

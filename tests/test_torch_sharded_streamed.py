@@ -80,7 +80,7 @@ def _pair(cfg, mode):
         update_config(stream_compress="off")
     op_t = operator_from_reference(operator_arrays(op_j), device="cpu")
     e_t = DistributedEngine(op_t, n_devices=D, mode=mode, batch_size=B,
-                            device="cpu")
+                            device="cpu", stream_compress="lossless")
     return op_j, e_j, e_t
 
 
@@ -177,7 +177,8 @@ def test_streamed_fill_is_send_occupancy_not_rok():
     op.basis.build()
     e_t = DistributedEngine(operator_from_reference(operator_arrays(op),
                                                     device="cpu"),
-                            n_devices=4, batch_size=16, device="cpu")
+                            n_devices=4, batch_size=16, device="cpu",
+                            mode="streamed", stream_compress="lossless")
     spec = e_t._codec.spec
     D, cap, n_recv, nl = spec["D"], spec["cap_eff"], spec["n_recv"], \
         spec["n_live"]
@@ -212,7 +213,8 @@ def test_streamed_kernel_plain_on_sharded_chunks():
     op.basis.build()
     e_t = DistributedEngine(operator_from_reference(operator_arrays(op),
                                                     device="cpu"),
-                            n_devices=4, batch_size=16, device="cpu")
+                            n_devices=4, batch_size=16, device="cpu",
+                            mode="streamed", stream_compress="lossless")
     spec = e_t._codec.spec
     nl, n_recv = spec["n_live"], spec["n_recv"]
     nwd = TPC.packed_words(nl, spec["w_dest"])
@@ -271,7 +273,8 @@ def test_tiny_remote_buffer_overflows_in_both(mode):
             e_t = DistributedEngine(op_t, n_devices=8, mode=mode,
                                     batch_size=128, device="cpu",
                                     all_to_all_capacity_factor=1.0,
-                                    remote_buffer_size=8)
+                                    remote_buffer_size=8,
+                                    stream_compress="lossless")
             e_t.matvec(e_t.to_hashed(x))
 
 

@@ -71,7 +71,9 @@ class Case:
         if streamed:
             self.js = jax_streamed(self.op_j)
             self.ts = DistributedEngine(self.op_t, batch_size=B,
-                                        device="cpu")
+                                        device="cpu",
+                                        mode="streamed",
+                                        stream_compress="lossless")
 
 
 @pytest.fixture(scope="module")

@@ -47,7 +47,8 @@ def engines(request):
     finally:
         update_config(stream_compress="off")
     op_t = operator_from_reference(operator_arrays(op_j), device="cpu")
-    e_t = DistributedEngine(op_t, batch_size=64, device="cpu")
+    e_t = DistributedEngine(op_t, batch_size=64, device="cpu",
+                            mode="streamed", stream_compress="lossless")
     return op_j, e_j, e_t
 
 
@@ -111,7 +112,8 @@ def test_n16_anchor_end_to_end():
     """README-style library use on the port alone: build → engine →
     Lanczos reproduces the N=16 ring ground state."""
     op = heisenberg_chain(16, symmetric=True)
-    eng = DistributedEngine(op, batch_size=64, device="cpu")
+    eng = DistributedEngine(op, batch_size=64, device="cpu",
+                            mode="streamed", stream_compress="lossless")
     # "full": one apply per iteration (the selective default redoes a
     # block whose ω estimate crosses √ε, applying its steps again)
     res = lanczos(eng.matvec, v0=eng.random_hashed(1), k=1, device="cpu",

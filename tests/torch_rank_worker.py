@@ -17,6 +17,7 @@ import os
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -66,9 +67,11 @@ def pipe_depths(nchunks):
 #: or None)
 FORMS = {
     "hybrid_mixed": (12, 6, 1, SYMS_12_K0, 32,
-                     {"mode": "hybrid", "hybrid_split": "stream:0,2,5"},
+                     {"mode": "hybrid", "hybrid_split": "stream:0,2,5",
+                      "stream_compress": "lossless"},
                      None),
-    "f32_raw": (12, 6, 1, SYMS_12_K0, 32, {"stream_compress": "f32"}, 2),
+    "f32_raw": (12, 6, 1, SYMS_12_K0, 32,
+                {"mode": "streamed", "stream_compress": "f32"}, 2),
 }
 
 
@@ -152,7 +155,7 @@ def run_case(g, name, spec):
     res = {}
     for mode in modes:
         eng = DistributedEngine(op, mode=mode, batch_size=B, group=g,
-                                device="cpu")
+                                device="cpu", stream_compress="lossless")
         r = {"plan": plan_of(eng), "shard_size": eng.shard_size}
         x = inputs(N, eng.real)
         r["y"] = eng.matvec(eng.to_hashed(x))[0].numpy().copy()
@@ -266,7 +269,7 @@ def run_forms(g):
     try:
         DistributedEngine(op, batch_size=32, group=g, device="cpu",
                           stream_compress="lossless" if g.rank == 0
-                          else "f32")
+                          else "f32", mode="streamed")
         out["mismatch"] = None
     except RuntimeError as e:
         out["mismatch"] = str(e)
@@ -286,11 +289,71 @@ def run_overflow(g):
             eng = DistributedEngine(op, mode=mode, batch_size=128, group=g,
                                     device="cpu",
                                     all_to_all_capacity_factor=1.0,
-                                    remote_buffer_size=8)
+                                    remote_buffer_size=8,
+                                    stream_compress="lossless")
             eng.matvec(eng.to_hashed(x))
             out[mode] = None
         except RuntimeError as e:
             out[mode] = str(e)
+    return out
+
+
+def run_preempt(g):
+    """The preemption latch across ranks: ``agreed`` max-reduces it, so
+    when only the last rank latches every rank sees it set; then each
+    solver's safe point on a rank engine raises ``Preempted`` on every
+    rank alike; a one-shot ``lobpcg`` has none and runs through (record:
+    solver → (name, iterations) or None)."""
+    from distributed_matvec_tpu_torch import (DistributedEngine,
+                                              kpm_moments, krylov_evolve,
+                                              lanczos, lanczos_block,
+                                              lobpcg)
+    from distributed_matvec_tpu_torch.utils import preempt
+
+    out = {"agreed_before": preempt.agreed(g)}
+    if g.rank == g.world_size - 1:
+        preempt.trigger()
+    out["local"] = preempt.requested()
+    out["agreed"] = preempt.agreed(g)
+    preempt.reset()
+    op = build_op(12, 6, 1, SYMS_12_K0)
+    eng = DistributedEngine(op, mode="ell", batch_size=32, group=g,
+                            device="cpu")
+    solves = {
+        "lanczos": lambda: lanczos(eng.matvec, v0=eng.random_hashed(1),
+                                   tol=1e-14, max_iters=200),
+        "lanczos_block": lambda: lanczos_block(eng.matvec, k=2,
+                                               block_size=2, seed=1),
+        "lobpcg": lambda: lobpcg(eng.matvec, eng.n_states, k=2,
+                                 max_iters=60, tol=1e-14, seed=1),
+        "kpm": lambda: kpm_moments(eng.matvec, n_moments=16, n_vectors=2,
+                                   bounds=KPM_BOUNDS, seed=1),
+        "evolve": lambda: krylov_evolve(eng.matvec, t_final=0.5, seed=1,
+                                        krylov_dim=8),
+    }
+    inner = eng.matvec
+    for name, solve in solves.items():
+        # only rank 0 latches, after its third apply: the others learn it
+        # at the next agreed safe point.  The wrapper stays a method of
+        # the engine, so the solvers still find the rank engine behind it
+        calls = {"n": 0}
+
+        def counting(self, x, calls=calls):
+            calls["n"] += 1
+            if g.rank == 0 and calls["n"] == 3:
+                preempt.trigger()
+            return inner(x)
+
+        eng.matvec = types.MethodType(counting, eng)
+        try:
+            solve()
+            out[name] = None
+        except preempt.Preempted as e:
+            out[name] = (e.solver, e.iters, e.checkpoint_path)
+        finally:
+            del eng.matvec
+            preempt.reset()
+    out["agreed_after"] = preempt.agreed(g)
     return out
 
 
@@ -318,6 +381,7 @@ def main(argv):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             out["overflow"] = run_overflow(g)
+        out["preempt"] = run_preempt(g)
         out["jax_imported"] = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "distributed_matvec_tpu"))

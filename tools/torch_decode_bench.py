@@ -69,7 +69,8 @@ def main() -> int:
     torch.cuda.set_device(device)
     os.environ["DMT_ENUMERATION_BACKEND"] = "native"
     op = heisenberg_chain(32, symmetric=True)
-    eng = DistributedEngine(op, device=device)
+    eng = DistributedEngine(op, device=device,
+                            mode="streamed", stream_compress="lossless")
     spec, B, n = eng._codec.spec, eng.batch_size, eng.nchunks
     earlier = _earlier_library(args.earlier)
     plan = eng._plan_host.to(device)
