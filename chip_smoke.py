@@ -62,16 +62,19 @@ Phases, one JSON line each with its seconds:
    within 1e-9).  Each solver's seconds, applies and the time inside
    them, ms per apply per column at R = 1 and R = 4 on both engines, and
    a ``torch.profiler`` breakdown of the ell R = 4 apply.
-8. ``cross_sector``: the same ring in the translation-only k = 0 sector
-   (18 784 170 states: no reflection, no spin inversion, so other orbits,
-   norms and plan) must give the same E0 as the full leg to 1e-9.
+8. ``cross_sector`` (after ``ranks``): the 30-ring in the translation-only
+   k = 0 sector (no reflection, no spin inversion, so other orbits, norms
+   and plan), streamed, must give the E0 of ``tiers``' chain_30_symm
+   lossless solve to 1e-9 (the 30-ring, not the 32-ring: cut to fit the
+   time limit).
 9. ``sharded``: the same chain_32_symm operator (enumerated once, by the
    full leg) through ``DistributedEngine(op, n_devices=4, mode=m)`` — four
    hash shards on the one card, row chunk 16 384 — in every mode:
    ``streamed``, ``ell``, ``compact`` and ``fused``.  Each build's seconds,
    peak device memory and plan or table bytes; the apply, through
    ``from_hashed``, against ``local_full``'s ell apply (atol 1e-13 / rtol
-   1e-12); 7 timed applies (host wall and CUDA events; one for fused);
+   1e-12); 7 timed applies (host wall and CUDA events; fused: its first
+   apply's seconds, to fit the time limit);
    for streamed and ell, a ``torch.profiler`` breakdown of one apply and
    Lanczos E0 within 1e-10 of the full leg's and 1e-8 relative of the
    recorded value.  For streamed, the decode kernel
@@ -83,12 +86,14 @@ Phases, one JSON line each with its seconds:
    streamed and fused engines stay built for the next phase.
 10. ``pipeline``: ``pipeline_depth`` switched on engines already built —
    the full leg's D = 1 streamed engine at depths 0, 2 and 4, the sharded
-   leg's D = 4 streamed engine at 0 and 2, and one D = 4 fused apply at 0
-   and at 2.  Each pipelined streamed apply must equal its engine's
+   leg's D = 4 streamed engine at 0 and 2, and one D = 4 fused apply at 2.
+   Each pipelined streamed apply must equal its engine's
    depth-0 apply bit for bit (both under
-   ``torch.use_deterministic_algorithms``), the fused one within atol
-   1e-13 / rtol 1e-12 (deterministic, a fused apply takes ≈ 30 s; the
-   card tests hold fused bit for bit at chain_16_symm), and each must
+   ``torch.use_deterministic_algorithms``), the fused one the D = 4
+   streamed engine's apply within atol 1e-13 / rtol 1e-12 (deterministic,
+   a fused apply takes ≈ 30 s; the card tests hold fused bit for bit at
+   chain_16_symm; its depth-0 apply is timed by ``sharded``), and each
+   must
    report the depth it resolved (fused: 2); the decode kernel is held
    against its plain version on one chunk inside a depth-2 apply; a
    ``[1, M, 6]`` streamed apply at depth 2 must equal its two column
@@ -135,9 +140,7 @@ Phases, one JSON line each with its seconds:
    complex128 Lanczos to a converged E0(k=1) strictly above the full
    leg's E0(k=0), with the peak memory, and a native-complex
    ``krylov_evolve`` of a random state to t = 0.25 (norm drift below
-   1e-10).  It keeps one ell apply of a seeded state, and the lowest Ritz
-   value of a 32-step Lanczos from that state, for ``streamed_complex``,
-   and frees its engines.
+   1e-10).
 13. ``tiers`` (after ``pipeline``): chain_30_symm (cut from chain_32_symm
    to fit the time limit, at the full leg's row chunk) through the
    streamed engine's other tiers and forms, each held to a lossless D = 1
@@ -149,24 +152,51 @@ Phases, one JSON line each with its seconds:
    version on one real chunk, launched once per chunk per apply, counted
    from 0 around an apply and a Lanczos solve; the apply's largest error
    relative to the largest lossless value within 1e-6 and 1e-2; the E0
-   each finds beside the lossless one, no bound); raw coefficient streams
+   each finds, through ``lanczos``' default (full reorthogonalization on a
+   quantized tier), within 1e-6 and 1e-2 of the lossless one, relative);
+   raw coefficient streams
    (``ops.plan_codec.DICT_MAX`` lowered around one lossless build:
    ``coeff == "raw"``, bit-equal apply); ``hybrid`` at ``all-stream``,
    ``stream:<even terms>`` and ``all-recompute`` (one chunk's send buffer
    bit-equal to the lossless engine's, the apply bit-equal at depth 0 and
    2, ``hybrid_stream_fraction``, plan bytes, host and device ms).  Each
    build's seconds; no engine outlives its leg.
-14. ``streamed_complex`` (after ``local_complex``): the same k = 1 sector
-   of the 32-ring through ``DistributedEngine(op)`` — the streamed engine,
-   lossless, a complex dictionary, decode path ``torch``: build seconds,
-   plan bytes, codec spec and peak memory; the apply against
-   ``local_complex``'s ell apply (atol 1e-13 / rtol 1e-12); 3 timed
-   applies (host wall and CUDA events) and a ``torch.profiler`` breakdown
-   of one (decode, host → device copy, ``index_add_``); a complex-Hermitian
-   Lanczos of 32 steps from ``local_complex``'s state (cut from a solve to
-   E0 to fit the time limit), its lowest Ritz value within 1e-10 relative
-   of ``local_complex``'s; a ``[1, M, 3]`` apply against three
-   single-column ones (atol 1e-13); no decode-kernel launch.
+14. ``streamed_complex`` (after ``local_complex``): the k = 1 sector of
+   the 30-ring (not the 32-ring's, ``local_complex``'s: cut to fit the
+   time limit) through ``DistributedEngine(op)`` — the streamed
+   engine, lossless, a complex dictionary, decode path ``torch``: build
+   seconds, plan bytes, codec spec and peak memory; the apply against an
+   ell ``LocalEngine`` of the same sector built here (atol 1e-13 / rtol
+   1e-12); 3 timed applies (host wall and CUDA events) and a
+   ``torch.profiler`` breakdown of one (decode, host → device copy,
+   ``index_add_``); a complex-Hermitian Lanczos of 32 steps from the same
+   seeded state on both engines (cut from a solve to E0 to fit the time
+   limit), the lowest Ritz values within 1e-10 relative; a ``[1, M, 3]``
+   apply against three single-column ones (atol 1e-13); no decode-kernel
+   launch.
+15. ``costmodel`` (last): the cost model at chain_32_symm's full width, on
+   the ``full`` leg's streamed engine and basis, ``local_full``'s ell
+   engine and ``tiers``' chain_30_symm operator (nothing enumerated), with
+   ``DMT_ARTIFACT_DIR`` and ``DMT_OBS_DIR`` in a fresh temporary
+   directory.  The rate calibration (``obs/calibrate.py``) on the card,
+   saved as the sidecar everything after it resolves (``source`` must be
+   ``measured``); 7 applies of each engine with phases on — the
+   ``roofline_report`` under that calibration (per-phase counts, walls,
+   bounds, achieved fraction, binding resource), ``reconcile_error``
+   below 1e-3 — and 7 with phases off (no ``apply_phases`` event may
+   appear), the medians side by side; ``pipeline_depth="auto"`` on the
+   full engine, its apply bit-equal to depth 0; a ``tune="static"``
+   lossless streamed engine (the token, search and build seconds) bit-
+   equal to a ``DistributedEngine`` hand-set to its knobs, the decode
+   kernel against its plain version on one of its chunks, and
+   ``lanczos_block`` on it to within 1e-10 of −56.82610975579819, its
+   decode launches counted from 0 (``launches_costmodel``); a
+   ``tune="live"`` engine through three windows of ``DMT_TUNE_WINDOW`` = 8
+   applies (each window's measured/priced ratio and posterior rates), any
+   re-key's next apply bit-equal to a hand-set engine at the new knobs;
+   ``hybrid_split="auto"`` on chain_30_symm, its mask and an apply
+   bit-equal to ``hybrid_split="stream:<that mask>"``.  Every earlier leg
+   runs with ``DMT_PHASES=off``, timing its applies as before.
 
 ``serve`` runs after ``solvers``: the port's ``SolveService`` drains a
 spool of real jobs on the card, all on ``heisenberg_chain(32,
@@ -194,9 +224,10 @@ rejected``) and every ``job:`` span a child of a ``serve_batch`` span in
 ``rank_0/events.jsonl``; the decode kernel against its plain version on
 one of the served engine's chunks.  Then the service process
 (``python -m distributed_matvec_tpu_torch.apps.solve_service``) with two
-ell jobs gets SIGTERM once they run: exit 75, both specs still in
-``queue/``, ``done/`` empty; the same argv again exits 0 with E0s within
-1e-10 of the in-process ones.  Prints per-job latency, build seconds per
+ell jobs on chain_30_symm (cut to fit the time limit) gets SIGTERM once
+they run: exit 75, both specs still in ``queue/``, ``done/`` empty; the
+same argv again exits 0 with E0s within 1e-10 of an in-process solve of
+the same operator.  Prints per-job latency, build seconds per
 engine, the batch's seconds, block applies and share outside them, the
 streamed apply's ms, and the seconds from SIGTERM to exit.
 
@@ -208,9 +239,10 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full``, ``solvers``, ``serve``, ``sharded``, ``pipeline``, ``tiers``
-and ``ranks``, and apart at one shard, at four, in the pipelined applies,
-in the quantized tiers, on the ranks and under the service;
+of ``full``, ``solvers``, ``serve``, ``sharded``, ``pipeline``, ``tiers``,
+``ranks`` and ``costmodel``, and apart at one shard, at four, in the
+pipelined applies, in the quantized tiers, on the ranks, under the service
+and on the autotuned engines;
 largest error against the plain version, time per launch beside its bound
 and the plain version's time, at one shard and at four), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -805,12 +837,18 @@ def profile_apply(fn, top=8):
             "parts": parts}
 
 
-def cross_sector_phase(device, e0_full, n=32):
+def cross_sector_phase(device, e0_symm, n=None):
+    """The ring's translation-only k = 0 sector (no reflection, no spin
+    inversion: other orbits, norms and plan), streamed, solved to E0; it
+    must equal ``e0_symm``, the symmetric sector's E0 of the same ring
+    (1e-9).  The {CUT_N}-ring (cut to fit the time limit), held to
+    ``tiers``' lossless E0."""
     from distributed_matvec_tpu_torch import DistributedEngine, lanczos
     from distributed_matvec_tpu_torch.models.basis import SpinBasis
     from distributed_matvec_tpu_torch.models.lattices import (
         chain_edges, heisenberg_from_edges)
 
+    n = n or CUT_N
     os.environ["DMT_ENUMERATION_BACKEND"] = "native"
     basis = SpinBasis(n, n // 2, None, [([(i + 1) % n for i in range(n)], 0)])
     t0 = time.perf_counter()
@@ -827,15 +865,17 @@ def cross_sector_phase(device, e0_full, n=32):
     _sync(device)
     lanczos_s = time.perf_counter() - t0
     e0 = float(res.eigenvalues[0])
-    if not (res.converged and abs(e0 - e0_full) < 1e-9):
-        raise AssertionError(f"translation-only E0 {e0} != full-leg E0 "
-                             f"{e0_full} (converged {res.converged})")
-    return {"n_states": int(basis.number_states), "enumeration_s": enum_s,
+    if not (res.converged and abs(e0 - e0_symm) < 1e-9):
+        raise AssertionError(f"translation-only E0 {e0} != the symmetric "
+                             f"sector's {e0_symm} (converged "
+                             f"{res.converged})")
+    return {"n": n, "n_states": int(basis.number_states),
+            "enumeration_s": enum_s,
             "engine_init_s": engine_s,
             "plan_encode_s": eng.timings["plan_encode_s"],
             "plan_bytes": int(eng.plan_bytes), "nchunks": eng.nchunks,
             "lanczos_iters": int(res.num_iters), "lanczos_s": lanczos_s,
-            "e0": e0, "e0_minus_full": e0 - e0_full}
+            "e0": e0, "e0_symm": e0_symm, "e0_minus_symm": e0 - e0_symm}
 
 
 # -- local_full and local_complex ---------------------------------------------
@@ -892,7 +932,8 @@ def build_timed(device, make):
     return out, time.perf_counter() - t0, peak
 
 
-def apply_times(device, eng, x, applies=7):
+def apply_walls(device, eng, x, applies):
+    """Host wall ms of each of ``applies`` applies, synchronized around."""
     walls = []
     for _ in range(applies):
         _sync(device)
@@ -900,6 +941,11 @@ def apply_times(device, eng, x, applies=7):
         eng.matvec(x)
         _sync(device)
         walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def apply_times(device, eng, x, applies=7):
+    walls = apply_walls(device, eng, x, applies)
     return {"apply_ms_host": walls,
             "apply_ms_host_median": statistics.median(walls),
             "apply_ms_device": device_ms(device, lambda: eng.matvec(x),
@@ -1151,9 +1197,8 @@ def solvers_phase(device, streamed, eng, e0_full):
 SERVE_POOL_GB = 4.0
 
 
-def _chain32_basis():
-    """chain_32_symm's basis as a job spec carries it (JSON lists)."""
-    n = 32
+def _chain32_basis(n=32):
+    """chain_{n}_symm's basis as a job spec carries it (JSON lists)."""
     return {"number_spins": n, "hamming_weight": n // 2,
             "spin_inversion": 1,
             "symmetries": [[[*range(1, n), 0], 0],
@@ -1188,19 +1233,30 @@ def _service_argv(spool, run_dir, hbm_gb):
             "--drain", "--obs-dir", run_dir, "--hbm-gb", repr(hbm_gb)]
 
 
-def serve_preempt_leg(tmp, basis, hbm_gb, e0_served):
-    """The service process under SIGTERM at full width: two ell eigs jobs,
-    SIGTERM once both run, exit 75 with both still spooled, then the same
-    argv again drains them to the in-process E0s."""
+def serve_preempt_leg(device, tmp, hbm_gb):
+    """The service process under SIGTERM: two ell eigs jobs on
+    chain_{CUT_N}_symm (cut from chain_32_symm to fit the time limit: each
+    process enumerates its basis), SIGTERM once both run, exit 75 with
+    both still spooled, then the same argv again drains them to the E0 of
+    an in-process ``LocalEngine`` solve of the same operator (1e-10)."""
     import signal as _signal
 
+    from distributed_matvec_tpu_torch import LocalEngine, lanczos
     from distributed_matvec_tpu_torch.serve import JobSpec, submit_to_spool
 
+    op, _ = cut_operator()
+    n_states = int(op.basis.number_states)
+    ref = LocalEngine(op, device=device)
+    e0_served = float(lanczos(ref.matvec, n=n_states, k=1, tol=1e-10,
+                              device=device).eigenvalues[0])
+    del ref, op
+    release(device)
+    basis = _chain32_basis(CUT_N)
     spool, run_dir = os.path.join(tmp, "spool_pre"), \
         os.path.join(tmp, "run_pre")
     for i in range(2):
         submit_to_spool(spool, JobSpec(job_id=f"pre{i}", basis=basis, k=1,
-                                       tol=1e-10, n_states=CHAIN32_STATES))
+                                       tol=1e-10, n_states=n_states))
     argv = _service_argv(spool, run_dir, hbm_gb)
     # the environment's DMT_OBS_DIR would outrank --obs-dir
     env = {k: v for k, v in os.environ.items() if k != "DMT_OBS_DIR"}
@@ -1258,7 +1314,9 @@ def serve_preempt_leg(tmp, basis, hbm_gb, e0_served):
         if rec["status"] != "done":
             raise AssertionError(f"relaunched pre{i}: {rec['status']}")
         e0s.append(rec["eigenvalues"][0])
+    out["n"] = CUT_N
     out["e0"] = e0s
+    out["e0_in_process"] = e0_served
     out["e0_minus_served"] = [e - e0_served for e in e0s]
     if not all(abs(e - e0_served) < 1e-10 for e in e0s):
         raise AssertionError(f"relaunched E0s {e0s} != the in-process "
@@ -1497,8 +1555,7 @@ def serve_phase(device, e0_full):
         del ell_eng, st_eng
         pool._engines.clear()
         release(device)
-        info["preempt"] = serve_preempt_leg(
-            tmp, basis, hbm_gb, e0s["ell0"]["e0"])
+        info["preempt"] = serve_preempt_leg(device, tmp, hbm_gb)
     finally:
         update_config(stream_compress=saved_cfg[0],
                       serve_pool_gb=saved_cfg[1])
@@ -1561,9 +1618,9 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
         info["vs_local_ell_max_abs_err"] = assert_close(
             y, y_ref, f"D = {D} {mode} vs LocalEngine ell apply")
         xh = eng.to_hashed(x_np)
-        if mode == "fused":
-            info.update(apply_times(device, eng, xh, applies=1))
-        else:
+        if mode != "fused":
+            # a fused apply takes ≈ 11 s: its first apply's seconds are
+            # its time (to fit the time limit)
             info.update(apply_times(device, eng, xh, applies=applies))
         if mode in ("streamed", "ell") and device.type == "cuda":
             info["profile"] = profile_apply(lambda: eng.matvec(xh))
@@ -1713,12 +1770,13 @@ def pipeline_timing(device, eng, xh, applies=7):
 def pipeline_phase(device, full_eng, sharded_engs):
     """``pipeline_depth`` on engines already built: the full leg's D = 1
     streamed engine at depths 0, 2 and 4, the sharded leg's D = 4 streamed
-    engine at 0 and 2, and one D = 4 fused apply at 0 and at 2.  Every
+    engine at 0 and 2, and one D = 4 fused apply at 2.  Every
     pipelined streamed apply must equal its engine's depth-0 apply bit for
     bit (both under deterministic algorithms); the fused apply at depth 2
-    must equal depth 0 within atol 1e-13 / rtol 1e-12 (the card's atomic
-    ``index_add_``: a deterministic fused apply takes ≈ 30 s here, so the
-    card tests hold fused bit for bit at chain_16_symm); the decode kernel
+    must equal the D = 4 streamed apply within atol 1e-13 / rtol 1e-12
+    (the card's atomic ``index_add_``: a deterministic fused apply takes
+    ≈ 30 s here, so the card tests hold fused bit for bit at
+    chain_16_symm); the decode kernel
     is held against its plain version on one chunk of a depth-2 apply; a
     ``[1, M, 6]`` streamed apply at depth 2 must equal its two column
     groups (4 + 2); then the streamed applies are timed at each depth
@@ -1810,22 +1868,24 @@ def pipeline_phase(device, full_eng, sharded_engs):
     if device.type == "cuda" and (launches == 0 or launches != expect):
         raise AssertionError(f"{launches} decode launches in the pipelined "
                              f"applies, expected {expect}")
-    # one fused apply at each depth, timed, the second against the first
-    yf = {}
-    for depth in (0, 2):
-        f4.pipeline_depth = depth
-        _sync(device)
-        t0 = time.perf_counter()
-        yf[depth] = f4.matvec(x4)
-        _sync(device)
-        timing["d4_fused"][depth] = {
-            "apply_ms_host": (time.perf_counter() - t0) * 1e3,
-            "depth": f4.pipeline_depth, "last_pipeline": f4.last_pipeline}
+    # one fused apply at depth 2, timed, against the D = 4 streamed
+    # engine's apply of the same vector (the sharded leg times fused at
+    # depth 0; no second fused apply here, to fit the time limit)
+    s4.pipeline_depth = 0
+    y_s4 = s4.matvec(x4)
+    f4.pipeline_depth = 2
+    _sync(device)
+    t0 = time.perf_counter()
+    yf = f4.matvec(x4)
+    _sync(device)
+    timing["d4_fused"][2] = {
+        "apply_ms_host": (time.perf_counter() - t0) * 1e3,
+        "depth": f4.pipeline_depth, "last_pipeline": f4.last_pipeline}
     out["checks"]["d4_fused"] = {
         "reported_depth": {2: timing["d4_fused"][2]["depth"]},
-        "vs_depth_0_max_abs_err": assert_close(
-            yf[2], yf[0], "D = 4 fused at depth 2 vs depth 0")}
-    del yf
+        "vs_d4_streamed_max_abs_err": assert_close(
+            yf, y_s4, "D = 4 fused at depth 2 vs D = 4 streamed")}
+    del yf, y_s4
     out["timing"] = timing
     out["launches"] = launches
     for eng in (full_eng, s4, f4):
@@ -1836,7 +1896,8 @@ def pipeline_phase(device, full_eng, sharded_engs):
 # -- phase 13: tiers -------------------------------------------------------------
 
 #: the quantized tiers' documented bounds on an apply's largest error
-#: relative to the largest lossless value (tests/test_plan_codec.py)
+#: relative to the largest lossless value (tests/test_plan_codec.py), and
+#: on their Lanczos E0 relative to the lossless E0
 TIER_BOUNDS = {"f32": 1e-6, "bf16": 1e-2}
 #: the ring of the legs cut to fit the script's time limit (``tiers`` and
 #: the gloo ranks of ``ranks``): chain_30_symm, about 3.6× fewer states
@@ -1990,10 +2051,17 @@ def tiers_phase(device, batch_size):
                                  f"{TIER_BOUNDS[tier]}")
         launches += n
         e0 = float(res.eigenvalues[0])
+        # lanczos' default on a quantized tier is the full sweep
+        if not (res.converged and abs(e0 - e0_ref)
+                <= TIER_BOUNDS[tier] * abs(e0_ref)):
+            raise AssertionError(f"{tier}: E0 {e0} against lossless "
+                                 f"{e0_ref} (bound {TIER_BOUNDS[tier]}"
+                                 f"·|E0|, converged {res.converged})")
         info.update(rel_err_vs_lossless=rel, bound=TIER_BOUNDS[tier],
                     launches=n, applies=eng.n_applies,
                     lanczos_s=time.perf_counter() - t0,
-                    lanczos_iters=int(res.num_iters), e0=e0,
+                    lanczos_iters=int(res.num_iters),
+                    lanczos_full_sweeps=int(res.full_sweeps), e0=e0,
                     e0_lossless=e0_ref, e0_minus_lossless=e0 - e0_ref)
         info.update(apply_times(device, eng, xh, applies=3))
         out[tier] = info
@@ -2584,13 +2652,7 @@ def local_complex_phase(device, e0_full, n=32):
     fused_info = {"vs_ell_max_abs_err": assert_close(yf, y,
                                                      "fused vs ell apply"),
                   "first_apply_s": time.perf_counter() - t0}
-    # the ell apply, and a Lanczos of COMPLEX_HELD_STEPS steps from the same
-    # state, kept on the host for streamed_complex
-    r_held = lanczos(eng.matvec, v0=x, k=1, max_iters=COMPLEX_HELD_STEPS,
-                     tol=0.0, reorth="full", device=device)
-    kept = (x.cpu().numpy(), y.cpu().numpy(),
-            float(r_held.eigenvalues[0]))
-    del fused, yf, y, x, r_held
+    del fused, yf, y, x
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -2621,7 +2683,7 @@ def local_complex_phase(device, e0_full, n=32):
                                  energy_drift=evo.energy_drift)
     if not (evo.norm_drift < 1e-10 and abs(evo.times[-1] - 0.25) < 1e-12):
         raise AssertionError(f"k = 1 evolve norm drift {evo.norm_drift}")
-    return info, op, kept
+    return info
 
 
 #: the steps of the Lanczos that holds streamed_complex to local_complex
@@ -2630,16 +2692,42 @@ def local_complex_phase(device, e0_full, n=32):
 COMPLEX_HELD_STEPS = 32
 
 
-def streamed_complex_phase(device, op, kept):
-    """The 32-ring's k = 1 sector through the streamed engine; see the
+def streamed_complex_phase(device, n=None):
+    """The k = 1 sector of the {CUT_N}-ring through the streamed engine,
+    held to an ell ``LocalEngine`` of the same sector built here (not the
+    32-ring's, ``local_complex``'s: cut to fit the time limit); see the
     module docstring."""
     import numpy as np
     import torch
 
-    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch import (DistributedEngine, LocalEngine,
+                                              lanczos)
+    from distributed_matvec_tpu_torch.models.basis import SpinBasis
+    from distributed_matvec_tpu_torch.models.lattices import (
+        chain_edges, heisenberg_from_edges)
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
-    x, y_ell, ritz_ell = kept
+    n = n or CUT_N
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    basis = SpinBasis(n, n // 2, None, [([(i + 1) % n for i in range(n)], 1)])
+    t0 = time.perf_counter()
+    basis.build()
+    enum_s = time.perf_counter() - t0
+    op = heisenberg_from_edges(basis, chain_edges(n))
+    # the reference: an ell apply of a seeded state, and the lowest Ritz
+    # value of a COMPLEX_HELD_STEPS-step Lanczos from it
+    ref, ref_build = timed_build(device, lambda: LocalEngine(op,
+                                                             device=device))
+    rng = np.random.default_rng(12)
+    N = basis.number_states
+    x_t = torch.from_numpy(rng.standard_normal(N)
+                           + 1j * rng.standard_normal(N)).to(device)
+    r_held = lanczos(ref.matvec, v0=x_t, k=1, max_iters=COMPLEX_HELD_STEPS,
+                     tol=0.0, reorth="full", device=device)
+    x, y_ell = x_t.cpu().numpy(), ref.matvec(x_t).cpu().numpy()
+    ritz_ell = float(r_held.eigenvalues[0])
+    del ref, r_held, x_t
+    release(device)
     eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
         op, device=device, mode="streamed", stream_compress="lossless"))
     spec = eng._codec.spec
@@ -2647,7 +2735,9 @@ def streamed_complex_phase(device, op, kept):
             "complex":
         raise AssertionError(f"k = 1 streamed: real {eng.real}, decode path "
                              f"{eng.stream_kernel}, ckind {spec['ckind']}")
-    info = {"n_states": int(op.basis.number_states), "build_s": build_s,
+    info = {"n": n, "n_states": int(op.basis.number_states),
+            "enumeration_s": enum_s, "ell_reference": ref_build,
+            "build_s": build_s,
             "build_peak_bytes": peak, "timings": eng.timings,
             "plan_bytes": int(eng.plan_bytes),
             "plan_bytes_raw": int(eng.plan_bytes_raw),
@@ -2662,6 +2752,7 @@ def streamed_complex_phase(device, op, kept):
     info["vs_ell_max_abs_err"] = assert_close(
         torch.from_numpy(y), torch.from_numpy(y_ell),
         "k = 1 streamed vs ell apply")
+    info["ritz_ell"] = ritz_ell
     del y, y_ell
     xh = eng.to_hashed(x)
     info.update(apply_times(device, eng, xh, applies=3))
@@ -2675,12 +2766,12 @@ def streamed_complex_phase(device, op, kept):
     ritz = float(res.eigenvalues[0])
     info.update(lanczos_s=time.perf_counter() - t0,
                 lanczos_iters=int(res.num_iters), ritz=ritz,
-                ritz_minus_local_complex=ritz - ritz_ell)
+                ritz_minus_ell=ritz - ritz_ell)
     if not (int(res.num_iters) == COMPLEX_HELD_STEPS
             and abs(ritz - ritz_ell) <= 1e-10 * abs(ritz_ell)):
         raise AssertionError(
             f"k = 1 streamed Ritz value {ritz} after {res.num_iters} steps "
-            f"!= local_complex's {ritz_ell}")
+            f"!= the ell engine's {ritz_ell}")
     del res
     rng = np.random.default_rng(14)
     X = eng.to_hashed(rng.standard_normal((x.size, 3))
@@ -2695,6 +2786,256 @@ def streamed_complex_phase(device, op, kept):
         raise AssertionError(f"{info['launches']} decode kernel launches "
                              "in a complex streamed engine")
     return info
+
+
+# -- phase 15: costmodel ----------------------------------------------------------
+
+#: applies per engine of the phase-attribution leg, and windows of the live
+#: tuner (DMT_TUNE_WINDOW applies each; the first apply after a build is
+#: not counted)
+COSTMODEL_APPLIES = 7
+COSTMODEL_WINDOW = 8
+COSTMODEL_WINDOWS = 2
+
+
+def costmodel_phase(device, full_eng, ell_eng, op_cut, e0_cpu=CHAIN32_E0_CPU):
+    """The cost model on the card at chain_32_symm's full width, on the
+    engines of earlier legs (nothing enumerated), with ``DMT_ARTIFACT_DIR``
+    and ``DMT_OBS_DIR`` in a fresh temporary directory (no earlier tuned
+    artifact or sidecar can hide a search): the calibration, phase
+    attribution with phases on (and the apply median with them off), the
+    auto depth, a ``tune="static"`` and a ``tune="live"`` engine, and the
+    auto hybrid split on ``op_cut``.  Returns (info, K8 launches on the
+    tuned engines' main path, the kernel's largest error on a tuned
+    chunk)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import (DistributedEngine, lanczos,
+                                              lanczos_block, obs)
+    from distributed_matvec_tpu_torch.obs import calibrate, roofline
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.utils.config import update_config
+
+    tmp = tempfile.mkdtemp(prefix="dmt_costmodel_")
+    knobs = {"DMT_ARTIFACT_DIR": os.path.join(tmp, "artifacts"),
+             "DMT_OBS_DIR": os.path.join(tmp, "run"),
+             "DMT_ARTIFACT_CACHE": "on", "DMT_PHASES": "on",
+             "DMT_TUNE_WINDOW": str(COSTMODEL_WINDOW)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    obs.reset_all()
+    out = {}
+    try:
+        # -- the calibration, saved where the engines and the tuner look
+        t0 = time.perf_counter()
+        cal = calibrate.calibrate(device)
+        cal["sidecar"] = roofline.save_calibration(cal)
+        cal["seconds"] = time.perf_counter() - t0
+        got = roofline.resolve_calibration(device=device)
+        if got.get("source") != "measured" or not all(
+                float(got[k]) > 0 for k in roofline.RATE_FIELDS):
+            raise AssertionError(f"the calibration did not resolve as "
+                                 f"measured: {got}")
+        out["calibration"] = cal
+
+        # -- phase attribution: 7 applies each with phases on, then off
+        xh = full_eng.random_hashed(31)
+        x_ell = torch.from_numpy(np.random.default_rng(31).standard_normal(
+            ell_eng.n_states)).to(device)
+        out["phases"] = {}
+        for name, eng, x in (("streamed", full_eng, xh),
+                             ("ell", ell_eng, x_ell)):
+            engine = "local" if name == "ell" else "distributed"
+            n0 = len(obs.events("apply_phases"))
+            on = apply_walls(device, eng, x, COSTMODEL_APPLIES)
+            evs = [e for e in obs.events("apply_phases")[n0:]
+                   if e["engine"] == engine]
+            if len(evs) != COSTMODEL_APPLIES:
+                raise AssertionError(f"{name}: {len(evs)} apply_phases "
+                                     f"events for {COSTMODEL_APPLIES} "
+                                     "applies")
+            report = roofline.roofline_report(evs, cal)
+            err = roofline.reconcile_error(report)
+            if err > 1e-3:
+                raise AssertionError(f"{name}: phase walls reconcile to "
+                                     f"{err} of the apply wall")
+            os.environ["DMT_PHASES"] = "off"
+            n1 = len(obs.events("apply_phases"))
+            off = apply_walls(device, eng, x, COSTMODEL_APPLIES)
+            if len(obs.events("apply_phases")) != n1:
+                raise AssertionError("apply_phases emitted with phases off")
+            os.environ["DMT_PHASES"] = "on"
+            grp = next(iter(report["groups"].values()))
+            out["phases"][name] = {
+                "group": grp, "reconcile_error": err,
+                "counts": evs[-1]["phases"],
+                "apply_ms_median_phases_on": statistics.median(on),
+                "apply_ms_median_phases_off": statistics.median(off),
+                "apply_ms_phases_on": on, "apply_ms_phases_off": off}
+            roofline.print_roofline(report)
+
+        # -- pipeline_depth="auto" on the full leg's engine
+        full_eng.pipeline_depth = "auto"
+        depth = full_eng.pipeline_depth
+        y_auto = deterministic(lambda: full_eng.matvec(xh))
+        full_eng.pipeline_depth = 0
+        y0 = deterministic(lambda: full_eng.matvec(xh))
+        if not torch.equal(y_auto, y0):
+            raise AssertionError(f"auto depth {depth} differs from depth 0")
+        out["auto_depth"] = {"resolved": depth, "bit_equal_to_depth_0": True,
+                             "nchunks": full_eng.nchunks}
+        del y_auto, y0
+
+        # -- tune="static": a lossless streamed engine from the full leg's
+        #    basis, beside a hand-set twin at the same knobs
+        op = full_eng.operator
+        update_config(tune="static")
+        tuned, build_s, peak = build_timed(device, lambda: DistributedEngine(
+            op, device=device, mode="streamed"))
+        t = tuned._tuned
+        update_config(tune="off")
+        twin, twin_s, _ = build_timed(device, lambda: DistributedEngine(
+            op, device=device, mode="streamed", batch_size=t.batch_size,
+            stream_compress=t.stream_compress,
+            pipeline_depth=t.pipeline_depth))
+        if tuned.stream_kernel != "cuda":
+            raise AssertionError(f"tuned engine {t.token()}: decode path "
+                                 f"{tuned.stream_kernel}, not the kernel")
+        xt = tuned.random_hashed(33)
+        if not torch.equal(deterministic(lambda: tuned.matvec(xt)),
+                           deterministic(lambda: twin.matvec(xt))):
+            raise AssertionError(f"tuned {t.token()} differs from the "
+                                 "hand-set engine")
+        ci = tuned.nchunks // 2
+        views = tuned._chunk_views(tuned._plan_host[ci, 0].to(device))
+        x_c = xt[0, ci * tuned.batch_size:(ci + 1) * tuned.batch_size]
+        if x_c.shape[0] < tuned.batch_size:
+            x_c = torch.nn.functional.pad(
+                x_c, (0, tuned.batch_size - x_c.shape[0]))
+        chunk_err = check_kernel((tuned._codec.spec, views[0], views[1],
+                                  views[4], tuned._cdict[0],
+                                  x_c.contiguous()))
+        del views
+        # the main path, counted from 0: lanczos_block on the tuned engine,
+        # its start block the ell engine's ground state beside a seeded
+        # column (a solve to the residual bound on the tuned applies, in
+        # few block steps: each 575-chunk apply costs ≈ 0.5 s)
+        gs = lanczos(ell_eng.matvec, n=ell_eng.n_states, k=1, tol=1e-12,
+                     compute_eigenvectors=True,
+                     device=device).eigenvectors[0]
+        V0 = tuned.random_hashed(0, cols=2)
+        V0[..., 0] = tuned.to_hashed(gs.cpu().numpy())
+        del gs
+        PC.fused_decode_gather_scatter.launches = 0
+        t0 = time.perf_counter()
+        res = lanczos_block(tuned.matvec, k=1, V0=V0, tol=1e-11,
+                            max_iters=600)
+        _sync(device)
+        solve_s = time.perf_counter() - t0
+        launches = PC.fused_decode_gather_scatter.launches
+        e0 = float(res.eigenvalues[0])
+        if not (res.converged and abs(e0 - e0_cpu) <= 1e-10):
+            raise AssertionError(f"tuned engine E0 {e0} against {e0_cpu} "
+                                 f"(converged {res.converged})")
+        if device.type == "cuda" and (launches == 0
+                                      or launches % tuned.nchunks):
+            raise AssertionError(f"{launches} decode launches on the tuned "
+                                 f"engine ({tuned.nchunks} chunks)")
+        out["static"] = {
+            "token": t.token(), "source": t.source,
+            "priced_ms": t.priced_ms, "search_s": tuned.tune_search_s,
+            "build_s": build_s, "build_peak_bytes": peak,
+            "twin_build_s": twin_s, "nchunks": tuned.nchunks,
+            "plan_bytes": int(tuned.plan_bytes),
+            "bit_equal_to_hand_set": True, "chunk_max_abs_err": chunk_err,
+            "lanczos_block_s": solve_s,
+            "lanczos_block_columns": int(res.num_iters), "e0": e0,
+            "e0_minus_cpu": e0 - e0_cpu, "launches": launches,
+            **apply_times(device, tuned, xt, applies=3)}
+        del tuned, res
+        release(device)
+
+        # -- tune="live": windows of COSTMODEL_WINDOW applies
+        update_config(tune="live")
+        live, live_s, _ = build_timed(device, lambda: DistributedEngine(
+            op, device=device, mode="streamed"))
+        update_config(tune="off")
+        first = live._tuned
+        xl = live.random_hashed(35)
+        windows, rekeys = [], []
+        PC.fused_decode_gather_scatter.launches = 0
+        for _ in range(1 + COSTMODEL_WINDOW * COSTMODEL_WINDOWS):
+            prop = live._retune_pending
+            if prop is None:
+                live.matvec(xl)
+            else:
+                y = deterministic(lambda: live.matvec(xl))   # re-keys here
+                same_plan = (live.batch_size == twin.batch_size
+                             and prop.stream_compress == twin.stream_compress)
+                hand = twin if same_plan else DistributedEngine(
+                    op, device=device, mode="streamed",
+                    batch_size=prop.batch_size,
+                    stream_compress=prop.stream_compress)
+                hand.pipeline_depth = prop.pipeline_depth
+                if not torch.equal(y, deterministic(
+                        lambda: hand.matvec(xl))):
+                    raise AssertionError(f"re-keyed {prop.token()} differs "
+                                         "from the hand-set engine")
+                rekeys.append({"token": prop.token(),
+                               "rebuilt_plan": not same_plan,
+                               "bit_equal_to_hand_set": True})
+                del y, hand
+            tuner = live._tuner
+            if tuner.window_closed:
+                windows.append({
+                    "measured_over_priced": tuner.last_ratio,
+                    "proposal": (live._retune_pending.token()
+                                 if live._retune_pending is not None
+                                 else None),
+                    "rates": {k: tuner.posterior.rates()[k]
+                              for k in roofline.RATE_FIELDS}})
+        launches += PC.fused_decode_gather_scatter.launches
+        out["live"] = {"first_token": first.token(),
+                       "first_source": first.source, "build_s": live_s,
+                       "windows": windows, "rekeys": rekeys,
+                       "token": live._tuned.token(),
+                       "retune_events": [e for e in obs.events("retune")]}
+        del live, twin
+        release(device)
+
+        # -- hybrid_split="auto" on tiers' operator
+        hyb, hyb_s, _ = build_timed(device, lambda: DistributedEngine(
+            op_cut, device=device, mode="hybrid", stream_compress="lossless"))
+        hand = DistributedEngine(op_cut, device=device, mode="hybrid",
+                                 stream_compress="lossless",
+                                 hybrid_split=hyb.hybrid_split)
+        xc = hyb.random_hashed(37)
+        if not torch.equal(deterministic(lambda: hyb.matvec(xc)),
+                           deterministic(lambda: hand.matvec(xc))):
+            raise AssertionError(f"auto split {hyb.hybrid_split} differs "
+                                 "from the hand-set split")
+        out["auto_split"] = {
+            "mask": hyb.hybrid_split, "num_terms": hyb.num_terms,
+            "hybrid_stream_fraction": hyb.hybrid_stream_fraction,
+            "build_s": hyb_s, "bit_equal_to_hand_set": True,
+            **apply_times(device, hyb, xc, applies=3)}
+        del hyb, hand
+        release(device)
+        out["launches"] = launches
+    finally:
+        update_config(tune="off")
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        full_eng.pipeline_depth = 0
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches, chunk_err
 
 
 def main() -> int:
@@ -2713,6 +3054,10 @@ def main() -> int:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    # per-apply phase attribution (one synchronization per apply) is the
+    # costmodel phase's subject; the earlier legs time their applies as
+    # before, with it off
+    os.environ["DMT_PHASES"] = "off"
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
@@ -2739,15 +3084,18 @@ def main() -> int:
     tiers, tier_launches, op_cut = run_phase("tiers", tiers_phase, device,
                                              eng.batch_size)
     ranks = run_phase("ranks", ranks_phase, device, op_cut, eng)
-    del ell, op, eng, op_cut
+    del op
     torch.cuda.empty_cache()
-    run_phase("cross_sector", cross_sector_phase, device, full["e0"])
+    run_phase("cross_sector", cross_sector_phase, device,
+              tiers["lossless"]["e0"])
     torch.cuda.empty_cache()
-    _, k1_op, kept = run_phase("local_complex", local_complex_phase, device,
-                               full["e0"])
+    run_phase("local_complex", local_complex_phase, device, full["e0"])
     torch.cuda.empty_cache()
-    run_phase("streamed_complex", streamed_complex_phase, device, k1_op, kept)
-    del k1_op, kept
+    run_phase("streamed_complex", streamed_complex_phase, device)
+    torch.cuda.empty_cache()
+    _, cost_launches, cost_err = run_phase("costmodel", costmodel_phase,
+                                           device, eng, ell, op_cut)
+    del ell, eng, op_cut
     emit({"kernels": [{
         "name": "fused_decode_gather_scatter",
         "route": "cuda",
@@ -2755,11 +3103,11 @@ def main() -> int:
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
         + pipe_launches + tier_launches + ranks["launches"]
-        + serve_launches,
+        + serve_launches + cost_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            tiers["kernel_max_abs_err"],
-                           ranks["kernel_max_abs_err"], serve_err),
+                           ranks["kernel_max_abs_err"], serve_err, cost_err),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
         "bound_ms": split["bound_ms_per_launch"],
@@ -2777,6 +3125,9 @@ def main() -> int:
         "launches_ranks": ranks["launches"],
         # the served streamed job's applies under the solve service (D = 1)
         "launches_serve": serve_launches,
+        # the autotuned engines' applies (static: lanczos_block; live: the
+        # tuner's windows), chain_32_symm at D = 1
+        "launches_costmodel": cost_launches,
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],

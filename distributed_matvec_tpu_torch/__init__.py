@@ -7,7 +7,8 @@ copied, each file naming its source in its first line.  Layers, bottom to
 top:
 
   utils/        — unsigned 64-bit arithmetic on int64 tensors, the device
-                  choice, the native build directory
+                  choice, the native build directory, the runtime config,
+                  the JSON artifact cache
   models/       — expressions → nonbranching terms, symmetry groups, bases,
                   operators, lattice constructors (copied); bound
                   observables (expectation values over an engine's basis)
@@ -22,6 +23,13 @@ top:
   solve/        — thick-restart Lanczos (selective or full
                   reorthogonalization) and block Lanczos, LOBPCG,
                   KPM spectral densities, Krylov time evolution
+  obs/          — telemetry (events, metrics, spans), per-apply phase
+                  attribution, the roofline cost model and the card's
+                  rate calibration (``python -m
+                  distributed_matvec_tpu_torch.obs.calibrate``)
+  tune/         — the autotuner: knob search under the calibrated rates,
+                  tuned artifacts, the live rate posterior
+  serve/        — the solve service (spool, priced admission, warm pool)
   entry.py      — one forward step of the flagship model
 
 Entry points run on the CUDA device unless the caller passes

@@ -18,13 +18,18 @@ The JAX package's telemetry core, copied where it is framework-free:
 * :mod:`~.flight` — post-mortem bundles (preemption, fatal signals).
 * :mod:`~.export` — OpenMetrics text, ``/metrics`` and ``/healthz``.
 * :mod:`~.directions` — which way each metric is better, and its help.
-* :mod:`~.roofline` — the calibration reader and the per-term pricing the
-  admission model uses.
+* :mod:`~.phases` — per-apply phase attribution: the engines' structural
+  byte/gather/flop counts and measured walls as ``apply_phases`` events.
+* :mod:`~.roofline` — the cost model over those events: calibration
+  sidecars, phase bounds and attribution, the ``auto`` depth and hybrid
+  split policies, the roofline report.
+* :mod:`~.calibrate` — the rate calibration measured on the device
+  (``python -m distributed_matvec_tpu_torch.obs.calibrate``).
 
-The JAX package's ``health``, ``memory``, ``hlo``, ``profile`` and
-``phases`` modules and the rest of its roofline are not in the port; the
-engines and solvers emit no telemetry of their own yet — the solve
-service's events and spans do.
+The JAX package's ``health``, ``memory``, ``hlo`` and ``profile`` modules
+are not in the port; the engines emit ``matvec_apply`` and
+``apply_phases`` per apply, the solve service its events and spans, and
+the solvers no telemetry of their own yet.
 
 Config: ``DMT_OBS_DIR`` (or ``obs_dir``) points the sink at a run
 directory; unset ⇒ in-memory only; ``DMT_OBS=off`` disables the layer

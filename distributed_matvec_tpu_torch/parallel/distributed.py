@@ -110,11 +110,32 @@ decode kernel wherever it is eligible, and ``xla`` — the JAX package's
 switch to its plain decode — raises, since the port never sends a chunk
 the kernel can take through the plain path.
 
-The JAX engine's ``pipeline_depth="auto"`` and ``hybrid_split="auto"``
-(both priced by its ``obs/`` roofline calibration; ``"auto"`` is the
-config's ``hybrid`` default, so a hybrid engine needs an explicit split),
-the compress-drift probe, the threaded plan prefetch, ``from_shards``, the
-structure and plan caches and autotuning are not in the port.
+The cost model (``obs/roofline.py``, priced with the rate calibration of
+``obs/calibrate.py``) drives two ``"auto"`` policies, as in the JAX
+engine: ``pipeline_depth="auto"`` prices the overlap of the built plan's
+phase counts (:func:`~..obs.roofline.choose_pipeline_depth`), and
+``hybrid_split="auto"`` — the config's ``hybrid`` default — streams
+exactly the terms whose plan slice prices cheaper than recomputing them
+(:func:`~..obs.roofline.choose_hybrid_split` over the build's live-entry
+census, summed over the ranks).  ``tune="static"|"live"`` (the config's
+``tune``, ``DMT_TUNE``) picks the streamed and hybrid knobs — row chunk,
+depth, value-exact tier, split — by the same model (``tune/``); explicit
+constructor arguments and config values moved off their defaults win.
+Under ``"live"`` every window of applies refines the rates from the
+measured walls, and a re-tune lands at the top of the next apply
+(:meth:`DistributedEngine.maybe_retune`).
+
+Telemetry (``obs/``): with the obs layer on every apply emits
+``matvec_apply`` and the ``exchange_bytes`` / ``matvec_apply_ms``
+series, and with ``phases`` on an ``apply_phases`` event whose
+structural counts equal the JAX engine's (``_phase_counts``); streamed
+applies add a per-chunk timeline from CUDA events on the plan-copy stream,
+read after the apply's one end-of-apply synchronization (which phases on
+adds on the card; nothing is synchronized per chunk).  With obs off the
+apply takes no timing at all.
+
+The compress-drift probe, the threaded plan prefetch and the disk tier,
+``from_shards`` and the structure and plan caches are not in the port.
 """
 
 from __future__ import annotations
@@ -124,12 +145,15 @@ import os
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.operator import Operator
+from ..obs import phases as obs_phases
+from ..obs.events import emit, obs_enabled
+from ..obs.metrics import counter, histogram
 from ..ops import kernels as K
 from ..ops import plan_codec as PC
 from ..ops.bits import build_sorted_lookup, choose_dir_bits, shard_index
@@ -215,29 +239,26 @@ def _check_stream_kernel() -> None:
                          "auto|xla|pallas")
 
 
-def _static_hybrid_mask(split, num_terms: int) -> np.ndarray:
+def _static_hybrid_mask(split, num_terms: int) -> Optional[np.ndarray]:
     """The [T] stream mask (True = the term's entries travel in the plan)
     of a static hybrid split: ``"all-stream"``, ``"all-recompute"`` or
     ``"stream:<t,t,…>"`` (JAX ``_init_hybrid_policy`` and
-    ``_static_hybrid_mask``).  ``"auto"`` — also the JAX default, taken
-    for None — prices the split with the JAX package's roofline
-    calibration, which the port does not have."""
+    ``_static_hybrid_mask``); None for ``"auto"`` (also taken for None),
+    which the build resolves from its census."""
     T = int(num_terms)
     s = "" if split is None else str(split).strip().lower()
     s = s or "auto"
     if s == "auto":
-        raise NotImplementedError(
-            "hybrid_split='auto' prices the split with the roofline "
-            "calibration of the JAX package's obs/, which is not in the "
-            "port yet; pass all-stream | all-recompute | "
-            "stream:<term,term,...>")
+        return None
     if s == "all-stream":
         return np.ones(T, bool)
     if s == "all-recompute":
         return np.zeros(T, bool)
     bad_split = ValueError(
-        f"bad hybrid split {split!r}: pick all-stream | all-recompute | "
-        "stream:<term,term,...> ('auto' is not in the port yet)")
+        f"bad hybrid split {split!r}: set tune=static (DMT_TUNE=static) "
+        "to let the autotuner pick the split, or pick auto | all-stream | "
+        "all-recompute | stream:<term,term,...> (DMT_HYBRID / "
+        "config.hybrid)")
     if not s.startswith("stream:"):
         raise bad_split
     try:
@@ -281,9 +302,9 @@ class DistributedEngine:
     row chunk B of the plan builds and the chunked applies (default: the
     config's ``matvec_batch_size``, 65536, at most M); ``stream_compress``
     the streamed codec tier (``off``, ``lossless``, ``f32``, ``bf16``;
-    default: the config's, ``"off"``), and ``hybrid_split`` the static
-    split of ``mode="hybrid"`` (default: the config's ``hybrid``;
-    ``"auto"`` raises ``NotImplementedError``).  The dictionary ceiling
+    default: the config's, ``"off"``), and ``hybrid_split`` the split of
+    ``mode="hybrid"`` (default: the config's ``hybrid``, ``"auto"``: priced
+    by the cost model).  The dictionary ceiling
     is ``ops.plan_codec.DICT_MAX``, read at build time.
     ``all_to_all_capacity_factor`` and ``remote_buffer_size`` size the
     chunked modes' exchange buckets (default: the config's, 1.25 and
@@ -294,8 +315,10 @@ class DistributedEngine:
 
     ``pipeline_depth`` (streamed and fused mode): the number of chunks
     whose exchanges may be in flight at once (see the module docstring);
-    0, 1 and ``"off"`` are the sequential schedule, and None takes the
-    config's ``pipeline`` (default ``"off"``).
+    0, 1 and ``"off"`` are the sequential schedule, ``"auto"`` prices the
+    overlap with the calibration, and None takes the config's ``pipeline``
+    (default ``"off"``).  The config's ``tune`` (``static``/``live``)
+    lets the autotuner fill the streamed and hybrid knobs left unset.
 
     ``group`` (a :class:`~.mesh.ShardGroup`) makes this a rank engine: D is
     the group's world size, this process holds shard ``group.rank``, and
@@ -329,6 +352,7 @@ class DistributedEngine:
         self.device = dev = resolve_device(device)
         cfg = get_config()
         mode = mode or cfg.matvec_mode
+        compress_arg = stream_compress
         if stream_compress is None:
             stream_compress = str(cfg.stream_compress).strip().lower() \
                 or "off"
@@ -351,6 +375,16 @@ class DistributedEngine:
             raise ValueError(
                 "compact mode requires a real sector (use mode='ell' "
                 "for complex-character momentum sectors)")
+        tune_knob = str(cfg.tune).strip().lower() or "off"
+        if tune_knob not in ("off", "0", "false", "no", "static", "live"):
+            raise ValueError(
+                f"unknown tune setting {cfg.tune!r}: pick off | static | "
+                "live (DMT_TUNE / config.tune)")
+        #: the autotuner's mode for this engine ("off" outside streamed
+        #: and hybrid, whose knobs are the ones it searches)
+        self._tune_mode = tune_knob if (
+            tune_knob in ("static", "live")
+            and mode in ("streamed", "hybrid")) else "off"
         self.operator = operator
         self.mode = mode
         self.n_devices = D
@@ -410,11 +444,6 @@ class DistributedEngine:
 
         self.tables = K.device_tables(operator, dev)
         self.num_terms = int(self.tables.off.x.shape[0])
-        if mode == "hybrid":
-            # validated before any collective: every rank raises alike
-            self._hybrid_mask = _static_hybrid_mask(
-                cfg.hybrid if hybrid_split is None else hybrid_split,
-                self.num_terms)
         L = len(self._shards)
         self._alphas = u64.from_numpy(alphas_np[self._shards], dev)  # [L, M]
         self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
@@ -426,9 +455,44 @@ class DistributedEngine:
 
         b = min(batch_size or cfg.matvec_batch_size, M)
         self.batch_size = _round_up(min(b, M), 8)
-        self.pipeline_depth = pipeline_depth
+        self._pipeline_req = pipeline_depth
+        self._pipeline_depth = 0
         #: the last pipelined apply's record (None after a sequential one)
         self.last_pipeline: Optional[Dict[str, float]] = None
+        # -- telemetry: the apply index, the streamed apply's per-chunk
+        #    timeline (a list while an observed apply runs), the cached
+        #    phase counts and the fused apply's (B, cap)
+        self._apply_idx = 0
+        self._timeline: Optional[list] = None
+        self._tl_events: list = []
+        self._phase_count_cache: Dict[tuple, dict] = {}
+        self._last_fused: Optional[Tuple[int, int]] = None
+        # -- self-tuning: the adopted TunedConfig, the live controller, a
+        #    re-tune waiting for the next safe boundary, and the rates the
+        #    tuner priced with
+        self._tuned = None
+        self._tuner = None
+        self._retune_pending = None
+        self._tune_cal: Optional[dict] = None
+        self._hybrid_cal: Optional[dict] = None
+        self._hybrid_split_arg = hybrid_split
+        tuned_split = None
+        if self._tune_mode != "off":
+            tuned_split = self._init_autotune(batch_size, pipeline_depth,
+                                              hybrid_split, compress_arg)
+        if mode == "hybrid":
+            # validated before any collective: every rank raises alike
+            self._hybrid_split = str(
+                hybrid_split if hybrid_split is not None
+                else tuned_split if tuned_split is not None
+                else cfg.hybrid).strip().lower() or "auto"
+            self._hybrid_mask = _static_hybrid_mask(self._hybrid_split,
+                                                    self.num_terms)
+        req = cfg.pipeline if self._pipeline_req is None \
+            else self._pipeline_req
+        if str(req).strip().lower() != "auto":
+            # an explicit depth is validated before the build
+            self.pipeline_depth = self._pipeline_req
 
         t0 = time.perf_counter()
         if mode in ("ell", "compact"):
@@ -443,13 +507,27 @@ class DistributedEngine:
                             f"magnitudes W: {ws.tolist()}")
             self._plan_stream(compact=mode == "compact")
             self.timings["plan_build_s"] = time.perf_counter() - t0
-            return
-        self._init_lookup(alphas_np, basis.number_bits)
+        else:
+            self._init_lookup(alphas_np, basis.number_bits)
+            self._capacity = self._fused_capacity()
+            if mode != "fused":
+                self._build_streamed()
+        # "auto" prices the built plan's phase counts
+        self.pipeline_depth = self._pipeline_req
+
+    def _build_streamed(self) -> None:
+        """Build, encode and stage the streamed (or hybrid) plan at the
+        engine's current knobs (row chunk, tier, split): the constructor's
+        streamed branch, and a re-tune's rebuild at a safe boundary.  A
+        hybrid ``"auto"`` split is resolved here from the build census."""
+        dev = self.device
+        self._phase_count_cache = {}
         self._capacity = self._fused_capacity()
-        if mode == "fused":
-            return
+        t0 = time.perf_counter()
         raw = self._build_stream_plan()
         self.timings["plan_build_s"] = time.perf_counter() - t0
+        if self.mode == "hybrid" and self._hybrid_mask is None:
+            self._hybrid_mask = self._auto_hybrid_mask(raw)
         t0 = time.perf_counter()
         self._encode_stream_plan(raw)
         self.timings["plan_encode_s"] = time.perf_counter() - t0
@@ -457,12 +535,15 @@ class DistributedEngine:
             [self._codec.dict_device_row(d) for d in self._shards])).to(dev)
         spec = self._codec.spec
         self._stream_kernel = "cuda" if (
-            mode == "streamed" and self.real and spec["tier"] != "off"
+            self.mode == "streamed" and self.real and spec["tier"] != "off"
             and spec["coeff"] == "dict") else "torch"
-        if mode == "hybrid":
+        self._hyb_tables = None
+        if self.mode == "hybrid":
             self._setup_hybrid_recompute()
         if dev.type == "cuda":
-            self._copy_stream = torch.cuda.Stream(dev)
+            if getattr(self, "_copy_stream", None) is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+            self._dev_bufs = None
             self._grow_ring(2)
 
     # -- ranks ---------------------------------------------------------------
@@ -495,19 +576,25 @@ class DistributedEngine:
         exchanges start as soon as it is produced, and it retires — its
         waits, then ``consume`` — strictly in chunk order once d − 1 later
         chunks have been produced; the last d − 1 drain in order.  The
-        host time spent in those waits goes to ``last_pipeline``."""
+        host time spent in those waits goes to ``last_pipeline`` (and, in
+        an observed streamed apply, to the chunk's timeline entry as its
+        ``exch_ms``)."""
         d = self.pipeline_depth
         if d >= 2 and self.last_pipeline is None:
             self.last_pipeline = {"depth": d, "chunks": 0, "barrier_ms": 0.0}
         rec = self.last_pipeline
+        timeline = self._timeline
         flight: list = []
 
         def retire():
-            waits, carry = flight.pop(0)
+            waits, carry, entry = flight.pop(0)
             t0 = time.perf_counter()
             recvs = [w() for w in waits]
-            rec["barrier_ms"] += (time.perf_counter() - t0) * 1e3
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            rec["barrier_ms"] += wait_ms
             rec["chunks"] += 1
+            if entry is not None:
+                entry["exch_ms"] = round(wait_ms, 4)
             consume(carry, *recvs)
 
         for ci, chunk in enumerate(chunks):
@@ -515,7 +602,10 @@ class DistributedEngine:
             if d < 2:
                 consume(carry, *[self._exchange(s) for s in sends])
                 continue
-            flight.append(([self._exchange_start(s) for s in sends], carry))
+            # the streamed chunk source appended this chunk's entry
+            entry = timeline[-1] if timeline else None
+            flight.append(([self._exchange_start(s) for s in sends], carry,
+                           entry))
             if len(flight) == d:
                 retire()
         while flight:
@@ -545,8 +635,11 @@ class DistributedEngine:
         ell and compact have no chunk sequence and resolve 0; None, "",
         "off", 0, 1 (and "false"/"no"/"none") are 0; an integer ≥ 2 is
         clamped to the chunk count, and a clamp below 2 is 0; fused runs at
-        most 2.  ``"auto"`` prices the overlap with the JAX package's
-        roofline calibration, which the port does not have."""
+        most 2.  ``"auto"`` is the roofline policy
+        (:func:`~..obs.roofline.choose_pipeline_depth` over the one-column
+        phase counts under the calibration of the engine's device); on
+        ranks the largest rank's answer is taken, so every rank runs one
+        schedule (a collective: every rank resolves together)."""
         if self.mode not in ("fused", "streamed", "hybrid"):
             return 0
         if value is None:
@@ -555,16 +648,23 @@ class DistributedEngine:
         if s in ("", "off", "0", "1", "false", "no", "none"):
             return 0
         if s == "auto":
-            raise NotImplementedError(
-                "pipeline_depth='auto' prices the overlap with the roofline "
-                "calibration of the JAX package's obs/, which is not in the "
-                "port yet; pass off or an integer >= 2")
+            from ..obs import roofline as _roofline
+
+            depth = _roofline.choose_pipeline_depth(
+                self._phase_counts(1),
+                _roofline.resolve_calibration(device=self.device),
+                self.nchunks, self.n_devices)
+            if self.group is not None:
+                depth = self._agree(depth, op="max")[0]
+            s = str(depth)
+            if depth < 2:
+                return 0
         try:
             depth = int(s)
         except ValueError:
             raise ValueError(
-                f"bad pipeline depth {value!r}: pick off | an integer >= 2"
-                " ('auto' is not in the port yet)") from None
+                f"bad pipeline depth {value!r}: pick off | auto | an "
+                "integer >= 2 (DMT_PIPELINE / config.pipeline)") from None
         if depth < 0:
             raise ValueError(f"pipeline depth must be >= 0, got {depth}")
         depth = min(depth, max(self.nchunks, 1))
@@ -971,23 +1071,47 @@ class DistributedEngine:
         applies read a chunk's records only while producing it, so the
         ring is the counterpart of the JAX engine's prefetch depth."""
         n, L = self.nchunks, len(self._shards)
+        timeline = self._timeline
         if self.device.type != "cuda":
             for ci in range(n):
+                entry = None
+                if timeline is not None:
+                    # the plan never leaves host memory: nothing to wait on
+                    entry = {"chunk": ci, "stall_ms": 0.0, "stage_ms": 0.0}
+                    timeline.append(entry)
+                    t0 = time.perf_counter()
                 yield [self._chunk_views(self._plan_host[ci, d])
                        for d in range(L)]
+                if entry is not None:
+                    entry["dispatch_ms"] = round(
+                        (time.perf_counter() - t0) * 1e3, 4)
             return
         S = slots or max(self.pipeline_depth, 2)
         self._grow_ring(S)
         compute = torch.cuda.current_stream(self.device)
         copy = self._copy_stream
+        # observed apply: per chunk three timing events — the copy's start
+        # and end on the copy stream, and the compute stream's arrival at
+        # its wait — read after the apply's end-of-apply synchronization
+        ev = None
+        if timeline is not None:
+            base = len(timeline)
+            need = 3 * (base + n)
+            while len(self._tl_events) < need:
+                self._tl_events.append(torch.cuda.Event(enable_timing=True))
+            ev = self._tl_events
 
         def issue(ci):
             slot = ci % S
             with torch.cuda.stream(copy):
                 copy.wait_event(self._free[slot])
+                if ev is not None:
+                    ev[3 * (base + ci)].record(copy)
                 self._dev_bufs[slot].copy_(self._plan_host[ci],
                                            non_blocking=True)
                 self._ready[slot].record(copy)
+                if ev is not None:
+                    ev[3 * (base + ci) + 1].record(copy)
 
         copy.wait_stream(compute)
         for ci in range(min(S - 1, n)):
@@ -997,10 +1121,19 @@ class DistributedEngine:
                 # the slot of chunk ci − 1, released just below
                 issue(ci + S - 1)
             slot = ci % S
+            entry = None
+            if ev is not None:
+                entry = {"chunk": ci, "_ev": 3 * (base + ci)}
+                timeline.append(entry)
+                ev[3 * (base + ci) + 2].record(compute)
+                t0 = time.perf_counter()
             compute.wait_event(self._ready[slot])
             yield [self._chunk_views(self._dev_bufs[slot, d])
                    for d in range(L)]
             self._free[slot].record(compute)
+            if entry is not None:
+                entry["dispatch_ms"] = round(
+                    (time.perf_counter() - t0) * 1e3, 4)
 
     # -- streamed: apply -----------------------------------------------------
 
@@ -1592,7 +1725,12 @@ class DistributedEngine:
         ``check=True``) checks the overflow and out-of-basis counters and
         raises if an amplitude was lost; ``check=False`` skips it.  The
         other modes checked them at build time.  Streamed mode applies a
-        block of R > 4 columns in column groups of 4."""
+        block of R > 4 columns in column groups of 4.
+
+        A re-tune the live tuner proposed lands here, before any of the
+        apply's work.  With the obs layer on the apply is recorded
+        (``matvec_apply``; with ``phases`` on also ``apply_phases``, after
+        one synchronization at the apply's end on the card)."""
         D, M = len(self._shards), self.shard_size
         if not self.real and xh.dtype == torch.float64:
             xh = xh.to(self._dtype)
@@ -1602,6 +1740,101 @@ class DistributedEngine:
                 f"matvec takes a {self._dtype} [{D}, {M}] or "
                 f"[{D}, {M}, R] tensor on {self.device}, got {xh.dtype} "
                 f"{tuple(xh.shape)} on {xh.device}")
+        if self._retune_pending is not None:
+            # the safe boundary: no device work of this apply is queued
+            self.maybe_retune()
+        if not obs_enabled():
+            return self._matvec_body(xh, check)
+        return self._matvec_observed(xh, check)
+
+    def _matvec_observed(self, xh: torch.Tensor, check: Optional[bool]
+                         ) -> torch.Tensor:
+        """:meth:`_matvec_body` with its telemetry (JAX ``_matvec_inner``'s
+        tail): ``matvec_apply`` with this process's exchange bytes, the
+        ``exchange_bytes`` counter and ``matvec_apply_ms`` histogram, and
+        with phases on one ``apply_phases`` event — the structural counts
+        of :meth:`_phase_counts`, the wall over the apply to its end on the
+        device, and for streamed applies the per-chunk timeline and the
+        measured ``plan_h2d`` wall (and a pipelined apply's overlap
+        split); then the live tuner's observation."""
+        phases = obs_phases.phases_enabled()
+        streamed = self.mode in ("streamed", "hybrid")
+        self._timeline = [] if (phases and streamed) else None
+        idx = self._apply_idx
+        self._apply_idx += 1
+        t0 = time.perf_counter()
+        try:
+            y = self._matvec_body(xh, check)
+            if phases and self.device.type == "cuda":
+                # the apply's one synchronization: the wall covers its
+                # device work, and the timeline's events are complete
+                torch.cuda.current_stream(self.device).synchronize()
+            timeline = self._timeline
+        finally:
+            self._timeline = None
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        cols = int(xh.shape[2]) if xh.dim() == 3 else 1
+        nbytes = self._exchange_nbytes_tail(cols)
+        counter("exchange_bytes", engine="distributed").inc(nbytes)
+        emit("matvec_apply", engine="distributed", apply=idx,
+             wall_ms=round(dt_ms, 4), bytes=nbytes)
+        if phases:
+            self._emit_phases(idx, dt_ms, cols, timeline)
+        histogram("matvec_apply_ms", engine="distributed").observe(dt_ms)
+        return y
+
+    def _emit_phases(self, idx: int, dt_ms: float, cols: int,
+                     timeline: Optional[list]) -> None:
+        """The ``apply_phases`` event of one apply (JAX
+        ``_matvec_inner``), and the live tuner's observation of it."""
+        measured = pipe = None
+        if timeline:
+            ev = self._tl_events
+            for c in timeline:
+                k = c.pop("_ev", None)
+                if k is not None:
+                    c0, c1, w = ev[k], ev[k + 1], ev[k + 2]
+                    # exposed: how long the compute stream, arrived at its
+                    # wait, still waited for the chunk's copy to end
+                    c["stall_ms"] = round(max(w.elapsed_time(c1), 0.0), 4)
+                    c["stage_ms"] = round(c0.elapsed_time(c1), 4)
+            measured = {"plan_h2d": sum(c.get("stall_ms", 0.0)
+                                        for c in timeline)}
+        if self.pipeline_depth:
+            # the measured overlap split of a pipelined apply: barrier =
+            # plan staging the compute stream waited out, hidden = staging
+            # that ran behind compute; the exchange waits at retire ride
+            # as the measured exchange phase
+            pipe = {"depth": int(self.pipeline_depth)}
+            if timeline:
+                barrier = sum(c.get("stall_ms", 0.0) for c in timeline)
+                hidden = sum(max(c.get("stage_ms", 0.0)
+                                 - c.get("stall_ms", 0.0), 0.0)
+                             for c in timeline)
+                measured["exchange"] = sum(c.get("exch_ms", 0.0)
+                                           for c in timeline)
+                pipe.update(
+                    barrier_ms=barrier, hidden_ms=hidden,
+                    overlap_fraction=(
+                        max(0.0, min(1.0, hidden / (hidden + barrier)))
+                        if hidden + barrier > 0 else None))
+        counts = self._phase_counts(cols)
+        obs_phases.emit_apply_phases(
+            "distributed", self.mode, idx, dt_ms, counts,
+            chunks=self._nchunks(), columns=cols, measured_ms=measured,
+            chunk_timeline=timeline, pipeline=pipe)
+        if self._tuner is not None:
+            # window boundaries are deterministic in apply count, so every
+            # rank joins the agreement round at the same apply
+            prop = self._tuner.observe(counts, dt_ms, measured)
+            if self._tuner.window_closed and self.group is not None:
+                prop = self._agree_retune(prop)
+            if prop is not None:
+                self._retune_pending = prop
+
+    def _matvec_body(self, xh: torch.Tensor, check: Optional[bool]
+                     ) -> torch.Tensor:
+        D, M = len(self._shards), self.shard_size
         self.n_applies += 1
         self.last_pipeline = None
         x = xh.reshape(D, M, -1)
@@ -1628,11 +1861,360 @@ class DistributedEngine:
         B = base if R <= 4 else min(base, _round_up(max(8, (4 * base) // R),
                                                     8))
         cap = self._capacity if B == base else self._fused_capacity(B)
+        self._last_fused = (B, cap)
         y, overflow, invalid = self._apply_fused(x, B, cap)
         if check or (check is None and B not in self._checked):
             self._validate_counters(*self._agree(overflow, invalid), B, cap)
             self._checked.add(B)
         return y + self._diag.to(self._dtype)[:, :, None] * x
+
+    # -- the cost model: phase counts, hybrid auto split, self-tuning ------
+
+    def _nchunks(self) -> int:
+        """Row chunks one apply runs through (1 for the single-program
+        ell/compact plans; fused at its last apply's row chunk)."""
+        if self.mode in ("streamed", "hybrid"):
+            return self.nchunks
+        if self.mode == "fused":
+            B = self._last_fused[0] if self._last_fused else self.batch_size
+            return -(-self.shard_size // max(int(B), 1))
+        return 1
+
+    def _group_order(self) -> int:
+        """|G| for the orbit-scan pricing (1 when the basis needs no
+        projection)."""
+        if self.tables.group is None:
+            return 1
+        grp = getattr(self.operator.basis, "group", None)
+        return max(len(grp), 1) if grp is not None else 1
+
+    def _phase_counts(self, columns: int) -> dict:
+        """Structural per-apply counts per phase (``obs/phases.py``), for
+        the shards held here — the JAX engine's ``_phase_counts``, equal
+        to its counts for the same operator, mode, D, row chunk and
+        columns; cached per (mode, fused program, columns):
+
+        * ``plan_h2d``   streamed mode's per-apply plan bytes (one full
+          stream per ≤ 4-column group);
+        * ``compute``    x gathers per structure entry (+ the send-side
+          ``x[qin]`` gather in ell/compact; the orbit scan in fused); the
+          hybrid split into ``compute_decode``/``compute_recompute``;
+        * ``exchange``   :meth:`_exchange_nbytes_tail`'s send volume;
+        * ``accumulate`` receive-side slots (fused and streamed) or the
+          tail rows (ell/compact)."""
+        key = (self.mode, self._last_fused, int(columns))
+        got = self._phase_count_cache.get(key)
+        if got is not None:
+            return got
+        D, M, T = self.n_devices, self.shard_size, self.num_terms
+        nmy = len(self._shards)
+        cplx = not self.real
+        k = max(int(columns), 1)
+        vb = 16 if cplx else 8            # one vector value
+        fmul = 8 if cplx else 2           # multiply-add flops per column
+        c = obs_phases.zero_counts()
+        c["exchange"]["bytes"] = self._exchange_nbytes_tail(k)
+        if self.mode in ("ell", "compact"):
+            C = self.query_capacity
+            tail = self._ell_tail if self.mode == "ell" else self._c_tail
+            cfb = (16 if cplx else 8) if self.mode == "ell" else 4 + 8
+            g_tail = int(tail[1].shape[1] * tail[1].shape[2]) if tail else 0
+            rows_t = int(tail[0].shape[1]) if tail else 0
+            g = nmy * (self._ell_T0 * M + g_tail + D * C)
+            c["compute"] = {"bytes": g * (vb * k + cfb), "gathers": g,
+                            "flops": g * k * fmul}
+            c["accumulate"] = {"bytes": nmy * rows_t * vb * k,
+                               "gathers": nmy * rows_t,
+                               "flops": nmy * rows_t * k * (2 if cplx else 1)}
+        else:
+            nch = self._nchunks()
+            if self.mode in ("streamed", "hybrid"):
+                # the codec sets the apply's geometry: trimmed exchange
+                # capacity, and (compressed tiers) live entries only
+                spec = self._codec.spec
+                B = self.batch_size
+                seg = nmy * nch * int(spec["n_recv"])
+            else:
+                B, Cap = self._last_fused or (self.batch_size,
+                                              self._capacity)
+                seg = nmy * nch * D * Cap
+            c["accumulate"] = {"bytes": seg * vb * k, "gathers": seg,
+                               "flops": seg * k * (2 if cplx else 1)}
+            ent = nmy * nch * B * T
+            if self.mode in ("streamed", "hybrid"):
+                if spec["tier"] != "off":
+                    ent = nmy * nch * int(spec["n_live"])
+                ngroups = -(-k // 4) if k > 4 else 1
+                c["plan_h2d"]["bytes"] = int(self.plan_bytes) * ngroups
+                if self.mode == "hybrid":
+                    n_rec = int((~self._hybrid_mask).sum())
+                    ent_r = nmy * nch * B * n_rec
+                    G = self._group_order()
+                    c["compute_decode"] = {"bytes": ent * vb * k,
+                                           "gathers": ent,
+                                           "flops": ent * k * fmul}
+                    c["compute_recompute"] = {
+                        "bytes": ent_r * vb * k, "gathers": 0,
+                        "flops": ent_r * (k * fmul
+                                          + G * obs_phases.ORBIT_OPS)}
+                else:
+                    c["compute"] = {"bytes": ent * vb * k, "gathers": 0,
+                                    "flops": ent * k * fmul}
+            else:
+                grp = getattr(self.operator.basis, "group", None)
+                G = max(len(grp), 1) if grp is not None else 1
+                c["compute"] = {"bytes": ent * vb * k, "gathers": ent,
+                                "flops": ent * (k * fmul
+                                                + G * obs_phases.ORBIT_OPS)}
+        self._phase_count_cache[key] = c
+        return c
+
+    def _exchange_nbytes_tail(self, columns: int) -> int:
+        """This process's ``all_to_all`` send volume for one apply of
+        ``columns`` columns (JAX ``_exchange_nbytes_tail``): the padded
+        ``[D, C]`` query payload per shard in ell/compact, the trimmed
+        amplitude buckets per chunk in streamed/hybrid, the
+        fixed-capacity state + amplitude buckets per chunk in fused."""
+        D = self.n_devices
+        if D <= 1:
+            return 0
+        nmy = len(self._shards)
+        if self.mode in ("ell", "compact"):
+            return nmy * D * self.query_capacity * columns * 8
+        if self.mode in ("streamed", "hybrid"):
+            item = 16 if not self.real else 8
+            cap = int(self._codec.spec["cap_eff"])
+            return nmy * self.nchunks * D * cap * columns * item
+        B, cap = self._last_fused or (self.batch_size, self._capacity)
+        nchunks = -(-self.shard_size // max(B, 1))
+        return nmy * nchunks * D * cap * (8 + columns * 8)
+
+    def _auto_hybrid_mask(self, raw) -> np.ndarray:
+        """The ``hybrid_split="auto"`` mask (JAX ``_hybrid_census`` and
+        ``_resolve_hybrid_mask``): the per-term live-entry census of the
+        raw plan, summed over chunks, shards and ranks (so every rank
+        prices, and splits, alike), priced by
+        :func:`~..obs.roofline.choose_hybrid_split` at the plan's bytes per
+        live entry under the tuner's rates or the device's
+        calibration."""
+        from ..obs import roofline as _roofline
+
+        T = self.num_terms
+        ckind = "real" if self.real else "complex"
+        lim = self.n_devices * self._capacity
+        counts = np.zeros(T, np.int64)
+        rows = 0
+        for per in raw:
+            for pc in per.values():
+                flat = PC._canonical(pc["coeff"], ckind)
+                dest = np.asarray(pc["dest"], np.int64).reshape(-1)
+                live = (flat != 0) & (dest < lim)
+                counts += live.reshape(-1, T).sum(axis=0)
+                rows += self.batch_size
+        if self.group is not None:
+            tot = self.group.all_reduce(torch.from_numpy(
+                np.concatenate([counts, [rows]]).astype(np.int64)).to(
+                    self.device)).cpu().numpy()
+            counts, rows = tot[:T], int(tot[T])
+        cal = self._tune_cal or _roofline.resolve_calibration(
+            device=self.device)
+        self._hybrid_cal = cal
+        # modeled encoded bytes of one live streamed entry: the bitpacked
+        # (dest, row) pair plus the tier's coefficient bytes (a u16 code
+        # for lossless); the shared ridx/rok layout streams regardless
+        w = PC.bits_for(self.n_devices * self._capacity) \
+            + PC.bits_for(max(self.batch_size - 1, 1))
+        ncomp = 1 if self.real else 2
+        coeff_b = {"lossless": 2.0, "f32": 4.0 * ncomp,
+                   "bf16": 2.0 * ncomp}.get(self._codec_tier, 2.0)
+        mask = _roofline.choose_hybrid_split(
+            counts, rows, self._group_order(), cal, w / 8.0 + coeff_b,
+            cplx=not self.real)
+        return np.asarray(mask, bool)
+
+    @property
+    def hybrid_split(self) -> Optional[str]:
+        """The hybrid engine's split as a ``stream:<t,t,…>`` token of its
+        resolved mask (None outside hybrid mode) — the hand-set twin of an
+        ``"auto"`` split."""
+        if self._hybrid_mask is None:
+            return None
+        return "stream:" + ",".join(
+            str(int(t)) for t in np.nonzero(self._hybrid_mask)[0])
+
+    def _tune_stats(self) -> dict:
+        """The structure geometry the autotuner prices from (JAX
+        ``_tune_stats``): engine facts only, no rates."""
+        from ..utils.artifacts import artifacts_enabled
+
+        cfg = get_config()
+        return {"shard_size": int(self.shard_size),
+                "num_terms": int(self.num_terms),
+                "n_my_shards": len(self._shards),
+                "n_devices": int(self.n_devices),
+                "pair": False,
+                "cplx": not self.real,
+                "columns": 1,
+                "group_order": int(self._group_order()),
+                "ram_budget_bytes": float(cfg.stream_plan_ram_gb) * 1e9,
+                "disk_available": bool(artifacts_enabled())}
+
+    def _init_autotune(self, batch_size_arg, pipeline_arg, hybrid_arg,
+                       compress_arg) -> Optional[str]:
+        """``tune=static|live`` build hook (JAX ``_init_autotune``):
+        restore or run the knob search under the device's calibration (a
+        learned posterior first under ``live``), agree the answer over the
+        ranks, and fold the chosen knobs into the build before any plan
+        exists — the plan is then built at the tuned knobs exactly as a
+        hand-set engine's.  Returns the tuned hybrid split (None when the
+        caller's or the config's wins)."""
+        from .. import tune as _tune
+        from ..obs import roofline as _roofline
+
+        plat, kind = _roofline.device_identity(self.device)
+        prior = None
+        if self._tune_mode == "live":
+            prior = _tune.load_posterior(plat, kind, self.mode)
+        if prior is None:
+            prior = _roofline.resolve_calibration(device=self.device)
+        prior = dict(prior)
+        prior.setdefault("device_kind", kind)
+        stats = self._tune_stats()
+        fp = _tune.tuning_fingerprint(stats, prior, self.mode)
+        chosen = _tune.load_tuned(fp)
+        search_s = 0.0
+        if chosen is None:
+            chosen, search_s = _tune.timed_choose(stats, prior, self.mode)
+            _tune.save_tuned(fp, chosen, stats, prior, search_s)
+        chosen = _tune.agree_config(chosen, self.group)
+        self._tuned = chosen
+        self._tune_cal = prior
+        self.tune_search_s = search_s
+        split = self._apply_tuned_knobs(chosen, batch_size_arg, pipeline_arg,
+                                        hybrid_arg, compress_arg)
+        if self._tune_mode == "live":
+            self._tuner = _tune.LiveTuner(self.mode, stats, prior, chosen)
+        obs_phases.emit_tune_config(
+            "distributed", self.mode, chosen.knobs(), chosen.token(),
+            chosen.priced_ms, chosen.source, search_s, fp)
+        return split
+
+    def _check_tuned(self, t) -> None:
+        """A tuned config the port cannot build raises rather than build
+        something else: the disk plan tier, and more prefetch workers than
+        the RAM plan's H2D ring has chunks in flight (``max(1, depth)``),
+        wait for the persistence slice's prefetcher."""
+        if t.plan_tier != "ram":
+            raise NotImplementedError(
+                f"the autotuner picked the {t.plan_tier!r} plan tier "
+                f"({t.token()}): the port keeps the streamed plan in "
+                "pinned host memory; the disk tier comes with the "
+                "persistence slice — raise stream_plan_ram_gb or pass "
+                "explicit knobs")
+        if int(t.prefetch_workers) > max(1, int(t.pipeline_depth)):
+            raise NotImplementedError(
+                f"the autotuner picked {t.prefetch_workers} prefetch "
+                f"workers at depth {t.pipeline_depth} ({t.token()}): the "
+                "port's RAM plan stages through one copy stream with at "
+                "most max(1, depth) chunks in flight; threaded prefetch "
+                "comes with the persistence slice")
+
+    def _apply_tuned_knobs(self, t, batch_size_arg, pipeline_arg,
+                           hybrid_arg, compress_arg) -> Optional[str]:
+        """Fold a :class:`~..tune.TunedConfig` into the build with the
+        JAX precedence: an explicit constructor argument always wins; a
+        config knob moved off its default (env var or ``update_config``)
+        is a hand pin and wins; the tuned value fills everything else.
+        Returns the tuned hybrid split, or None."""
+        import dataclasses as _dc
+
+        self._check_tuned(t)
+        cfg = get_config()
+        defaults = {f.name: f.default for f in _dc.fields(type(cfg))}
+        M = self.shard_size
+        if batch_size_arg is None \
+                and cfg.matvec_batch_size == defaults["matvec_batch_size"]:
+            self.batch_size = _round_up(min(int(t.batch_size), M), 8)
+        if pipeline_arg is None \
+                and str(cfg.pipeline) == str(defaults["pipeline"]):
+            self._pipeline_req = int(t.pipeline_depth)
+        if compress_arg is None and str(cfg.stream_compress) \
+                == str(defaults["stream_compress"]):
+            self._set_compress(t.stream_compress)
+        if hybrid_arg is None and str(cfg.hybrid) == str(defaults["hybrid"]) \
+                and t.hybrid_split != "-":
+            return t.hybrid_split
+        return None
+
+    def _set_compress(self, tier: str) -> None:
+        """The streamed tier, and the tier the plan encodes at (hybrid
+        maps ``off`` to ``lossless``)."""
+        self.stream_compress = tier
+        self._codec_tier = "lossless" if (
+            self.mode == "hybrid" and tier == "off") else tier
+
+    def _agree_retune(self, prop):
+        """One window-boundary round over the ranks (JAX
+        ``_agree_retune``): every rank reaches it at the same apply, and
+        the first proposing rank's config is adopted by all — or the
+        re-tune is dropped everywhere."""
+        from ..tune.space import TunedConfig
+
+        enc = prop.encode() if prop is not None else [0] * 6
+        vec = torch.tensor([1 if prop is not None else 0] + enc,
+                           dtype=torch.int64, device=self.device)
+        rows = self.group.all_gather(vec).cpu().numpy()
+        have = rows[:, 0] == 1
+        if not have.any():
+            return None
+        r = int(np.argmax(have))
+        return TunedConfig.decode(
+            rows[r, 1:], self.mode,
+            priced_ms=prop.priced_ms if prop is not None else 0.0,
+            source="retune")
+
+    def maybe_retune(self) -> bool:
+        """Apply a pending drift-triggered re-tune now — at a safe
+        boundary only (callers: the top of :meth:`matvec`, and the serve
+        pool between jobs; on ranks every rank together).  The plan is
+        rebuilt at the new knobs exactly as a fresh build at those knobs
+        would be, never mid-apply; a streamed re-tune that keeps the row
+        chunk and the tier keeps its plan (the depth is a schedule, not a
+        plan, knob).  Returns True when the knobs changed."""
+        prop = self._retune_pending
+        if prop is None or self.mode not in ("streamed", "hybrid"):
+            return False
+        self._retune_pending = None
+        self._check_tuned(prop)
+        old = self._tuned
+        ratio = (self._tuner.last_ratio
+                 if self._tuner is not None else 0.0) or 0.0
+        t0 = time.perf_counter()
+        self._tuned = prop
+        B = _round_up(min(int(prop.batch_size), self.shard_size), 8)
+        rebuild = (self.mode == "hybrid" or B != self.batch_size
+                   or prop.stream_compress != self.stream_compress)
+        self.batch_size = B
+        self._pipeline_req = int(prop.pipeline_depth)
+        self._set_compress(prop.stream_compress)
+        if self.mode == "hybrid":
+            if self._tuner is not None:
+                # re-key the auto split at the posterior's rates
+                self._tune_cal = self._tuner.posterior.rates()
+            if self._hybrid_split_arg is None and prop.hybrid_split != "-":
+                self._hybrid_split = prop.hybrid_split
+            self._hybrid_mask = _static_hybrid_mask(self._hybrid_split,
+                                                    self.num_terms)
+        if rebuild:
+            self._build_streamed()
+        self.pipeline_depth = self._pipeline_req
+        if self._tuner is not None:
+            self._tuner.note_rebuild(prop)
+        obs_phases.emit_retune(
+            "distributed", self.mode, self._apply_idx,
+            old.token() if old is not None else "-", prop.token(),
+            ratio, prop.priced_ms, time.perf_counter() - t0)
+        return True
 
     def __call__(self, xh):
         return self.matvec(xh)

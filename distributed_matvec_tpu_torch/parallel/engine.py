@@ -26,19 +26,30 @@ Three modes (``mode=``):
 Out-of-sector targets are checked once at build time in ``ell`` and
 ``compact`` mode, and on the first apply in ``fused`` mode.
 
-The JAX engine's artifact and structure caches, its obs hooks, the
-split-gather table and the (re, im) pair form are not carried over: Hopper
-gathers f64 and complex128 natively.  Everything here is plain PyTorch.
+With the obs layer on every apply emits ``matvec_apply`` (bytes 0: no
+exchange) and the ``matvec_apply_ms`` series, and with ``phases`` on an
+``apply_phases`` event whose structural counts equal the JAX engine's
+(``_phase_counts``); the wall then covers the apply to its end on the
+device (one synchronization at the apply's end on the card).  With obs off
+the apply takes no timing at all.
+
+The JAX engine's artifact and structure caches, the split-gather table and
+the (re, im) pair form are not carried over: Hopper gathers f64 and
+complex128 natively.  Everything here is plain PyTorch.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..models.operator import Operator
+from ..obs import phases as obs_phases
+from ..obs.events import emit, obs_enabled
+from ..obs.metrics import histogram
 from ..ops import kernels as K
 from ..ops.bits import build_sorted_lookup, state_index_bucketed
 from ..utils import u64
@@ -291,6 +302,8 @@ class LocalEngine:
             self._build_compact()
         # ell and compact were validated at build time
         self._checked = mode != "fused"
+        self._apply_idx = 0
+        self._phase_count_cache: Dict[tuple, dict] = {}
 
     # -- structure build -----------------------------------------------------
 
@@ -558,6 +571,32 @@ class LocalEngine:
         if x.ndim not in (1, 2) or x.shape[0] != self.n_states:
             raise ValueError(f"expected [{self.n_states}] or "
                              f"[{self.n_states}, k], got {tuple(x.shape)}")
+        if not obs_enabled():
+            return self._matvec_body(x, check)
+        phases = obs_phases.phases_enabled()
+        idx = self._apply_idx
+        self._apply_idx += 1
+        t0 = time.perf_counter()
+        y = self._matvec_body(x, check)
+        if phases and self.device.type == "cuda":
+            # the apply's one synchronization: the wall covers its work
+            torch.cuda.current_stream(self.device).synchronize()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        # the distributed engine's event (bytes = 0: no exchange), so a
+        # report reads every engine's applies alike
+        emit("matvec_apply", engine="local", apply=idx,
+             wall_ms=round(dt_ms, 4), bytes=0)
+        if phases:
+            k = int(x.shape[1]) if x.ndim == 2 else 1
+            obs_phases.emit_apply_phases(
+                "local", self.mode, idx, dt_ms, self._phase_counts(k),
+                chunks=self.num_chunks if self.mode == "fused" else 1,
+                columns=k)
+        histogram("matvec_apply_ms", engine="local").observe(dt_ms)
+        return y
+
+    def _matvec_body(self, x: torch.Tensor, check: Optional[bool]
+                     ) -> torch.Tensor:
         if self.mode in ("ell", "compact"):
             # a batch runs columns-first: gathering a term's entries from
             # [k, N] is k contiguous gathers; gathering k-wide rows of
@@ -573,6 +612,50 @@ class LocalEngine:
             self._validate_counter(int(bad))
             self._checked = True
         return y
+
+    def _phase_counts(self, columns: int) -> dict:
+        """Structural per-apply counts per phase (``obs/phases.py``) — the
+        JAX engine's ``_phase_counts``, equal to its counts for the same
+        operator, mode and columns; cached per (mode, columns):
+
+        * ``compute``   one x gather per structure slot (ELL padding
+          included: the gather runs for every slot) plus the streamed
+          coefficient; fused mode adds the orbit-scan operations;
+        * ``accumulate`` the tail rows (ell/compact); zero in fused mode.
+        """
+        got = self._phase_count_cache.get((self.mode, columns))
+        if got is not None:
+            return got
+        k = max(int(columns), 1)
+        cplx = not self.real
+        vb = 16 if cplx else 8            # one vector value
+        fmul = 8 if cplx else 2           # multiply-add flops per column
+        c = obs_phases.zero_counts()
+        if self.mode in ("ell", "compact"):
+            if self.mode == "ell":
+                tail = self._ell_tail
+                cfb = 16 if cplx else 8   # the f64/c128 coefficient
+            else:
+                tail = self._c_tail
+                cfb = 4 + 8               # sign-tagged i32 + gathered norm
+            T0 = self.ell_split[0]
+            g_main = T0 * self.n_padded
+            g_tail = int(tail[1].shape[0] * tail[1].shape[1]) if tail else 0
+            rows_t = int(tail[0].shape[0]) if tail else 0
+            g = g_main + g_tail
+            c["compute"] = {"bytes": g * (vb * k + cfb), "gathers": g,
+                            "flops": g * k * fmul}
+            c["accumulate"] = {"bytes": rows_t * vb * k, "gathers": rows_t,
+                               "flops": rows_t * k * (2 if cplx else 1)}
+        else:                             # fused: scan + route per apply
+            grp = getattr(self.operator.basis, "group", None)
+            G = max(len(grp), 1) if grp is not None else 1
+            g = self.n_padded * self.num_terms
+            c["compute"] = {"bytes": g * vb * k, "gathers": g,
+                            "flops": g * (k * fmul
+                                          + G * obs_phases.ORBIT_OPS)}
+        self._phase_count_cache[(self.mode, columns)] = c
+        return c
 
     def _validate_counter(self, bad: int) -> None:
         if bad != 0:

@@ -17,12 +17,13 @@ Model (bytes per padded basis row, one device):
     common   ~36 + 8*v*w           diag + basis row + lookup pair, plus v
                                    live vectors of width w
 
-With a rate calibration (:func:`load_rate_calibration`, an explicit JSON)
-each mode also gets an ``est_apply_ms`` and a job an ``est_solve_s``;
-without one admission prices memory only.  The rates, the model constants
-and the default budgets are the JAX package's; the port has no H100
-calibration of its own yet, so its admission ETAs are unpriced unless a
-rates file is passed.
+With a rate calibration (:func:`load_rate_calibration`: an explicit JSON,
+else the device's measured sidecar that ``python -m
+distributed_matvec_tpu_torch.obs.calibrate`` writes) each mode also gets an
+``est_apply_ms`` and a job an ``est_solve_s``; without one admission
+prices memory only.  A live posterior the autotuner learned
+(:func:`load_tuning`) prices its mode in the calibration's place.  The
+model constants and the default budgets are the JAX package's.
 """
 
 from __future__ import annotations
@@ -173,20 +174,38 @@ TUNE_RATE_FIELDS = ("gather_rows_per_s", "h2d_bytes_per_s",
 
 def load_tuning(backend: Optional[str] = None,
                 device_kind: Optional[str] = None) -> Optional[dict]:
-    """The autotuner's persisted state, which ``price_job`` folds into
-    admission pricing.  ``tune/`` is not in the port, so nothing is ever
-    persisted: None, as the JAX function returns when nothing is."""
-    return None
+    """The autotuner's persisted state (``tune/``): the live-rate
+    posteriors per mode plus the most recent tuned-config artifact per
+    mode.  ``price_job`` folds it into admission pricing — a posterior's
+    LEARNED rates replace the static calibration.  None when nothing has
+    been persisted."""
+    from .. import tune as _tune
+
+    out = {"rates": {}, "configs": []}
+    for mode in ("streamed", "hybrid"):
+        try:
+            post = _tune.load_posterior(backend, device_kind, mode)
+        except Exception:
+            post = None
+        if post and all(post.get(k) for k in TUNE_RATE_FIELDS):
+            out["rates"][mode] = post
+        try:
+            docs = _tune.find_tuned(mode, backend)
+        except Exception:
+            docs = []
+        if docs:
+            out["configs"].append(docs[0])
+    return out if (out["rates"] or out["configs"]) else None
 
 
-def load_rate_calibration(path: Optional[str] = None) -> Optional[dict]:
-    """A measured-rates calibration JSON (the fields of
-    ``obs/roofline.RATE_FIELDS``) from an explicit path; None without a
-    path.  The JAX function also reads a content-addressed default
-    sidecar, which waits for the artifact layer in the port.  An explicit
-    path that does not load raises (never a silent drop of the
+def load_rate_calibration(path: Optional[str] = None,
+                          device=None) -> Optional[dict]:
+    """The measured-rates calibration (``obs/roofline.py``): an explicit
+    path, else the content-addressed sidecar of ``device`` (default: the
+    card when there is one, else the CPU); None when neither exists.  An
+    explicit path that does not load raises (never a silent drop of the
     est_apply_ms column the user asked for)."""
-    cal = _roofline.load_calibration(path)
+    cal = _roofline.load_calibration(path, device=device)
     if path and cal is None:
         raise FileNotFoundError(
             f"calibration file {path} is missing or carries no rate "

@@ -165,6 +165,13 @@ class EnginePool:
         if eng is not None:
             self._engines.move_to_end(key)
             self.hits += 1
+            # between jobs is a safe re-key boundary: a live-tuned engine
+            # whose drift check proposed new knobs rebuilds its plan HERE,
+            # never inside a caller's apply sequence
+            retune = getattr(eng, "maybe_retune", None)
+            if retune is not None and retune():
+                self._bytes[key] = engine_bytes(eng)
+                self._evict(keep=key)
             self._event("hit", key)
             return eng
         eng = self._builder(spec)

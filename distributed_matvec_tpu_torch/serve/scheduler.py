@@ -8,8 +8,9 @@ The unit of work here is a JOB STREAM, not a single solve:
   within the accept horizon), ``queue`` (fits, but the priced backlog puts
   its start beyond the horizon — the verdict carries the ETA), or
   ``reject`` (does not fit the device/host budgets at all, or cannot meet
-  its deadline).  Without a rates calibration the verdict prices memory
-  only and the ETAs stay 0.
+  its deadline).  The rates are the device's measured calibration (or a
+  posterior the autotuner learned for the job's mode); without one the
+  verdict prices memory only and the ETAs stay 0.
 * **Grouping**: queued jobs are grouped by :meth:`JobSpec.engine_key`; a
   batch takes up to ``serve_block_width`` jobs of ONE group (FIFO by the
   group's oldest submission, then job_id — deterministic packing), so
@@ -76,10 +77,14 @@ class Scheduler:
             accept_horizon_s if accept_horizon_s is not None
             else cfg.serve_accept_horizon_s)
         if rates is None:
-            # an explicit path that does not load raises; without one
-            # there is no calibration in the port (memory-only pricing)
-            rates = capacity.load_rate_calibration(calibration_path)
+            # an explicit path that does not load raises; without one the
+            # device's measured sidecar, else memory-only pricing
+            rates = capacity.load_rate_calibration(
+                calibration_path, device=self.pool.device)
         self.rates = rates
+        # live-rate posteriors override the static calibration inside
+        # price_job, so admission prices what the device did once a
+        # live-tuned engine has run (None when nothing is persisted)
         self.tuning = capacity.load_tuning()
         self._backlog_s = 0.0          # priced est_solve_s of queued work
         self._est_s: Dict[str, float] = {}

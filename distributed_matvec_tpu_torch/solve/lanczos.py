@@ -356,11 +356,26 @@ def lanczos(
     refuse_checkpoint(checkpoint_path)
     red = rank_reducer(matvec)
     ranks = rank_owner(matvec)
+    owner = getattr(matvec, "__self__", None)
+    quantized = (getattr(owner, "mode", None) in ("streamed", "hybrid")
+                 and getattr(owner, "stream_compress", None)
+                 in ("f32", "bf16"))
     if reorth is None:
-        reorth = get_config().lanczos_reorth
+        # a quantized dictionary rounds the coefficients, so the operator
+        # is Hermitian only to that rounding: the ω estimate assumes an
+        # exactly Hermitian one and misses the loss of orthogonality
+        reorth = "full" if quantized else get_config().lanczos_reorth
     if reorth not in ("selective", "full"):
         raise ValueError(
             f"unknown reorth policy {reorth!r} (use selective | full)")
+    if quantized and reorth == "selective":
+        raise ValueError(
+            f"reorth='selective' on a stream_compress={owner.stream_compress!r}"
+            " engine: the tier rounds the coefficients, so the operator is "
+            "Hermitian only to that rounding and the selective scheme's ω "
+            "estimate misses the loss of orthogonality (it converges to a "
+            "spurious eigenvalue) — use reorth='full' (the default on such "
+            "an engine) or solve.lanczos_block")
     device = start_device(v0, device)
     if dtype is None:
         complex_v0 = v0 is not None and (

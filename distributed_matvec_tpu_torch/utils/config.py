@@ -15,7 +15,7 @@ still parsed, so a run's config identity (flight bundles, ``/healthz``) is
 the same in both packages.  The engines read their unset constructor
 arguments here, where the JAX engines read them: ``matvec_mode``,
 ``matvec_batch_size``, ``stream_compress``, ``stream_kernel``,
-``pipeline``, ``hybrid``, ``all_to_all_capacity_factor``,
+``pipeline``, ``hybrid``, ``tune``, ``all_to_all_capacity_factor``,
 ``remote_buffer_size`` and ``ell_build_budget_gb``.
 
 One deliberate difference: ``stream_kernel="auto"`` resolves to the CUDA
@@ -75,7 +75,9 @@ class RuntimeConfig:
     #   (DMT_FLIGHT_RING, obs/flight.py): how many of the newest in-memory
     #   events a post-mortem bundle carries
     phases: str = "on"                     # per-apply phase attribution
-    #   (DMT_PHASES; port: no effect — obs/phases.py is not ported)
+    #   (DMT_PHASES, obs/phases.py): with obs on, every engine apply emits
+    #   one apply_phases event (structural counts + measured walls); "off"
+    #   keeps matvec_apply and drops the phase events
     profile: str = "off"                   # continuous profiling plane
     #   (DMT_PROFILE; port: no effect — obs/profile.py is not ported)
     profile_every: int = 64                # sampled-profile cadence
@@ -105,8 +107,9 @@ class RuntimeConfig:
     #   every apply) | "hybrid" (DistributedEngine: a static per-term
     #   recompute-vs-stream split, see `hybrid` below)
     stream_plan_ram_gb: float = 8.0        # host-RAM budget for a streamed
-    #   engine's plan before the disk tier (port: no effect — the plan
-    #   always stays in pinned host memory; the disk tier is not ported)
+    #   engine's plan before the disk tier: the autotuner's grid prices the
+    #   disk tier past it (and a tuned disk tier raises: the plan always
+    #   stays in pinned host memory; the disk tier is not ported)
     stream_compress: str = "off"           # streamed-plan codec tier
     #   (DMT_STREAM_COMPRESS, ops/plan_codec.py): "off" (raw arrays, rok
     #   still bitpacked), "lossless" (bitpacked indices + f64 dictionary
@@ -116,16 +119,19 @@ class RuntimeConfig:
     #   (DMT_PIPELINE): "off" (sequential compute-then-exchange per chunk)
     #   or an integer >= 2 (that many chunks' exchanges in flight; the
     #   accumulation order is unchanged, so pipelined applies are
-    #   bit-identical to sequential ones).  "auto" prices the overlap with
-    #   the roofline calibration, which the port does not have: it raises
-    #   NotImplementedError
+    #   bit-identical to sequential ones); "auto" prices the overlap of the
+    #   built plan with the rate calibration (obs/roofline.py)
     hybrid: str = "auto"                   # hybrid-mode term split policy
     #   (DMT_HYBRID): "all-stream" / "all-recompute" / "stream:i,j,..."
-    #   pin the split; "auto" (the JAX default) prices it with the
-    #   roofline calibration, which the port does not have: a hybrid
-    #   engine built with this default raises NotImplementedError
-    tune: str = "off"                      # self-tuning runtime (DMT_TUNE;
-    #   port: no effect — tune/ is not ported)
+    #   pin the split; "auto" streams the terms whose plan slice prices
+    #   cheaper than recomputing them (obs/roofline.choose_hybrid_split)
+    tune: str = "off"                      # self-tuning runtime (DMT_TUNE,
+    #   tune/): "static" picks the streamed/hybrid knobs left unset (row
+    #   chunk, depth, value-exact tier, split) by the calibrated cost model
+    #   and keeps the answer as a tuning artifact; "live" also refines the
+    #   rates from each window of measured applies and re-tunes at the next
+    #   apply when measured/priced leaves (0.5, 2) (DMT_TUNE_WINDOW applies
+    #   per window, default 8)
     stream_kernel: str = "auto"            # streamed-chunk decode path
     #   (DMT_STREAM_KERNEL): "auto" and "pallas" (port: the CUDA decode
     #   kernel on every eligible chunk — real sector, dictionary codes,
@@ -151,7 +157,7 @@ class RuntimeConfig:
     fault: str = ""                        # deterministic fault injection
     #   (DMT_FAULT; port: no effect — utils/faults.py is not ported)
     io_retries: int = 3                    # bounded I/O read retries (port:
-    #   no effect — no disk tier or artifact loads)
+    #   no effect — no disk tier; the JSON artifacts are read once)
     io_retry_base_s: float = 0.05          # (port: no effect)
     heartbeat_s: float = 0.0               # cross-rank heartbeat interval
     #   (DMT_HEARTBEAT_S; port: no effect — parallel/heartbeat.py is not
@@ -164,10 +170,14 @@ class RuntimeConfig:
     #   dispositions alone
 
     # -- artifact cache (utils/artifacts.py) --------------------------------
-    artifact_cache: str = "on"             # content-addressed cache (port:
-    #   no effect — utils/artifacts.py is not ported)
-    artifact_dir: str = ""                 # cache root (port: no effect)
-    artifact_max_gb: float = 8.0           # per-sidecar cap (port: no effect)
+    artifact_cache: str = "on"             # content-addressed cache
+    #   (DMT_ARTIFACT_CACHE, utils/artifacts.py): the calibration sidecar
+    #   and the tuning artifacts and posteriors; "off" disables all three
+    artifact_dir: str = ""                 # cache root (DMT_ARTIFACT_DIR
+    #   wins; default ~/.cache/distributed_matvec_tpu/artifacts)
+    artifact_max_gb: float = 8.0           # per-sidecar cap of the
+    #   structure sidecars (port: no effect — they come with the HDF5
+    #   persistence slice)
 
     # -- solve service (serve/) ---------------------------------------------
     serve_pool_gb: float = 2.0             # engine-pool byte budget

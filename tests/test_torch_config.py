@@ -140,8 +140,9 @@ def test_local_engine_defaults_resolve_as_jax(chain10, both_configs):
 def test_engine_knobs_from_config(chain10, both_configs):
     """``pipeline``, ``hybrid``, ``matvec_batch_size`` and the bucket
     sizing come from the config when the constructor leaves them unset;
-    an explicit argument wins."""
-    _, op_t = chain10
+    an explicit argument wins.  The ``"auto"`` values resolve as the JAX
+    engine resolves them under the same (CPU default) calibration."""
+    op_j, op_t = chain10
     tcfg.update_config(pipeline="2", matvec_batch_size=32,
                        all_to_all_capacity_factor=1.5,
                        remote_buffer_size=9000)
@@ -155,11 +156,17 @@ def test_engine_knobs_from_config(chain10, both_configs):
     tcfg.update_config(hybrid="all-recompute")
     hyb = DistributedEngine(op_t, mode="hybrid", device="cpu")
     assert hyb.hybrid_stream_fraction == 0.0
-    tcfg.update_config(hybrid="auto", pipeline="auto")
-    with pytest.raises(NotImplementedError, match="auto"):
-        DistributedEngine(op_t, mode="hybrid", device="cpu")
-    with pytest.raises(NotImplementedError, match="auto"):
-        DistributedEngine(op_t, mode="streamed", device="cpu")
+    knobs = dict(hybrid="auto", pipeline="auto", matvec_batch_size=32,
+                 all_to_all_capacity_factor=1.5, remote_buffer_size=9000)
+    tcfg.update_config(**knobs)
+    jcfg.update_config(**knobs)
+    for mode in ("hybrid", "streamed"):
+        eng = DistributedEngine(op_t, mode=mode, n_devices=2, device="cpu")
+        jeng = JD.DistributedEngine(op_j, n_devices=2, mode=mode)
+        assert eng.pipeline_depth == jeng.pipeline_depth
+        if mode == "hybrid":
+            np.testing.assert_array_equal(eng._hybrid_mask,
+                                          jeng._hybrid_mask)
 
 
 @pytest.mark.parametrize("knob,kernel", [("auto", "cuda"),

@@ -110,6 +110,12 @@ def test_entry_points_refuse_cpu_without_request(monkeypatch):
                                mode="streamed", stream_compress="lossless")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.lanczos(lambda v: v, n=4)
+    from distributed_matvec_tpu_torch.obs import calibrate
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate.calibrate()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate.main(["--no-save"])
+    assert calibrate.calibrate("cpu", quick=True)["backend"] == "cpu"
     # asked for explicitly, the CPU runs
     eng = port.DistributedEngine(op, batch_size=64, device="cpu",
                                  mode="streamed", stream_compress="lossless")
@@ -142,17 +148,40 @@ def test_service_refuses_cpu_without_request(monkeypatch, tmp_path):
     assert app.main([spool, "--drain", "--device", "cpu"]) == 0
 
 
-def test_out_of_scope_raises_not_implemented():
-    """What the port does not have raises NotImplementedError: the two
-    "auto" policies (the hybrid split, also the JAX default, and the
-    pipeline depth), priced by the JAX package's obs/.  What earlier slices
-    refused builds now: every codec tier, complex sectors in the streamed
+def test_out_of_scope_raises_not_implemented(monkeypatch):
+    """What the port does not have raises NotImplementedError: a solver
+    checkpoint (the HDF5 slice) and a tuned config that asks for the disk
+    plan tier (the persistence slice) — never a quiet build of something
+    else.  What earlier slices refused builds now: the two "auto" policies
+    (the hybrid split, also the JAX default, and the pipeline depth),
+    resolved by the cost model as ``obs/roofline.py`` prices them under the
+    CPU calibration; every codec tier, complex sectors in the streamed
     engine, and hybrid mode with a static split."""
+    from distributed_matvec_tpu_torch import tune
+    from distributed_matvec_tpu_torch.obs import roofline
+    from distributed_matvec_tpu_torch.utils.config import update_config
+
     op = heisenberg_chain(8, symmetric=True)
+    cal = roofline.resolve_calibration(device="cpu")
     for kw in ({"mode": "hybrid"}, {"mode": "hybrid", "hybrid_split": "auto"},
                {"mode": "streamed", "pipeline_depth": "auto"}):
-        with pytest.raises(NotImplementedError, match="auto"):
-            port.DistributedEngine(op, batch_size=64, device="cpu", **kw)
+        eng = port.DistributedEngine(op, batch_size=8, device="cpu", **kw)
+        assert eng.pipeline_depth == 0 or eng.pipeline_depth == min(
+            roofline.choose_pipeline_depth(eng._phase_counts(1), cal,
+                                           eng.nchunks, 1), eng.nchunks)
+        if kw["mode"] == "hybrid":
+            assert eng._hybrid_mask is not None
+            assert eng.hybrid_split.startswith("stream:")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        port.lanczos(lambda v: v, n=4, device="cpu", checkpoint_path="x")
+    disk = tune.TunedConfig(batch_size=64, plan_tier="disk")
+    monkeypatch.setattr(tune, "load_tuned", lambda fp: disk)
+    update_config(tune="static")
+    try:
+        with pytest.raises(NotImplementedError, match="disk"):
+            port.DistributedEngine(op, mode="streamed", device="cpu")
+    finally:
+        update_config(tune="off")
     for kw in ({"mode": "streamed", "stream_compress": "off"},
                {"mode": "streamed", "n_devices": 2, "stream_compress": "bf16"},
                {"mode": "hybrid", "hybrid_split": "all-recompute"}):

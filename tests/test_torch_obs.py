@@ -277,7 +277,12 @@ def test_preempt_latch_fires_the_flight_hook(clean, monkeypatch, tmp_path):
         pytest.skip("signal handlers install on the main thread only")
     preempt.reset()
     installed = signal.SIGTERM not in preempt._prev
+    found = signal.getsignal(signal.SIGTERM)
     assert preempt.ensure_installed()
+    # another package's latch (the JAX package's, installed by a JAX solve
+    # in this process after the port's) may hold SIGTERM now: the signal
+    # must reach the port's
+    signal.signal(signal.SIGTERM, preempt._handler)
     try:
         os.kill(os.getpid(), signal.SIGTERM)
         assert preempt.requested() and preempt.signal_number() == \
@@ -288,6 +293,7 @@ def test_preempt_latch_fires_the_flight_hook(clean, monkeypatch, tmp_path):
             preempt.EXIT_PREEMPTED
     finally:
         preempt.reset()
-        if installed:        # leave the process's disposition as found
-            signal.signal(signal.SIGTERM,
-                          preempt._prev.pop(signal.SIGTERM))
+        # leave the process's disposition, and the latch's record, as found
+        signal.signal(signal.SIGTERM, found)
+        if installed:
+            preempt._prev.pop(signal.SIGTERM)

@@ -28,6 +28,7 @@ import torch
 
 from distributed_matvec_tpu.parallel.distributed import \
     DistributedEngine as JaxEngine
+from distributed_matvec_tpu.utils.config import update_config
 from distributed_matvec_tpu_torch import DistributedEngine
 from distributed_matvec_tpu_torch.convert import (operator_arrays,
                                                   operator_from_reference)
@@ -179,15 +180,22 @@ def test_counters_preserved_and_overflow_still_raises(chain10):
 
 def test_depth_refusals_and_modes(chain10):
     """Junk depths raise ``ValueError`` with the JAX message, ``"auto"``
-    raises ``NotImplementedError``; off-like values are 0; ell and compact
-    always resolve 0; a clamp to one chunk is 0, not a depth-1 pipeline."""
+    resolves to the JAX engine's depth under the same (CPU default)
+    calibration; off-like values are 0; ell and compact always resolve 0;
+    a clamp to one chunk is 0, not a depth-1 pipeline."""
     c = chain10
     eng = c.engine(2, "streamed")
     for bad in ("sideways", -1, "-3"):
         with pytest.raises(ValueError, match="pipeline depth"):
             eng.pipeline_depth = bad
-    with pytest.raises(NotImplementedError, match="auto"):
-        eng.pipeline_depth = "auto"
+    eng.pipeline_depth = "auto"
+    update_config(stream_compress="lossless")
+    try:
+        jeng = JaxEngine(c.op_j, n_devices=2, mode="streamed", batch_size=B,
+                         pipeline_depth="auto")
+    finally:
+        update_config(stream_compress="off")
+    assert eng.pipeline_depth == jeng.pipeline_depth
     with pytest.raises(ValueError, match="pipeline depth"):
         c.engine(2, "fused", depth="sideways")
     for off in (None, 0, 1, "off", "0", "1", " OFF ", "none"):

@@ -579,3 +579,35 @@ def test_rank_preempt_agreed(ranks, W):
         # 3; evolve after its first accepted step (8 Krylov applies)
         want = {"lanczos": 16, "lanczos_block": 6, "kpm": 3, "evolve": 1}
         assert iters == want[name], (name, iters)
+
+
+# -- the self-tuning runtime on ranks --------------------------------------------
+
+def test_rank_tune_agrees_config_and_rekey(ranks):
+    """Two gloo ranks (JAX ``test_two_process_tune``): one rank restores
+    its tuned artifact while the other searches, and both build at one
+    config — the JAX search's answer on the same stats and rates — whose
+    apply equals the one-process reference; under ``tune="live"`` one
+    rank's re-key proposal at a window boundary is agreed, both rebuild at
+    the next apply, and that apply equals a hand-set engine at the new
+    knobs bit for bit."""
+    from distributed_matvec_tpu import tune as jtune
+
+    outs = [out["tune"] for out in ranks[2]]
+    st = [o["static"] for o in outs]
+    assert {s["source"] for s in st} == {"search", "artifact"}
+    assert st[0]["token"] == st[1]["token"]
+    want = jtune.choose_config(st[0]["stats"], st[0]["cal"], "streamed")
+    assert st[0]["token"] == want.token()
+    np.testing.assert_array_equal(st[0]["y"], st[1]["y"])
+    ref = RW.build_op(12, 6, 1, RW.SYMS_12_K0)
+    x = RW.inputs(ref.basis.number_states, True, seed=5)
+    np.testing.assert_allclose(st[0]["y"], ref.matvec_host(x), rtol=1e-12,
+                               atol=1e-13)
+    assert outs[0]["pending"] == outs[1]["pending"] is not None
+    live = [o["live"] for o in outs]
+    assert live[0]["token"] == live[1]["token"] == outs[0]["pending"]
+    assert live[0]["token"] != live[0]["first"]
+    for o in outs:
+        assert o["live"]["retunes"] == [o["live"]["token"]]
+        np.testing.assert_array_equal(o["live"]["y"], o["twin_y"])

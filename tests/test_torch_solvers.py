@@ -380,3 +380,62 @@ def test_solvers_need_a_card_unless_asked(monkeypatch):
     res = lanczos_block(lambda x: x * torch.arange(
         1.0, 21.0, dtype=torch.float64)[:, None], V0=X, k=1, max_iters=40)
     assert res.eigenvalues[0] == pytest.approx(1.0)
+
+
+SYMS_14 = [([*range(1, 14), 0], 0), ([*reversed(range(14))], 0)]
+
+
+@pytest.fixture(scope="module")
+def chain14_tiers():
+    """chain_14 in its symmetric sector (85 states): the smallest chain
+    whose bf16 streamed operator led the selective ``lanczos`` to a
+    spurious E0 (−194.9 against −23.83), with the dense E0 of the JAX
+    operator, and the port's streamed engine per tier."""
+    op_j = build_heisenberg(14, 7, 1, SYMS_14)
+    op_j.basis.build()
+    op_t = operator_from_reference(operator_arrays(op_j), device="cpu")
+    e0 = float(np.linalg.eigvalsh(dense_effective_matrix(op_j))[0])
+    engines = {tier: DistributedEngine(op_t, mode="streamed", batch_size=B,
+                                       stream_compress=tier, device="cpu")
+               for tier in ("lossless", "f32", "bf16")}
+    return e0, engines
+
+
+@pytest.mark.parametrize("tier,rel", [("f32", 1e-6), ("bf16", 1e-2)])
+def test_lanczos_on_quantized_tier_finds_e0(chain14_tiers, tier, rel):
+    """On an ``f32``/``bf16`` streamed engine the operator is Hermitian
+    only to the tier's rounding: ``lanczos`` with no ``reorth`` runs the
+    full sweep there (bit-equal to ``reorth="full"``) and finds E0 within
+    the tier's bound of the exact one (the selective scheme's ω estimate
+    misses the loss of orthogonality and converged to −194.9 on bf16);
+    an explicit ``reorth="selective"`` raises, naming the tier."""
+    e0, engines = chain14_tiers
+    eng = engines[tier]
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device="cpu")
+    full = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                   reorth="full", device="cpu")
+    assert res.converged
+    assert res.eigenvalues[0] == full.eigenvalues[0]
+    assert res.num_iters == full.num_iters
+    assert abs(res.eigenvalues[0] - e0) <= rel * abs(e0)
+    with pytest.raises(ValueError, match=f"stream_compress='{tier}'.*"
+                                         "reorth='full'"):
+        lanczos(eng.matvec, v0=eng.random_hashed(0), k=1,
+                reorth="selective", device="cpu")
+
+
+def test_lanczos_keeps_selective_on_lossless(chain14_tiers):
+    """A lossless streamed engine keeps the selective default: the same
+    iterations and E0 bits as an explicit ``reorth="selective"``, and
+    fewer full sweeps than blocks."""
+    e0, engines = chain14_tiers
+    eng = engines["lossless"]
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device="cpu")
+    sel = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  reorth="selective", device="cpu")
+    assert res.eigenvalues[0] == sel.eigenvalues[0]
+    assert res.num_iters == sel.num_iters
+    assert res.full_sweeps == sel.full_sweeps < res.num_iters // 16
+    assert abs(res.eigenvalues[0] - e0) < 1e-10

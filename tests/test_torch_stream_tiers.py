@@ -528,20 +528,26 @@ def test_lanczos_block_matches_jax(case):
 
 
 def test_refusals():
-    """JAX's words for a bad split and a term out of range; the port's
-    NotImplementedError for the "auto" split (the JAX default, so None
-    too); an unknown tier; LocalEngine points hybrid at
-    DistributedEngine."""
-    _, op_t = _ops(10, 5, None, ())
+    """JAX's words for a bad split and a term out of range; an unknown
+    tier; LocalEngine points hybrid at DistributedEngine.  The "auto"
+    split (the JAX default, so None too) resolves to the JAX engine's mask
+    under the same (CPU default) calibration, and its apply equals the
+    hand-set ``stream:<mask>`` engine's bit for bit."""
+    op_j, op_t = _ops(10, 5, None, ())
     with pytest.raises(ValueError, match="hybrid split"):
         _engine(op_t, 2, mode="hybrid", hybrid_split="bogus")
     with pytest.raises(ValueError, match="hybrid split"):
         _engine(op_t, 2, mode="hybrid", hybrid_split="stream:1,x")
     with pytest.raises(ValueError, match="outside"):
         _engine(op_t, 2, mode="hybrid", hybrid_split="stream:9999")
+    want = _jax_engine(op_j, 2, "hybrid", "lossless",
+                       hybrid_split="auto")._hybrid_mask
+    x = _x(op_t, 0)
     for split in ("auto", None, " AUTO "):
-        with pytest.raises(NotImplementedError, match="auto"):
-            _engine(op_t, 2, mode="hybrid", hybrid_split=split)
+        e = _engine(op_t, 2, mode="hybrid", hybrid_split=split)
+        np.testing.assert_array_equal(e._hybrid_mask, want)
+        twin = _engine(op_t, 2, mode="hybrid", hybrid_split=e.hybrid_split)
+        _same(e.matvec_global(x), twin.matvec_global(x), f"auto {split}")
     with pytest.raises(ValueError, match="stream_compress"):
         _engine(op_t, 2, tier="fp8")
     with pytest.raises(ValueError, match="DistributedEngine"):

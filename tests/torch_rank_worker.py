@@ -8,7 +8,8 @@ rank engine (one shard per process), runs the checks' inputs through it —
 plan and tables, matvec (sequential and pipelined), Lanczos, the block
 solvers, KPM, Krylov evolution, bound observables and the fused-capacity
 overflow — then, at W = 2, the streamed engine's other forms (``FORMS``)
-and a codec mismatch — and saves what it saw to ``OUT_DIR/rank{RANK}.pt``.
+a codec mismatch and the self-tuning runtime (``run_tune``) — and saves
+what it saw to ``OUT_DIR/rank{RANK}.pt``.
 It imports the port only, never JAX; the parent test compares against both
 packages.
 """
@@ -357,6 +358,77 @@ def run_preempt(g):
     return out
 
 
+def run_tune(g, out_dir):
+    """The self-tuning runtime on ranks (W = 2): each rank keeps its own
+    artifact cache and only rank 0 saves to its own, so at a second build
+    rank 0 restores and rank 1 searches — and they must still agree on one
+    config (``agree_config``); a static engine's apply; then
+    ``tune="live"``
+    with a two-apply window, where rank 1 alone proposes a re-key at the
+    first window boundary: the ranks agree on it and both rebuild at the
+    next apply, which must equal a hand-set engine at the new knobs.
+    Records tokens, stats, the applies and the retune events."""
+    from distributed_matvec_tpu_torch import DistributedEngine, obs, tune
+    from distributed_matvec_tpu_torch.utils.config import update_config
+
+    os.environ["DMT_ARTIFACT_CACHE"] = "on"
+    os.environ["DMT_ARTIFACT_DIR"] = os.path.join(out_dir,
+                                                  f"artifacts{g.rank}")
+    os.environ["DMT_TUNE_WINDOW"] = "2"
+    op = build_op(12, 6, 1, SYMS_12_K0)
+    x = inputs(op.basis.number_states, True, seed=5)
+    out = {}
+    try:
+        update_config(tune="static")
+        # only rank 0 saves a tuned artifact: at the second build it
+        # restores while rank 1 searches
+        DistributedEngine(op, mode="streamed", group=g, device="cpu")
+        eng = DistributedEngine(op, mode="streamed", group=g, device="cpu")
+        out["static"] = {"token": eng._tuned.token(),
+                         "source": eng._tuned.source,
+                         "stats": eng._tune_stats(),
+                         "cal": dict(eng._tune_cal),
+                         "y": eng.from_hashed(eng.matvec(eng.to_hashed(x)))}
+        update_config(tune="live")
+        eng = DistributedEngine(op, mode="streamed", group=g, device="cpu")
+        first = eng._tuned
+        cand = [c for c in tune.knob_grid(eng._tune_stats(), "streamed")
+                if not c.same_knobs(first)][0]
+        observe = eng._tuner.observe
+        state = {"done": False}
+
+        def proposing(*a, **k):
+            observe(*a, **k)
+            if eng._tuner.window_closed and not state["done"]:
+                state["done"] = True
+                return cand if g.rank == 1 else None
+            return None
+
+        eng._tuner.observe = proposing
+        xh = eng.to_hashed(x)
+        for _ in range(3):
+            eng.matvec(xh)
+        out["pending"] = (eng._retune_pending.token()
+                          if eng._retune_pending is not None else None)
+        y = eng.matvec(xh)                        # the re-key lands here
+        out["live"] = {"first": first.token(), "token": eng._tuned.token(),
+                       "y": eng.from_hashed(y),
+                       "retunes": [e["new_token"]
+                                   for e in obs.events("retune")]}
+        update_config(tune="off")
+        twin = DistributedEngine(op, mode="streamed", group=g, device="cpu",
+                                 batch_size=eng.batch_size,
+                                 stream_compress=cand.stream_compress,
+                                 pipeline_depth=cand.pipeline_depth)
+        out["twin_y"] = twin.from_hashed(twin.matvec(twin.to_hashed(x)))
+    finally:
+        update_config(tune="off")
+        for k in ("DMT_ARTIFACT_CACHE", "DMT_ARTIFACT_DIR",
+                  "DMT_TUNE_WINDOW"):
+            os.environ.pop(k, None)
+    return out
+
+
 def main(argv):
     rank, world, init_method, out_dir = (int(argv[1]), int(argv[2]),
                                          argv[3], argv[4])
@@ -378,6 +450,7 @@ def main(argv):
             out["seconds"][name] = time.perf_counter() - t0
         if world == 2:
             out["forms"] = run_forms(g)
+            out["tune"] = run_tune(g, out_dir)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             out["overflow"] = run_overflow(g)

@@ -8,10 +8,16 @@ misleads.
 For each tier (``off``, then ``--tiers``): the port's streamed engine
 (D = 1) and how far it is from Hermitian, ``|⟨y, Ax⟩ − ⟨Ay, x⟩| /
 |⟨y, Ax⟩|`` for two seeded vectors; then the lowest eigenvalue from the
-port's ``lanczos`` with ``reorth="selective"`` and ``"full"`` and from
+port's ``lanczos`` with its default ``reorth`` (``"full"`` on the
+quantized tiers), with ``"full"``, and with ``"selective"`` — which the
+port refuses on a quantized engine, so it is run through a plain function
+around the engine's matvec, which the solver cannot see behind — and from
 its ``lanczos_block(k=1, block_size=2)``, and from the JAX package's
 ``lanczos_block`` on its own streamed engine of the same tier (the JAX
-``lanczos`` refuses streamed engines).  One JSON line per tier.
+``lanczos`` refuses streamed engines).  ``omega`` records, for each
+window block of that selective solve, the ω estimate of the selective
+scheme (``_OmegaTracker``) beside the measured loss of orthogonality of
+the basis, ``max |V Vᵀ − I|``.  One JSON line per tier.
 """
 
 from __future__ import annotations
@@ -54,6 +60,26 @@ def main(argv=None) -> int:
     from distributed_matvec_tpu_torch.models.lattices import \
         heisenberg_chain as torch_chain
 
+    # the selective solve's ω estimate beside the basis's measured loss
+    # of orthogonality, per window block (the tracker is advanced with
+    # the basis V in its caller's frame)
+    import inspect
+
+    L = sys.modules["distributed_matvec_tpu_torch.solve.lanczos"]
+    advance, omega = L._OmegaTracker.advance, []
+
+    def traced(self, alph, bet, m_new):
+        est = advance(self, alph, bet, m_new)
+        V = inspect.currentframe().f_back.f_locals["V"]
+        m1 = int(m_new) + 1
+        G = (V[:m1] @ V[:m1].T).cpu().numpy()
+        omega.append({"m": int(m_new), "omega_estimate": est,
+                      "measured_loss": float(np.max(np.abs(
+                          G - np.eye(m1))))})
+        return est
+
+    L._OmegaTracker.advance = traced
+
     op_j = heisenberg_chain(args.n, symmetric=True)
     op_j.basis.build()
     op_t = torch_chain(args.n, symmetric=True)
@@ -68,10 +94,17 @@ def main(argv=None) -> int:
         ax, ay = eng.matvec_global(x), eng.matvec_global(y)
         out = {"n": args.n, "n_states": N, "tier": tier,
                "asymmetry": float(abs(y @ ax - ay @ x) / abs(y @ ax))}
+        r = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                    device="cpu")
+        out["lanczos_default"] = float(r.eigenvalues[0])
+        out["lanczos_default_full_sweeps"] = int(r.full_sweeps)
         for reorth in ("selective", "full"):
-            r = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1,
-                        tol=1e-10, reorth=reorth, device="cpu")
+            omega.clear()
+            r = lanczos(lambda v: eng.matvec(v), v0=eng.random_hashed(0),
+                        k=1, tol=1e-10, reorth=reorth, device="cpu")
             out[f"lanczos_{reorth}"] = float(r.eigenvalues[0])
+            if reorth == "selective":
+                out["omega"] = list(omega)
         r = lanczos_block(eng.matvec, k=1, block_size=2, tol=1e-10, seed=0,
                           device="cpu")
         out["lanczos_block"] = float(r.eigenvalues[0])
