@@ -75,9 +75,11 @@ Phases, one JSON line each with its seconds:
    ``from_hashed``, against ``local_full``'s ell apply (atol 1e-13 / rtol
    1e-12); 7 timed applies (host wall and CUDA events; fused: its first
    apply's seconds, to fit the time limit);
-   for streamed and ell, a ``torch.profiler`` breakdown of one apply and
-   Lanczos E0 within 1e-10 of the full leg's and 1e-8 relative of the
-   recorded value.  For streamed, the decode kernel
+   for streamed and ell, a ``torch.profiler`` breakdown of one apply; for
+   ell, Lanczos E0 within 1e-10 of the full leg's and 1e-8 relative of the
+   recorded value (the streamed engine's Lanczos is cut to fit the time
+   limit: its apply is held to the ell apply).  For streamed, the decode
+   kernel
    on real D = 4 chunks: every chunk of shard 0 and the middle chunk of
    every shard against the plain version (``torch.equal``), its time per
    launch over every (chunk, shard) beside the byte bound, and its
@@ -107,8 +109,9 @@ Phases, one JSON line each with its seconds:
    collectives.  (a) Two ranks share the one card over gloo on ``tiers``'
    chain_30_symm (cut from chain_32_symm to fit the time limit; spawned,
    each loading the parent's basis): ``ell``
-   (build, apply, 3 timed applies, Lanczos to E0, then ``lanczos_block(k=4,
-   block_size=4)`` and ``lobpcg(k=4)`` as ``solvers`` runs them) and
+   (build, apply, 3 timed applies, Lanczos to E0, then ``lanczos_block``
+   and ``lobpcg`` at k = 2, block width 2 — cut from ``solvers``' k = 4
+   to fit the time limit, their one-process references alike) and
    ``streamed`` at B = 65 536 with 2²¹-entry buckets (build, the decode
    kernel on three of its own chunks against the plain version, 3 timed
    applies with its launches counted from 0: one per plan chunk per apply;
@@ -132,7 +135,18 @@ Phases, one JSON line each with its seconds:
    depth 0 and at depth 2 (chain_32_symm) (all applies under
    ``torch.use_deterministic_algorithms``).  (c) With two or more cards,
    leg (a) over NCCL, one rank per card; on one card a line says it did
-   not run and why.
+   not run and why.  (d) In the gloo ranks of (a), the solve service over
+   the group (``EnginePool(group=g)``, ``block_width=1``): two ell
+   ``eigs`` jobs (one build, one hit, one ``engine_init`` per build) within
+   1e-10 of the one-process E0 and the same bits on both ranks, and a
+   streamed lossless job whose decode launches each rank counts from 0
+   around the drain.  (e) The heartbeat: two more gloo ranks start the
+   watchdog (``HB_INTERVAL_S`` 0.5, ``HB_TIMEOUT_S`` 5) and a Lanczos that
+   never converges, each check block stretched by
+   ``DMT_FAULT=solver_block:delay=200``; SIGSTOP to rank 1 mid-solve, and
+   rank 0 must exit 76 within ``HB_TIMEOUT_S + 2·HB_INTERVAL_S + 5`` s
+   with one ``stall_report`` naming rank 1 and a ``stall`` flight bundle
+   on disk; then rank 1 is killed.
 12. ``local_complex``: the translation-only k = 1 sector of the 32-ring,
    complex Hermitian (about 18.8 M states): the ``ell`` build takes the
    low-memory path by itself (1.6× the full-width complex tables passes
@@ -151,7 +165,9 @@ Phases, one JSON line each with its seconds:
    unchanged kernel on quantized dictionaries, held against its plain
    version on one real chunk, launched once per chunk per apply, counted
    from 0 around an apply and a Lanczos solve; the apply's largest error
-   relative to the largest lossless value within 1e-6 and 1e-2; the E0
+   relative to the largest lossless value within 1e-6 and 1e-2, and beside
+   it the health layer's ``compress_rel_err`` drift sample of the same
+   applies; the E0
    each finds, through ``lanczos``' default (full reorthogonalization on a
    quantized tier), within 1e-6 and 1e-2 of the lossless one, relative);
    raw coefficient streams
@@ -185,20 +201,49 @@ Phases, one JSON line each with its seconds:
    bounds, achieved fraction, binding resource), ``reconcile_error``
    below 1e-3 — and 7 with phases off (no ``apply_phases`` event may
    appear), the medians side by side; ``pipeline_depth="auto"`` on the
-   full engine, its apply bit-equal to depth 0; a ``tune="static"``
-   lossless streamed engine (the token, search and build seconds) bit-
-   equal to a ``DistributedEngine`` hand-set to its knobs, the decode
-   kernel against its plain version on one of its chunks, and
+   full engine, its apply bit-equal to depth 0; one tuned build (cut from
+   two to fit the time limit): a ``tune="live"`` lossless streamed engine
+   whose first config must equal ``tune.choose_config`` (the static
+   search) on the same stats and rates (the token, search and build
+   seconds), bit-equal to a ``DistributedEngine`` hand-set to its knobs,
+   the decode kernel against its plain version on one of its chunks, and
    ``lanczos_block`` on it to within 1e-10 of −56.82610975579819, its
-   decode launches counted from 0 (``launches_costmodel``); a
-   ``tune="live"`` engine through three windows of ``DMT_TUNE_WINDOW`` = 8
-   applies (each window's measured/priced ratio and posterior rates), any
-   re-key's next apply bit-equal to a hand-set engine at the new knobs;
+   decode launches counted from 0 (``launches_costmodel``); then the same
+   engine through windows of ``DMT_TUNE_WINDOW`` = 8 applies (each
+   window's measured/priced ratio and posterior rates), any re-key's next
+   apply bit-equal to a hand-set engine at the new knobs;
    ``hybrid_split="auto"`` on chain_30_symm, its mask and an apply
    bit-equal to ``hybrid_split="stream:<that mask>"``.  Every earlier leg
    runs with ``DMT_PHASES=off``, timing its applies as before.
 
-``serve`` runs after ``solvers``: the port's ``SolveService`` drains a
+``resilience`` runs after ``solvers``, on the full leg's streamed engine
+(D = 1, lossless, the decode kernel) and ``local_full``'s ell engine:
+(health) with ``health_every=1``, 2 × 7 applies of each engine with the
+probes off and on, in turns — the synchronized wall and the host's
+dispatch time (an apply that waited on the device would show its device
+time there) side by side; a 64-step Lanczos on the streamed engine with
+every apply probed: no ``solver_health`` warning and ``matvec_nonfinite``
+0; a NaN planted in x: no event at its apply, one critical
+``nonfinite_output`` at the next apply's drain, and ``DMT_HEALTH=strict``
+raising ``HealthError``.  (memory) the ledger as that Lanczos held it (the
+two engines, the H2D ring, the host plan and its Krylov workspace), a
+watermark against ``torch.cuda.max_memory_allocated``, and a real OOM: a
+ballast tensor leaves 1 GiB free and ``LocalEngine(op)`` (3.5 GB peak)
+must raise ``OomError`` whose report's ledger names the ballast, with
+remediation and ``cudaMemGetInfo``'s free bytes; the decode kernel's
+``cudaFuncGetAttributes`` per instance.  (faults)
+``DMT_FAULT=plan_upload:n=2`` heals through the retries to an apply
+bit-equal to the clean one (fired twice); ``exchange:n=1`` at depth 2
+raises ``[fault-injection]`` before any device work and the next apply is
+bit-equal; the apply median with ``DMT_FAULT`` unset.  (profile)
+``DMT_PROFILE=sampled``, ``profile_every=4``: 16 applies of each engine
+give 4 windows each (traces on disk), the overhead guard's measured
+percentage, the kernel table of a streamed window (the decode kernel in
+``compute``, ``index_add_`` in ``accumulate``, every ``overhead`` kernel
+name listed), and the roofline report with its measured device-ms column
+for both engines.  Its decode launches are ``launches_resilience``.
+
+``serve`` runs after ``resilience``: the port's ``SolveService`` drains a
 spool of real jobs on the card, all on ``heisenberg_chain(32,
 symmetric=True)`` (each spec carries the basis with its generators and
 ``n_states``), with ``DMT_OBS_DIR`` pointed at a temporary run directory,
@@ -239,10 +284,11 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 ``matvec_host``.
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
-of ``full``, ``solvers``, ``serve``, ``sharded``, ``pipeline``, ``tiers``,
-``ranks`` and ``costmodel``, and apart at one shard, at four, in the
-pipelined applies, in the quantized tiers, on the ranks, under the service
-and on the autotuned engines;
+of ``full``, ``solvers``, ``resilience``, ``serve``, ``sharded``,
+``pipeline``, ``tiers``, ``ranks`` and ``costmodel``, and apart at one
+shard, at four, in the pipelined applies, in the quantized tiers, on the
+ranks (the served streamed job's included), under the service, in the
+resilience leg and on the autotuned engines;
 largest error against the plain version, time per launch beside its bound
 and the plain version's time, at one shard and at four), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -252,6 +298,8 @@ device; without one it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -797,44 +845,34 @@ def decode_bytes(spec, B) -> int:
 
 def profile_apply(fn, top=8):
     """Device time of one apply ``fn()`` by kernel (and host → device
-    copy), from ``torch.profiler``: the ``top`` largest as
-    ``[name, ms, calls]``, the sum over all of them, every fill kernel's
-    row, every ``aten::fill_``/``aten::zero_`` call grouped by the
-    shape it filled as ``[op, shapes, calls]``, and the device ms by part
-    (host → device copies, ``index_add_`` kernels, the rest)."""
+    copy), from ``torch.profiler`` through the port's own table
+    (``obs/kernel_costs``: ``kernel_rows``, ``build_profile``): the
+    ``top`` largest as ``[name, ms, calls]``, the sum over all of them,
+    the device ms by phase (``classify_kernel``: plan_h2d, compute,
+    exchange, accumulate, overhead), and the two extras the table does
+    not keep — every fill kernel's row, and every
+    ``aten::fill_``/``aten::zero_`` call grouped by the shape it filled
+    as ``[op, shapes, calls]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from distributed_matvec_tpu_torch.obs import kernel_costs
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    rows, fills = [], []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        # aten:: rows repeat the time of the kernels they launch
-        if us and not e.key.startswith("aten::"):
-            rows.append([e.key[:72], us / 1e3, e.count])
-            if "fill" in e.key.lower():
-                fills.append(rows[-1])
-    rows.sort(key=lambda r: -r[1])
+    table = kernel_costs.build_profile("apply", kernel_costs.kernel_rows(prof))
+    rows = [[m["name"][:72], m["ms"], m["calls"]] for m in table["ops"]]
     fill_ops = [[e.key, e.input_shapes, e.count]
                 for e in prof.key_averages(group_by_input_shape=True)
                 if e.key in ("aten::fill_", "aten::zero_")]
-    # the streamed apply's parts: the plan's host → device copy, the
-    # receive side's index_add_, and the rest (decode, exchange copy)
-    parts = {"h2d_ms": 0.0, "index_add_ms": 0.0, "rest_ms": 0.0}
-    for name, ms, _ in rows:
-        low = name.lower()
-        part = ("h2d_ms" if "htod" in low else "index_add_ms"
-                if "indexfunc" in low or "index_add" in low else "rest_ms")
-        parts[part] += ms
-    return {"device_ms_total": sum(r[1] for r in rows),
-            "top": rows[:top], "fill_kernels": fills, "fill_ops": fill_ops,
-            "parts": parts}
+    return {"device_ms_total": table["totals"]["ms"],
+            "top": rows[:top],
+            "fill_kernels": [r for r in rows if "fill" in r[0].lower()],
+            "fill_ops": fill_ops,
+            "phases_ms": {ph: v["ms"] for ph, v in table["phases"].items()}}
 
 
 def cross_sector_phase(device, e0_symm, n=None):
@@ -1194,6 +1232,330 @@ def solvers_phase(device, streamed, eng, e0_full):
 #: the serve phase's engine-pool budget (GB): the chain_32_symm ell tables
 #: (1.17 GB) and streamed lossless plan (0.86 GB) together; the config's
 #: 2.0 GB default is just below their sum and would evict one for the other
+RESILIENCE_APPLIES = 7
+RESILIENCE_LANCZOS_STEPS = 64
+PROFILE_EVERY = 4
+PROFILE_APPLIES = 16
+
+
+def dispatch_walls(device, eng, x, applies):
+    """Host ms of each of ``applies`` applies from the call to its return,
+    the device idle before each and drained after (not timed): an apply
+    that waited on the device would show its device time here."""
+    walls = []
+    for _ in range(applies):
+        _sync(device)
+        t0 = time.perf_counter()
+        eng.matvec(x)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        _sync(device)
+    return walls
+
+
+def _env(**kw):
+    """Set (value) or clear (None) environment variables; returns the
+    previous values for :func:`_env` to restore."""
+    prev = {k: os.environ.get(k) for k in kw}
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return prev
+
+
+def resilience_phase(device, full_eng, ell_eng):
+    """Fault tolerance and the rest of ``obs/`` on the full leg's streamed
+    engine (D = 1, lossless, the decode kernel) and ``local_full``'s ell
+    engine; see the module docstring.  Returns (info, launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import LocalEngine, lanczos, obs
+    from distributed_matvec_tpu_torch.obs import health, memory, roofline
+    from distributed_matvec_tpu_torch.obs import profile as obs_profile
+    from distributed_matvec_tpu_torch.ops import cuda_kernels
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.utils import faults
+    from distributed_matvec_tpu_torch.utils.config import update_config
+
+    engines = {"streamed": full_eng, "ell": ell_eng}
+    kinds = {"streamed": "distributed", "ell": "local"}
+    xs = {"streamed": full_eng.random_hashed(41),
+          "ell": torch.from_numpy(np.random.default_rng(41).standard_normal(
+              ell_eng.n_states)).to(device)}
+    cfg = update_config()
+    saved = (cfg.health_every, cfg.profile_every, cfg.profile_overhead_pct)
+    tmp = tempfile.mkdtemp(prefix="dmt_resilience_")
+    prev = _env(DMT_HEALTH="on", DMT_FAULT=None, DMT_PROFILE="off")
+    prev_obs = {k: os.environ.get(k) for k in ("DMT_OBS_DIR", "DMT_PHASES")}
+    faults.reset()
+    out = {"engines": {k: f"{kinds[k]}/{e.mode}" for k, e in
+                       engines.items()}}
+    launches0 = PC.fused_decode_gather_scatter.launches
+    try:
+        # -- health: every apply probed; medians with the probes off and
+        #    on, in turns; the host's dispatch time shows any wait
+        update_config(health_every=1)
+        medians = {}
+        for name, eng in engines.items():
+            x = xs[name]
+            walls = {"off": [], "on": []}
+            disp = {"off": [], "on": []}
+            for mode in ("off", "on", "off", "on"):
+                os.environ["DMT_HEALTH"] = mode
+                walls[mode] += apply_walls(device, eng, x,
+                                           RESILIENCE_APPLIES)
+                disp[mode] += dispatch_walls(device, eng, x,
+                                             RESILIENCE_APPLIES)
+            health.drain(block=True)
+            medians[name] = {
+                f"probes_{m}_ms_median": statistics.median(walls[m])
+                for m in walls}
+            medians[name].update({
+                f"probes_{m}_dispatch_ms_median": statistics.median(disp[m])
+                for m in disp})
+        out["apply_ms"] = medians
+        os.environ["DMT_HEALTH"] = "on"
+        counters = obs.snapshot()["counters"]
+        nonfinite0 = counters.get("matvec_nonfinite{engine=distributed}", 0)
+        events0 = health.health_event_count()
+        ledger_mid = {}
+        inner = full_eng.matvec
+
+        def spying(self, x, check=None):
+            # the ledger as the solve holds it (its Krylov workspace live)
+            if not ledger_mid:
+                ledger_mid.update(memory.ledger_entries())
+            return inner(x, check)
+
+        full_eng.matvec = types.MethodType(spying, full_eng)
+        try:
+            t0 = time.perf_counter()
+            res = lanczos(full_eng.matvec, v0=full_eng.random_hashed(0),
+                          k=1, max_iters=RESILIENCE_LANCZOS_STEPS,
+                          tol=1e-30)
+            _sync(device)
+            lz_s = time.perf_counter() - t0
+        finally:
+            del full_eng.matvec
+        nonfinite = obs.snapshot()["counters"].get(
+            "matvec_nonfinite{engine=distributed}", 0) - nonfinite0
+        solver_events = health.health_event_count() - events0
+        if res.num_iters != RESILIENCE_LANCZOS_STEPS or nonfinite \
+                or solver_events:
+            raise AssertionError(
+                f"probed Lanczos: {res.num_iters} steps, {nonfinite} "
+                f"nonfinite outputs, {solver_events} health events")
+        # a NaN in x: one critical event at the next apply's drain
+        x_nan = xs["ell"].clone()
+        x_nan[3] = float("nan")
+        seen0 = len(obs.events("health"))
+        ell_eng.matvec(x_nan)
+        queued = health.pending_count()
+        inline = len(obs.events("health")) - seen0
+        ell_eng.matvec(xs["ell"])
+        evs = obs.events("health")[seen0:]
+        if inline or len(evs) != 1 or evs[0]["check"] != "nonfinite_output" \
+                or evs[0]["level"] != "critical":
+            raise AssertionError(f"NaN probe: {inline} events inline, then "
+                                 f"{[(e['check'], e['level']) for e in evs]}")
+        os.environ["DMT_HEALTH"] = "strict"
+        try:
+            ell_eng.matvec(x_nan)
+            raise AssertionError("DMT_HEALTH=strict: no HealthError")
+        except health.HealthError as e:
+            strict = str(e)[:120]
+        os.environ["DMT_HEALTH"] = "on"
+        out["health"] = {
+            "lanczos_steps": int(res.num_iters), "lanczos_s": lz_s,
+            "solver_health_events": solver_events,
+            "matvec_nonfinite": nonfinite,
+            "nan_probe": {"queued_after_apply": queued,
+                          "events_inline": inline,
+                          "event": {k: evs[0][k] for k in
+                                    ("check", "level", "engine", "apply",
+                                     "count")},
+                          "strict": strict}}
+        del res, x_nan
+
+        # -- memory: the ledger the solve saw, watermarks, a real OOM, the
+        #    decode kernel's attributes
+        by_part = {}
+        for path, ent in ledger_mid.items():
+            top = "/".join(path.split("/")[:2])
+            by_part[top] = by_part.get(top, 0) + ent["bytes"]
+        wm = memory.sample_watermark("resilience")
+        marks = [{k: e.get(k) for k in ("tag", "bytes_in_use", "peak_bytes",
+                                        "bytes_free")}
+                 for e in obs.events("memory_watermark")[-6:]]
+        peak = torch.cuda.max_memory_allocated(device)
+        if wm is None or wm["peak_bytes"] != peak:
+            raise AssertionError(f"watermark {wm} against "
+                                 f"max_memory_allocated {peak}")
+        release(device)
+        free, total = torch.cuda.mem_get_info(device)
+        ballast_bytes = max(int(free) - (1 << 30), 0)
+        ballast = torch.empty(ballast_bytes, dtype=torch.uint8, device=device)
+        h = memory.track("ballast", ballast_bytes, device="device")
+        rep = None
+        t0 = time.perf_counter()
+        try:
+            LocalEngine(full_eng.operator, device=device)
+        except memory.OomError as e:
+            rep = e.report
+        finally:
+            oom_s = time.perf_counter() - t0
+            h.release()
+            del ballast
+            release(device)
+        if rep is None or "ballast" not in rep["ledger"]["children"] \
+                or not rep["remediation"] or rep["watermark"] is None:
+            raise AssertionError("LocalEngine beside the ballast: no OomError "
+                                 "with a report naming the ballast")
+        attrs = {f"u{b}_{'buckets' if k else 'd1'}":
+                 cuda_kernels.kernel_attributes(b, k)
+                 for b in (8, 16) for k in (False, True)}
+        out["memory"] = {
+            "ledger_during_lanczos": {p: e["bytes"]
+                                      for p, e in sorted(ledger_mid.items())},
+            "ledger_by_part": by_part,
+            "watermarks": marks,
+            "watermark_peak_vs_max_memory_allocated": [wm["peak_bytes"],
+                                                       peak],
+            "oom": {"ballast_bytes": ballast_bytes, "seconds": oom_s,
+                    "context": rep["context"],
+                    "ledger_total_bytes": rep["ledger_total_bytes"],
+                    "ledger_ballast_bytes":
+                        rep["ledger"]["children"]["ballast"]["bytes"],
+                    "allocated_bytes": rep["watermark"]["bytes_in_use"],
+                    "peak_bytes": rep["watermark"]["peak_bytes"],
+                    "headroom_bytes": rep["watermark"]["bytes_free"],
+                    "remediation": len(rep["remediation"]),
+                    "first_remedy": rep["remediation"][0][:80]},
+            "fused_decode_attributes": attrs}
+
+        # -- faults: plan_upload heals bit-equal; exchange raises before
+        #    any device work and the next apply is clean
+        x = xs["streamed"]
+        y_clean = deterministic(lambda: full_eng.matvec(x))
+        os.environ["DMT_FAULT"] = "plan_upload:n=2"
+        faults.reset()
+        y = deterministic(lambda: full_eng.matvec(x))
+        fired_upload = faults.fired_count("plan_upload")
+        if fired_upload != 2 or not torch.equal(y, y_clean):
+            raise AssertionError(f"plan_upload:n=2 fired {fired_upload}, "
+                                 f"bit-equal {torch.equal(y, y_clean)}")
+        os.environ["DMT_FAULT"] = "exchange:n=1"
+        faults.reset()
+        full_eng.pipeline_depth = 2
+        n_applies = full_eng.n_applies
+        try:
+            full_eng.matvec(x)
+            raise AssertionError("exchange:n=1 did not raise")
+        except RuntimeError as e:
+            if "[fault-injection]" not in str(e):
+                raise
+            exchange_msg = str(e)
+        if full_eng.n_applies != n_applies:
+            raise AssertionError("the exchange fault fired after device work")
+        y = deterministic(lambda: full_eng.matvec(x))
+        full_eng.pipeline_depth = 0
+        if not torch.equal(y, y_clean):
+            raise AssertionError("the apply after the exchange fault differs")
+        os.environ.pop("DMT_FAULT")
+        faults.reset()
+        out["faults"] = {
+            "plan_upload_fired": fired_upload,
+            "plan_upload_bit_equal": True,
+            "exchange_message": exchange_msg,
+            "exchange_next_apply_bit_equal_depth2": True,
+            "unset_apply_ms_median": statistics.median(
+                apply_walls(device, full_eng, x, RESILIENCE_APPLIES))}
+        del y, y_clean
+
+        # -- profile: sampled windows, the overhead guard, kernel costs and
+        #    the roofline's measured column (phases on for these applies)
+        _env(DMT_OBS_DIR=tmp, DMT_PROFILE="sampled", DMT_PHASES="on")
+        update_config(profile_every=PROFILE_EVERY, profile_overhead_pct=1e9)
+        obs_profile.reset_profile()
+        prof, tables = {}, {}
+        for name, eng in engines.items():
+            caps0 = len(obs.events("profile_captured"))
+            for _ in range(PROFILE_APPLIES):
+                eng.matvec(xs[name])
+            _sync(device)
+            caps = obs.events("profile_captured")[caps0:]
+            table = tables[name] = obs_profile.last_sample()
+            want = len([i for i in range(eng._apply_idx - PROFILE_APPLIES,
+                                         eng._apply_idx)
+                        if i and i % PROFILE_EVERY == 0])
+            if len(caps) != want or want != PROFILE_APPLIES // PROFILE_EVERY:
+                raise AssertionError(f"{name}: {len(caps)} sampled windows, "
+                                     f"expected {want}")
+            phases = {}
+            for o in table["ops"]:
+                phases.setdefault(o["phase"], []).append(o["name"])
+            prof[name] = {
+                "windows": len(caps),
+                "traces": sorted(os.listdir(os.path.join(
+                    tmp, "rank_0", "profiles"))),
+                "device_ms": table["totals"]["ms"],
+                "phase_ms": {p: r["ms"] for p, r in table["phases"].items()},
+                "overhead_kernels": phases.get("overhead", []),
+                "top": [(o["name"][:60], o["phase"], o["ms"])
+                        for o in table["ops"][:6]]}
+        # the streamed window's whole table: the decode kernel in compute
+        # (≈ 1 % of the apply, below the event's top rows), index_add_'s
+        # kernels in accumulate
+        ops = tables["streamed"]["ops"]
+        k8 = [(o["name"][:60], o["phase"], o["ms"], o["calls"]) for o in ops
+              if "fused_decode" in o["name"]]
+        acc = [(o["name"][:60], o["ms"]) for o in ops
+               if o["phase"] == "accumulate"]
+        if not k8 or any(k[1] != "compute" for k in k8) or not acc \
+                or not any("index" in a[0].lower() for a in acc):
+            raise AssertionError(
+                f"kernel costs of a streamed apply: decode kernel {k8}, "
+                f"accumulate {acc}")
+        prof["streamed"]["decode_kernel"] = k8
+        prof["streamed"]["accumulate"] = acc
+        rep = roofline.roofline_report(obs.events())
+        third = {g: {p: a.get("device_ms") for p, a in grp["phases"].items()}
+                 for g, grp in rep["groups"].items()}
+        for g in ("distributed/streamed", "local/ell"):
+            if not any(v for v in third.get(g, {}).values()):
+                raise AssertionError(f"roofline: no measured device ms for "
+                                     f"{g}: {third.get(g)}")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            roofline.print_roofline(rep)
+        snap = obs_profile.overhead_snapshot()
+        out["profile"] = {
+            "every": PROFILE_EVERY, "applies": PROFILE_APPLIES,
+            "engines": prof,
+            "overhead_pct": snap["overhead_pct"],
+            "would_latch_at_2pct": snap["overhead_pct"] > 2.0,
+            "roofline_device_ms": third,
+            "roofline_wall_ms": {g: grp["wall_ms"]
+                                 for g, grp in rep["groups"].items()},
+            "roofline_report": text.getvalue().splitlines()}
+    finally:
+        _env(**prev)
+        _env(**prev_obs)
+        update_config(health_every=saved[0], profile_every=saved[1],
+                      profile_overhead_pct=saved[2])
+        faults.reset()
+    launches = PC.fused_decode_gather_scatter.launches - launches0
+    if launches == 0 or launches % full_eng.nchunks:
+        raise AssertionError(f"{launches} decode launches in the phase "
+                             f"({full_eng.nchunks} chunks per apply)")
+    out["launches"] = launches
+    return out, launches
+
+
 SERVE_POOL_GB = 4.0
 
 
@@ -1624,7 +1986,9 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
             info.update(apply_times(device, eng, xh, applies=applies))
         if mode in ("streamed", "ell") and device.type == "cuda":
             info["profile"] = profile_apply(lambda: eng.matvec(xh))
-        if mode in ("streamed", "ell"):
+        if mode == "ell":
+            # the streamed engine's Lanczos is cut (time limit): its apply
+            # is held to the LocalEngine ell apply above
             t0 = time.perf_counter()
             res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1,
                           tol=1e-10, device=device)
@@ -1955,7 +2319,8 @@ def tiers_phase(device, batch_size):
     docstring.  Returns the operator too, for ``ranks``."""
     import torch
 
-    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos, obs
+    from distributed_matvec_tpu_torch.obs import health
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
     op, enum_s = cut_operator()
@@ -2023,6 +2388,7 @@ def tiers_phase(device, batch_size):
     # f32 and bf16: the unchanged kernel on quantized dictionaries
     launches = 0
     for tier in ("f32", "bf16"):
+        drift0 = len(obs.events("compress_drift"))
         eng, info = build(stream_compress=tier)
         if eng.stream_kernel != "cuda" or eng._codec.spec["coeff"] != "dict":
             raise AssertionError(f"{tier}: decode path {eng.stream_kernel}, "
@@ -2057,7 +2423,16 @@ def tiers_phase(device, batch_size):
             raise AssertionError(f"{tier}: E0 {e0} against lossless "
                                  f"{e0_ref} (bound {TIER_BOUNDS[tier]}"
                                  f"·|E0|, converged {res.converged})")
+        # the health layer's drift probe on the same applies (every
+        # health_every-th, input-weighted, one chunk), beside the error
+        health.drain(block=True)
+        drift = [e["rel_err"] for e in obs.events("compress_drift")[drift0:]
+                 if e["tier"] == tier]
+        if not drift:
+            raise AssertionError(f"{tier}: no compress_drift sample")
         info.update(rel_err_vs_lossless=rel, bound=TIER_BOUNDS[tier],
+                    compress_rel_err=drift[0],
+                    compress_rel_err_samples=len(drift),
                     launches=n, applies=eng.n_applies,
                     lanczos_s=time.perf_counter() - t0,
                     lanczos_iters=int(res.num_iters),
@@ -2126,6 +2501,9 @@ RANKS_REMOTE_BUFFER = 1 << 21
 RANKS_COLLECTIVE_TIMEOUT_S = 300
 RANKS_JOIN_TIMEOUT_S = 480
 RANKS_APPLIES = 3
+#: k and block width of the ranks' block solvers (cut from 4 to fit the
+#: time limit; the one-process references use the same)
+RANKS_BLOCK_K = 2
 
 
 def rank_apply_times(device, eng, xh, applies=RANKS_APPLIES):
@@ -2323,8 +2701,9 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
     # the block solvers, as the solvers phase runs them on one process
     for name, solve in (
             ("lanczos_block", lambda mv: lanczos_block(
-                mv, k=4, block_size=4, max_iters=800, tol=1e-10)),
-            ("lobpcg", lambda mv: lobpcg(mv, N, k=4, tol=1e-15,
+                mv, k=RANKS_BLOCK_K, block_size=RANKS_BLOCK_K,
+                max_iters=800, tol=1e-10)),
+            ("lobpcg", lambda mv: lobpcg(mv, N, k=RANKS_BLOCK_K, tol=1e-15,
                                          max_iters=400))):
         before = dict(g.collectives)
         r, st = solve_timed(device, eng, solve)
@@ -2402,11 +2781,170 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
     if rank == 0:
         np.save(os.path.join(tmp, f"y_streamed_{backend}.npy"), y)
     out["streamed"] = info
+    del eng
+    if backend == "gloo":
+        out["serve"] = rank_serve_leg(g, device, n, op.basis.number_states,
+                                      remote_buffer)
     with open(os.path.join(tmp, f"rank{rank}_{backend}.json"), "w") as fh:
         json.dump(out, fh)
     import torch.distributed as dist
 
     dist.destroy_process_group()
+
+
+def rank_serve_leg(g, device, n, n_states, remote_buffer):
+    """The solve service over the rank group (JAX ``EnginePool(mesh=)``):
+    ``EnginePool(group=g)`` drains two ell ``eigs`` jobs one per batch
+    (``block_width=1``: one build, one hit) and a streamed lossless job
+    whose decode launches on this rank are counted from 0 around the
+    drain; every spec carries chain_{n}_symm's basis and ``n_states``.
+    Returns the counts, statuses, E0s and this rank's ``engine_init``
+    events."""
+    from distributed_matvec_tpu_torch import obs
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.serve import (EnginePool, JobQueue,
+                                                    JobSpec, Scheduler)
+    from distributed_matvec_tpu_torch.utils.config import update_config
+
+    update_config(stream_compress="lossless",
+                  remote_buffer_size=remote_buffer,
+                  serve_pool_gb=SERVE_POOL_GB)
+    common = {"basis": _chain32_basis(n), "n_states": int(n_states),
+              "n_devices": g.world_size}
+    specs = [JobSpec(job_id=f"ell{i}", k=1, tol=1e-10, max_iters=400,
+                     **common) for i in range(2)]
+    specs.append(JobSpec(job_id="streamed", k=1, tol=1e-5, max_iters=200,
+                         mode="streamed", **common))
+    inits0 = len(obs.events("engine_init"))
+    pool = EnginePool(group=g)
+    sched = Scheduler(queue=JobQueue(), pool=pool, rates=None,
+                      block_width=1)
+    for s in specs:
+        sched.submit(s)
+    PC.fused_decode_gather_scatter.launches = 0
+    t0 = time.perf_counter()
+    done = sched.drain(scan_spool=False)
+    _sync(device)
+    drain_s = time.perf_counter() - t0
+    launches = PC.fused_decode_gather_scatter.launches
+    recs = {s.job_id: sched.queue.result(s.job_id) for s in specs}
+    out = {"drain_s": drain_s, "done": done, "builds": pool.builds,
+           "hits": pool.hits, "evictions": pool.evictions,
+           "live_devices": pool.live_device_count(),
+           "engine_init": len(obs.events("engine_init")) - inits0,
+           "status": {j: r["status"] for j, r in recs.items()},
+           "e0": {j: r["eigenvalues"][0] for j, r in recs.items()},
+           "iters": {j: r.get("iters") for j, r in recs.items()},
+           "launches": launches}
+    del pool, sched
+    if device.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+    return out
+
+
+HB_INTERVAL_S = 0.5
+HB_TIMEOUT_S = 5.0
+HB_DELAY_MS = 200
+HB_STOP_AFTER_S = 1.0
+
+
+def heartbeat_worker(rank, world, tmp, n):
+    """One rank of the heartbeat leg: a gloo rank sharing the card, the
+    heartbeat watchdog on the shared run directory (``HB_INTERVAL_S``,
+    ``HB_TIMEOUT_S``), and a Lanczos on a chain_{n}_symm ell rank engine
+    that never converges (tol 0), each check block stretched by
+    ``DMT_FAULT=solver_block:delay=HB_DELAY_MS``.  Rank 0 is expected to
+    leave through the watchdog (exit 76) once the parent stops rank 1."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    os.environ["DMT_OBS_DIR"] = os.path.join(tmp, "hb_run")
+    os.environ["DMT_FAULT"] = f"solver_block:delay={HB_DELAY_MS}:n=1000000"
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
+    from distributed_matvec_tpu_torch.parallel.heartbeat import \
+        HeartbeatWatchdog
+    from distributed_matvec_tpu_torch.parallel.mesh import init_distributed
+
+    device = torch.device("cuda", 0)
+    g = init_distributed("gloo", f"file://{tmp}/rendezvous_hb", world, rank,
+                         device=device, timeout_s=RANKS_COLLECTIVE_TIMEOUT_S)
+    op = heisenberg_chain(n, symmetric=True)
+    op.basis.unchecked_set_representatives(
+        np.load(os.path.join(tmp, "representatives.npy")),
+        np.load(os.path.join(tmp, "norms.npy")))
+    eng = DistributedEngine(op, mode="ell", group=g)
+    HeartbeatWatchdog(os.environ["DMT_OBS_DIR"], interval_s=HB_INTERVAL_S,
+                      timeout_s=HB_TIMEOUT_S).start()
+    with open(os.path.join(tmp, f"hb_solving{rank}"), "w") as fh:
+        fh.write(f"{time.time()}\n")
+    lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=0.0,
+            max_iters=10 ** 7)
+    raise AssertionError("the never-converging Lanczos returned")
+
+
+def heartbeat_leg(tmp, n, world=2):
+    """Both ranks solve with the watchdog on; once both run, the parent
+    stops rank 1 (SIGSTOP) mid-solve.  Rank 0 must exit 76 within
+    ``HB_TIMEOUT_S + 2·HB_INTERVAL_S + 5`` s of the stop, with a
+    ``stall_report`` naming rank 1 in its events and a ``stall`` flight
+    bundle on disk; then rank 1 is killed."""
+    import signal
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(heartbeat_worker, args=(world, tmp, n),
+                             nprocs=world, join=False, start_method="spawn")
+    procs = ctx.processes
+    out = {"interval_s": HB_INTERVAL_S, "timeout_s": HB_TIMEOUT_S,
+           "solver_block_delay_ms": HB_DELAY_MS}
+    try:
+        deadline = time.monotonic() + RANKS_JOIN_TIMEOUT_S
+        while not all(os.path.exists(os.path.join(tmp, f"hb_solving{r}"))
+                      for r in range(world)):
+            if time.monotonic() > deadline or any(
+                    p.exitcode is not None for p in procs):
+                raise AssertionError(
+                    "heartbeat ranks did not start solving: exit codes "
+                    f"{[p.exitcode for p in procs]}")
+            time.sleep(0.1)
+        time.sleep(HB_STOP_AFTER_S)
+        if any(p.exitcode is not None for p in procs):
+            raise AssertionError(f"a heartbeat rank left early: "
+                                 f"{[p.exitcode for p in procs]}")
+        os.kill(procs[1].pid, signal.SIGSTOP)
+        t_stop = time.monotonic()
+        limit = HB_TIMEOUT_S + 2 * HB_INTERVAL_S + 5.0
+        procs[0].join(limit + 10.0)
+        waited = time.monotonic() - t_stop
+        code = procs[0].exitcode
+        out.update(rank0_exit_code=code, seconds_to_exit=waited,
+                   limit_s=limit)
+        if code != 76 or waited > limit:
+            raise AssertionError(f"rank 0 exit {code} after {waited:.1f} s "
+                                 f"(expected 76 within {limit} s)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    run = os.path.join(tmp, "hb_run")
+    with open(os.path.join(run, "rank_0", "events.jsonl")) as fh:
+        evs = [json.loads(ln) for ln in fh if ln.strip()]
+    stall = [e for e in evs if e["kind"] == "stall_report"]
+    bundles = sorted(f for f in os.listdir(os.path.join(run, "rank_0",
+                                                        "postmortem"))
+                     if f.startswith("stall-"))
+    if len(stall) != 1 or stall[0]["stalled"] != [1] or not bundles:
+        raise AssertionError(f"stall reports {stall}, bundles {bundles}")
+    out.update(stall_report={k: stall[0].get(k) for k in
+                             ("stalled", "ages_s", "span_path")},
+               health_events=[e["check"] for e in evs
+                              if e["kind"] == "health"],
+               flight_bundle=bundles[0])
+    return out
 
 
 def spawn_ranks(backend, world, tmp, n, device_type="cuda"):
@@ -2468,6 +3006,40 @@ def check_ranks(tmp, backend, outs, y_ref, e0_ref, block_ref):
                        "same_bits_on_every_rank": True}
     return {"vs_local_ell_max_abs_err": errs, "e0": e0s[0],
             "e0_minus_ref": e0s[0] - e0_ref, "block_solvers": block}
+
+
+def check_rank_serve(serves, e0_ref):
+    """Every rank's service drain: all three jobs done, one build and one
+    hit of the ell engine plus the streamed engine's build (builds 2,
+    hits 1, no eviction), one ``engine_init`` per build, the ell jobs' E0
+    within 1e-10 of the one-process E0 and the same bits on every rank,
+    the streamed job within its tolerance, and the decode kernel launched
+    on every rank a whole number of times per chunk."""
+    for r, s in enumerate(serves):
+        if set(s["status"].values()) != {"done"} or s["done"] != 3:
+            raise AssertionError(f"rank {r} service: {s['status']}")
+        if (s["builds"], s["hits"], s["evictions"], s["engine_init"]) \
+                != (2, 1, 0, 2):
+            raise AssertionError(
+                f"rank {r} pool: builds {s['builds']}, hits {s['hits']}, "
+                f"evictions {s['evictions']}, engine_init "
+                f"{s['engine_init']}")
+        for j in ("ell0", "ell1"):
+            if abs(s["e0"][j] - e0_ref) > 1e-10:
+                raise AssertionError(f"rank {r} {j} E0 {s['e0'][j]} against "
+                                     f"{e0_ref}")
+        if abs(s["e0"]["streamed"] - e0_ref) > 1e-6 * abs(e0_ref):
+            raise AssertionError(f"rank {r} streamed job E0 "
+                                 f"{s['e0']['streamed']} against {e0_ref}")
+        if s["launches"] == 0:
+            raise AssertionError(f"rank {r}: no decode launch under the "
+                                 "service")
+    if any(s["e0"] != serves[0]["e0"] for s in serves):
+        raise AssertionError(f"the ranks' E0s differ: "
+                             f"{[s['e0'] for s in serves]}")
+    return {"ranks": serves, "e0_ref": e0_ref,
+            "ell_e0_minus_ref": serves[0]["e0"]["ell0"] - e0_ref,
+            "launches": sum(s["launches"] for s in serves)}
 
 
 def nccl_one_rank_leg(device, full_eng, tmp):
@@ -2563,10 +3135,11 @@ def ranks_phase(device, op, full_eng):
     t0 = time.perf_counter()
     res = lanczos(ell_ref.matvec, n, k=1, tol=1e-10, device=device)
     e0_ref = float(res.eigenvalues[0])
-    rb = lanczos_block(ell_ref.matvec, n, k=4, block_size=4, max_iters=800,
-                       tol=1e-10, device=device)
-    ev, _, _ = lobpcg(ell_ref.matvec, n, k=4, tol=1e-15, max_iters=400,
-                      device=device)
+    rb = lanczos_block(ell_ref.matvec, n, k=RANKS_BLOCK_K,
+                       block_size=RANKS_BLOCK_K, max_iters=800, tol=1e-10,
+                       device=device)
+    ev, _, _ = lobpcg(ell_ref.matvec, n, k=RANKS_BLOCK_K, tol=1e-15,
+                      max_iters=400, device=device)
     if not (res.converged and rb.converged):
         raise AssertionError(f"chain_{CUT_N}_symm references did not "
                              "converge")
@@ -2590,6 +3163,11 @@ def ranks_phase(device, op, full_eng):
                        **check_ranks(tmp, "gloo", outs, y_ref, e0_ref,
                                      block_ref)}
         launches = sum(o["streamed"]["launches"] for o in outs)
+        out["serve"] = check_rank_serve([o["serve"] for o in outs], e0_ref)
+        launches += out["serve"]["launches"]
+        t0 = time.perf_counter()
+        out["heartbeat"] = heartbeat_leg(tmp, CUT_N)
+        out["heartbeat"]["seconds"] = time.perf_counter() - t0
         cards = torch.cuda.device_count()
         if cards >= RANKS:
             t0 = time.perf_counter()
@@ -2758,7 +3336,7 @@ def streamed_complex_phase(device, n=None):
     info.update(apply_times(device, eng, xh, applies=3))
     prof = profile_apply(lambda: eng.matvec(xh), top=12)
     info["profile"] = {k: prof[k] for k in ("device_ms_total", "top",
-                                             "parts")}
+                                             "phases_ms")}
     t0 = time.perf_counter()
     res = lanczos(eng.matvec, v0=xh, k=1, max_iters=COMPLEX_HELD_STEPS,
                   tol=0.0, reorth="full", device=device)
@@ -2795,7 +3373,7 @@ def streamed_complex_phase(device, n=None):
 #: not counted)
 COSTMODEL_APPLIES = 7
 COSTMODEL_WINDOW = 8
-COSTMODEL_WINDOWS = 2
+COSTMODEL_WINDOWS = 1
 
 
 def costmodel_phase(device, full_eng, ell_eng, op_cut, e0_cpu=CHAIN32_E0_CPU):
@@ -2815,7 +3393,7 @@ def costmodel_phase(device, full_eng, ell_eng, op_cut, e0_cpu=CHAIN32_E0_CPU):
     import torch
 
     from distributed_matvec_tpu_torch import (DistributedEngine, lanczos,
-                                              lanczos_block, obs)
+                                              lanczos_block, obs, tune)
     from distributed_matvec_tpu_torch.obs import calibrate, roofline
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
     from distributed_matvec_tpu_torch.utils.config import update_config
@@ -2890,14 +3468,23 @@ def costmodel_phase(device, full_eng, ell_eng, op_cut, e0_cpu=CHAIN32_E0_CPU):
                              "nchunks": full_eng.nchunks}
         del y_auto, y0
 
-        # -- tune="static": a lossless streamed engine from the full leg's
-        #    basis, beside a hand-set twin at the same knobs
+        # -- one tuned build (cut from two, for the time limit): a
+        #    tune="live" lossless streamed engine from the full leg's
+        #    basis, whose first config is the static search's choice —
+        #    checked against choose_config on the same stats and rates —
+        #    beside a hand-set twin at the same knobs; the live windows
+        #    below run on the same engine
         op = full_eng.operator
-        update_config(tune="static")
+        update_config(tune="live")
         tuned, build_s, peak = build_timed(device, lambda: DistributedEngine(
             op, device=device, mode="streamed"))
         t = tuned._tuned
         update_config(tune="off")
+        static = tune.choose_config(tuned._tune_stats(), tuned._tune_cal,
+                                    "streamed")
+        if static.token() != t.token():
+            raise AssertionError(f"live engine's first config {t.token()} "
+                                 f"is not the static choice {static.token()}")
         twin, twin_s, _ = build_timed(device, lambda: DistributedEngine(
             op, device=device, mode="streamed", batch_size=t.batch_size,
             stream_compress=t.stream_compress,
@@ -2947,6 +3534,7 @@ def costmodel_phase(device, full_eng, ell_eng, op_cut, e0_cpu=CHAIN32_E0_CPU):
                                  f"engine ({tuned.nchunks} chunks)")
         out["static"] = {
             "token": t.token(), "source": t.source,
+            "static_choice": static.token(),
             "priced_ms": t.priced_ms, "search_s": tuned.tune_search_s,
             "build_s": build_s, "build_peak_bytes": peak,
             "twin_build_s": twin_s, "nchunks": tuned.nchunks,
@@ -2956,15 +3544,13 @@ def costmodel_phase(device, full_eng, ell_eng, op_cut, e0_cpu=CHAIN32_E0_CPU):
             "lanczos_block_columns": int(res.num_iters), "e0": e0,
             "e0_minus_cpu": e0 - e0_cpu, "launches": launches,
             **apply_times(device, tuned, xt, applies=3)}
-        del tuned, res
-        release(device)
+        del res
 
-        # -- tune="live": windows of COSTMODEL_WINDOW applies
-        update_config(tune="live")
-        live, live_s, _ = build_timed(device, lambda: DistributedEngine(
-            op, device=device, mode="streamed"))
-        update_config(tune="off")
-        first = live._tuned
+        # -- tune="live": windows of COSTMODEL_WINDOW applies on the same
+        #    engine
+        live, live_s = tuned, build_s
+        del tuned
+        first = t
         xl = live.random_hashed(35)
         windows, rekeys = [], []
         PC.fused_decode_gather_scatter.launches = 0
@@ -3071,6 +3657,8 @@ def main() -> int:
                        full["e0"])
     solvers, solver_launches = run_phase("solvers", solvers_phase, device,
                                          eng, ell, full["e0"])
+    _, resil_launches = run_phase("resilience", resilience_phase, device,
+                                  eng, ell)
     _, serve_launches, serve_err = run_phase("serve", serve_phase, device,
                                              full["e0"])
     op = eng.operator
@@ -3103,7 +3691,7 @@ def main() -> int:
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
         + pipe_launches + tier_launches + ranks["launches"]
-        + serve_launches + cost_launches,
+        + serve_launches + cost_launches + resil_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            tiers["kernel_max_abs_err"],
@@ -3125,6 +3713,9 @@ def main() -> int:
         "launches_ranks": ranks["launches"],
         # the served streamed job's applies under the solve service (D = 1)
         "launches_serve": serve_launches,
+        # the resilience leg's streamed applies (probes, faults, profiled
+        # windows; D = 1)
+        "launches_resilience": resil_launches,
         # the autotuned engines' applies (static: lanczos_block; live: the
         # tuner's windows), chain_32_symm at D = 1
         "launches_costmodel": cost_launches,

@@ -367,6 +367,31 @@ extern "C" int dmt_fused_decode_per_entry(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The compiled resource figures of the kernel instance for code_bits (8 or
+// 16) and buckets (0: D = 1, 1: D > 1), by cudaFuncGetAttributes, into
+// out[5]: registers per thread, static shared bytes, local (spill) bytes
+// per thread, constant bytes, max threads per block.  Returns the
+// cudaError_t of the query.
+extern "C" int dmt_fused_decode_attributes(int code_bits, int buckets,
+                                           int64_t* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (code_bits == 8) {
+    err = buckets ? cudaFuncGetAttributes(&a, fused_decode_kernel<uint8_t, true>)
+                  : cudaFuncGetAttributes(&a, fused_decode_kernel<uint8_t, false>);
+  } else if (code_bits == 16) {
+    err = buckets ? cudaFuncGetAttributes(&a, fused_decode_kernel<uint16_t, true>)
+                  : cudaFuncGetAttributes(&a, fused_decode_kernel<uint16_t, false>);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int64_t>(a.sharedSizeBytes);
+  out[2] = static_cast<int64_t>(a.localSizeBytes);
+  out[3] = static_cast<int64_t>(a.constSizeBytes);
+  out[4] = a.maxThreadsPerBlock;
+  return 0;
+}
+
 // Message of a cudaError_t, for the wrapper's exception.
 extern "C" const char* dmt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..utils.config import get_config
+from ..utils.timers import timed
 from . import host  # noqa: F401
 
 __all__ = ["host", "enumerate_representatives"]
@@ -35,10 +36,13 @@ def enumerate_representatives(
     if backend != "numpy" and projected and not spin_inv_only:
         from . import native
 
-        out = native.enumerate_representatives_native(
-            n_sites, hamming_weight, group)
+        with timed(f"enumerate[native] n={n_sites} hw={hamming_weight} "
+                   f"G={len(group)}"):
+            out = native.enumerate_representatives_native(
+                n_sites, hamming_weight, group)
         if out is not None:
             return out
         if backend == "native":
             raise RuntimeError("native enumeration requested but unavailable")
-    return host.enumerate_representatives(n_sites, hamming_weight, group)
+    with timed(f"enumerate[numpy] n={n_sites} hw={hamming_weight}"):
+        return host.enumerate_representatives(n_sites, hamming_weight, group)

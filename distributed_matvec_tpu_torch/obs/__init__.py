@@ -25,11 +25,22 @@ The JAX package's telemetry core, copied where it is framework-free:
   split policies, the roofline report.
 * :mod:`~.calibrate` — the rate calibration measured on the device
   (``python -m distributed_matvec_tpu_torch.obs.calibrate``).
+* :mod:`~.health` — the engines' apply probes (nonfinite count and norm,
+  queued behind the apply and read at the next one: no synchronization),
+  the exchange counters and the lossy tiers' compress drift on the same
+  queue, and the solvers' watchdog (``solver_health``); ``DMT_HEALTH``.
+* :mod:`~.memory` — the memory ledger, watermarks from
+  ``torch.cuda.memory_stats``, the decode kernel's attributes, and OOM
+  forensics (``OomError``).
+* :mod:`~.profile` — sampled ``torch.profiler`` windows with an overhead
+  guard and triggered capture; ``DMT_PROFILE``.
+* :mod:`~.kernel_costs` — the counterpart of the JAX ``hlo``: per-kernel
+  device ms of a profiled apply, bucketed into the phases.
 
-The JAX package's ``health``, ``memory``, ``hlo`` and ``profile`` modules
-are not in the port; the engines emit ``matvec_apply`` and
-``apply_phases`` per apply, the solve service its events and spans, and
-the solvers no telemetry of their own yet.
+The engines emit ``engine_init`` at construction and ``matvec_apply``
+and ``apply_phases`` per apply inside an ``apply`` span; the solvers open
+a ``solve`` span with ``iteration`` spans, and the solve service its
+events and spans.
 
 Config: ``DMT_OBS_DIR`` (or ``obs_dir``) points the sink at a run
 directory; unset ⇒ in-memory only; ``DMT_OBS=off`` disables the layer
@@ -105,8 +116,11 @@ __all__ = [
 
 
 def snapshot() -> dict:
-    """The metrics registry as plain data (the JAX package drains its
-    health probes first; the port has none)."""
+    """The metrics registry as plain data, after folding in every queued
+    health probe (waiting for their copies to land)."""
+    from .health import drain
+
+    drain(block=True)
     return _metrics_snapshot()
 
 
@@ -119,3 +133,12 @@ def reset_all() -> None:
     reset_trace()
     reset_slo()
     reset_flight()
+    from .health import reset_health
+    from .kernel_costs import reset_kernel_costs
+    from .memory import reset_memory
+    from .profile import reset_profile
+
+    reset_health()
+    reset_memory()
+    reset_profile()
+    reset_kernel_costs()

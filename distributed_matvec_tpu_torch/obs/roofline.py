@@ -29,9 +29,15 @@ distributed_matvec_tpu_torch.obs.calibrate`` measures and writes it; this
 module, the engines and ``serve/capacity.py`` read it.  Without a sidecar
 :data:`DEFAULT_CALIBRATIONS` applies — every report states its source.
 
-The JAX module's third report column (``hlo_phase_split``, priced from the
-compiled program's ``hlo_cost`` events) waits for a counterpart of its
-``obs/hlo.py``; the report here takes the path that has no such events.
+The third report column is measured, not priced: the newest
+``kernel_cost`` event of a group's program (``<engine>_<mode>_apply``,
+one sampled ``torch.profiler`` window, ``obs/kernel_costs.py``) gives the
+device ms of each phase's kernels — beside the priced bound and the
+measured wall.  The JAX column (``hlo_ms``) is the measured wall split in
+the ratios of a price of the compiled program's HLO cost table; the port
+has no compiled program, so its ``device_ms`` is what the profiler read
+from the card's kernels and copies, and it need not sum to the wall (host
+gaps and overlapped copies are in the wall only).
 """
 
 from __future__ import annotations
@@ -507,6 +513,28 @@ def roofline_report(events: List[dict],
     # bound of the structural counts (roofline_fraction's numerator),
     # "tuned" the search's pre-build estimate for the adopted config,
     # "measured" the steady apply wall
+    # the measured third column: per-phase device ms from the newest
+    # kernel_cost event of each group's program
+    kc_by_program: Dict[str, dict] = {}
+    for ev in events:
+        if ev.get("kind") == "kernel_cost":
+            kc_by_program[str(ev.get("program"))] = ev   # newest wins
+    for key, grp in out["groups"].items():
+        eng_mode = key.split("+pipe", 1)[0]
+        ev = kc_by_program.get(eng_mode.replace("/", "_") + "_apply")
+        if ev is None:
+            continue
+        for p, a in grp["phases"].items():
+            a["device_ms"] = round(float(ev.get(f"phase_ms_{p}", 0.0)), 4)
+        grp["kernels"] = {"program": ev.get("program"),
+                          "fingerprint": str(ev.get("fingerprint", ""))[:16],
+                          "device_ms": round(float(
+                              ev.get("device_ms", 0.0)), 4),
+                          "unattributed_ms": round(sum(
+                              float(v) for k, v in ev.items()
+                              if k.startswith("phase_ms_")
+                              and k[len("phase_ms_"):]
+                              not in grp["phases"]), 4)}
     tune_cfgs = [e for e in events if e.get("kind") == "tune_config"]
     retunes = [e for e in events if e.get("kind") == "retune"]
     if tune_cfgs or retunes:
@@ -558,12 +586,20 @@ def print_roofline(report: dict) -> None:
         print(f"\n{name}: {grp['steady_applies']} steady applies, "
               f"wall {grp['wall_ms']:.3f} ms/apply, "
               f"{grp['chunks']} chunk(s)")
+        has_dev = any(a.get("device_ms") is not None
+                      for a in grp["phases"].values())
         print(f"  {'phase':<12} {'wall ms':>10} {'bound ms':>10} "
+              + (f"{'device ms':>10} " if has_dev else "")
               + f"{'achieved':>9} {'bytes':>14} {'gathers':>12}")
         for p in PHASES:
             a = grp["phases"].get(p)
             if a is None:
                 continue
+            dev_cell = ""
+            if has_dev:
+                dv = a.get("device_ms")
+                dev_cell = (f"{dv:>10.4f} " if dv is not None
+                            else f"{'-':>10} ")
             ach = a.get("achieved_fraction")
             if ach is None:
                 cell = "-"
@@ -575,9 +611,16 @@ def print_roofline(report: dict) -> None:
             else:
                 cell = f"{ach:.1%}"
             print(f"  {p:<12} {a['wall_ms']:>10.4f} {a['bound_ms']:>10.4f} "
-                  + f"{cell:>9} "
+                  + dev_cell + f"{cell:>9} "
                   f"{a['bytes']:>14,} {a['gathers']:>12,}"
                   + ("  (measured)" if a.get("measured") else ""))
+        if grp.get("kernels"):
+            kc = grp["kernels"]
+            print(f"  kernels: {kc['program']} [{kc['fingerprint']}] "
+                  f"{kc['device_ms']:.4f} ms on the device"
+                  + (f" ({kc['unattributed_ms']:.4f} ms in phases the "
+                     "model does not price)" if kc["unattributed_ms"]
+                     else ""))
         frac = grp.get("roofline_fraction")
         print(f"  binding resource: {grp['binding_resource']} "
               f"(phase {grp['binding_phase']}"

@@ -256,12 +256,14 @@ def check_slos(specs: Optional[List[SloSpec]] = None,
     bumping the ``slo_alert_count`` counter) when an ok SLO starts
     burning, ``state="clear"`` when a firing one recovers.  Steady states
     emit nothing, so a healthy service's stream stays alert-free.  Inert
-    when the layer is off.  (The JAX package also takes a profiler
-    capture on a firing SLO; ``obs/profile.py`` is not in the port.)"""
+    when the layer is off.  A newly firing SLO also takes a triggered
+    profile capture (``obs/profile.trigger_capture``) when profiling is
+    on."""
     if not _obs_enabled():
         return []
     statuses = evaluate(events if events is not None else _ring_events(),
                         specs, now=now)
+    fired_now = []
     with _state_lock:
         for st in statuses:
             prev = _fired.get(st["name"], False)
@@ -273,10 +275,25 @@ def check_slos(specs: Optional[List[SloSpec]] = None,
                       if st["worst_burn"] != float("inf") else "inf",
                       target=st["target"], mode=st["mode"],
                       samples=st["samples"])
+                fired_now.append(st)
             elif st["state"] == "ok" and prev:
                 _fired[st["name"]] = False
                 _emit("slo_alert", slo=st["name"], state="clear",
                       target=st["target"], mode=st["mode"])
+    # triggered deep capture (obs/profile.py): a burning SLO snapshots
+    # the hottest kernels + newest sampled trace into one flight bundle
+    # so the incident carries its own profile.  Lazy + soft-fail: the
+    # alert must land even when the capture path cannot.
+    for st in fired_now:
+        try:
+            from . import profile as _profile
+            _profile.trigger_capture(f"slo_burn_{st['name']}",
+                                     slo=st["name"],
+                                     burn=st["worst_burn"]
+                                     if st["worst_burn"] != float("inf")
+                                     else "inf")
+        except Exception:
+            pass
     return statuses
 
 

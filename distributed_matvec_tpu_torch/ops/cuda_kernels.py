@@ -23,7 +23,7 @@ from typing import Dict
 from ..utils.build import build_dir
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "library", "error_string",
-           "build_log"]
+           "build_log", "kernel_attributes", "record_kernel_analysis"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -50,6 +50,7 @@ _SIGNATURES = {
         "dmt_fused_decode_per_entry": (
             _int, [_vp, _i64, _vp, _int, _vp, _vp, _vp, _i64, _int, _int,
                    _i64, _vp]),
+        "dmt_fused_decode_attributes": (_int, [_int, _int, _vp]),
         "dmt_cuda_error_string": (ctypes.c_char_p, [_int]),
     },
 }
@@ -131,3 +132,44 @@ def error_string(code: int) -> str:
     """``cudaGetErrorString`` of a launch's return code."""
     msg = library("fused_decode").dmt_cuda_error_string(int(code))
     return f"{msg.decode() if msg else 'unknown error'} ({code})"
+
+
+#: ``cudaFuncGetAttributes`` fields, in the order the entry point writes
+ATTRIBUTE_FIELDS = ("num_regs", "shared_size_bytes", "local_size_bytes",
+                    "const_size_bytes", "max_threads_per_block")
+
+_recorded = False
+
+
+def kernel_attributes(code_bits: int = 16, buckets: bool = False
+                      ) -> Dict[str, int]:
+    """The decode kernel's compiled resource figures for one instance
+    (``code_bits`` 8 or 16; ``buckets`` for D > 1), by
+    ``cudaFuncGetAttributes``."""
+    import numpy as np
+
+    out = np.zeros(len(ATTRIBUTE_FIELDS), dtype=np.int64)
+    code = library("fused_decode").dmt_fused_decode_attributes(
+        int(code_bits), int(bool(buckets)), out.ctypes.data)
+    if code != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                           f"{error_string(code)}")
+    return dict(zip(ATTRIBUTE_FIELDS, map(int, out)))
+
+
+def record_kernel_analysis() -> None:
+    """Record every decode-kernel instance's attributes in the memory
+    layer (``memory_analysis`` events and sidecars), once per process;
+    called at the first launch."""
+    global _recorded
+    if _recorded:
+        return
+    _recorded = True
+    from ..obs import memory as obs_memory
+
+    for bits in (8, 16):
+        for buckets in (False, True):
+            obs_memory.record_executable_analysis(
+                f"fused_decode/u{bits}/{'buckets' if buckets else 'd1'}",
+                kernel_attributes(bits, buckets),
+                program="fused_decode_kernel")

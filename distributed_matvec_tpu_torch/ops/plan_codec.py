@@ -722,6 +722,7 @@ def _launch_fused_decode(spec: Dict, edest, ecodes, fill, cdict, x_c,
     from . import cuda_kernels
 
     lib = cuda_kernels.library("fused_decode")
+    cuda_kernels.record_kernel_analysis()
     nl = spec["n_live"]
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = lib.dmt_fused_decode_gather_scatter(

@@ -132,10 +132,26 @@ structural counts equal the JAX engine's (``_phase_counts``); streamed
 applies add a per-chunk timeline from CUDA events on the plan-copy stream,
 read after the apply's one end-of-apply synchronization (which phases on
 adds on the card; nothing is synchronized per chunk).  With obs off the
-apply takes no timing at all.
+apply takes no timing at all.  Each apply runs in an ``apply`` span and
+feeds the health layer (``obs/health.py``): the probes earlier applies
+queued are drained, every ``health_every``-th apply queues its nonfinite
+count and norm, the overflow/invalid counters of the chunked modes ride
+the same queue, and on an ``f32``/``bf16`` streamed engine the probe
+applies also queue a compress-drift sample (``_probe_compress_drift``) —
+all without a synchronization.  A watermark is sampled every
+``memory_every``-th apply, and ``DMT_PROFILE=sampled`` wraps every
+``profile_every``-th apply in a ``torch.profiler`` window.  The
+construction emits ``engine_init`` and registers its tensors, the host
+plan and the H2D ring in the memory ledger; a device out-of-memory
+failure in the build or an apply raises ``obs.memory.OomError``.
 
-The compress-drift probe, the threaded plan prefetch and the disk tier,
-``from_shards`` and the structure and plan caches are not in the port.
+Fault sites (``utils/faults.py``, ``DMT_FAULT``): ``exchange`` at the
+head of every apply, before any device work, and ``plan_upload`` on each
+plan chunk's host fetch for the H2D ring, retried with backoff
+(``io_retries``, ``io_retry_base_s``).
+
+The threaded plan prefetch and the disk tier, ``from_shards`` and the
+structure and plan caches are not in the port.
 """
 
 from __future__ import annotations
@@ -144,6 +160,7 @@ import math
 import os
 import time
 import warnings
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -151,16 +168,23 @@ import numpy as np
 import torch
 
 from ..models.operator import Operator
+from ..obs import health as obs_health
+from ..obs import memory as obs_memory
 from ..obs import phases as obs_phases
+from ..obs import profile as obs_profile
+from ..obs import trace as obs_trace
 from ..obs.events import emit, obs_enabled
-from ..obs.metrics import counter, histogram
+from ..obs.metrics import counter, gauge, histogram
 from ..ops import kernels as K
 from ..ops import plan_codec as PC
 from ..ops.bits import build_sorted_lookup, choose_dir_bits, shard_index
 from ..ops.bits import state_index_bucketed
-from ..utils import u64
+from ..utils import faults, u64
 from ..utils.config import get_config
 from ..utils.device import resolve_device
+from ..utils.timers import TreeTimer
+from .engine_obs import (emit_engine_init, note_applying, oom_reraise,
+                         register_engine_memory)
 from .shuffle import HashedLayout
 
 __all__ = ["DistributedEngine", "SENTINEL_STATE", "all_to_all"]
@@ -417,6 +441,12 @@ class DistributedEngine:
         self._dtype = torch.float64 if self.real else torch.complex128
         #: seconds of each construction phase
         self.timings: Dict[str, float] = {}
+        #: the construction's and the applies' timing tree
+        self.timer = TreeTimer("DistributedEngine")
+        t_init = time.perf_counter()
+        # pre-build watermark: the delta against the post-init sample is
+        # the construction's device footprint
+        obs_memory.sample_watermark("engine_init_start/distributed")
         #: matvec calls so far
         self.n_applies = 0
         #: fused mode: row-chunk sizes whose overflow and out-of-basis
@@ -442,16 +472,21 @@ class DistributedEngine:
         alphas_np = self.layout.to_hashed(reps, fill=_SENTINEL_U64)
         norms_np = self.layout.to_hashed(norms, fill=1.0)
 
-        self.tables = K.device_tables(operator, dev)
-        self.num_terms = int(self.tables.off.x.shape[0])
         L = len(self._shards)
-        self._alphas = u64.from_numpy(alphas_np[self._shards], dev)  # [L, M]
-        self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
-        self._diag = torch.empty((L, M), dtype=torch.float64, device=dev)
-        for i in range(L):
-            dd = K.apply_diag(self.tables.diag, self._alphas[i])
-            self._diag[i] = torch.where(self._alphas[i] != SENTINEL_STATE,
-                                        dd, torch.zeros_like(dd))
+        with self.timer.scope("transfer"):
+            self.tables = K.device_tables(operator, dev)
+            self._alphas = u64.from_numpy(alphas_np[self._shards],
+                                          dev)                 # [L, M]
+            self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
+        self.num_terms = int(self.tables.off.x.shape[0])
+        with self.timer.scope("diag"):
+            self._diag = torch.empty((L, M), dtype=torch.float64,
+                                     device=dev)
+            for i in range(L):
+                dd = K.apply_diag(self.tables.diag, self._alphas[i])
+                self._diag[i] = torch.where(
+                    self._alphas[i] != SENTINEL_STATE, dd,
+                    torch.zeros_like(dd))
 
         b = min(batch_size or cfg.matvec_batch_size, M)
         self.batch_size = _round_up(min(b, M), 8)
@@ -467,6 +502,10 @@ class DistributedEngine:
         self._tl_events: list = []
         self._phase_count_cache: Dict[tuple, dict] = {}
         self._last_fused: Optional[Tuple[int, int]] = None
+        #: the last fused apply's (overflow, invalid) device counters, and
+        #: the compress-drift probe's state (None: not looked at yet)
+        self._last_counters = (0, 0)
+        self._drift_state = None
         # -- self-tuning: the adopted TunedConfig, the live controller, a
         #    re-tune waiting for the next safe boundary, and the rates the
         #    tuner priced with
@@ -494,6 +533,29 @@ class DistributedEngine:
             # an explicit depth is validated before the build
             self.pipeline_depth = self._pipeline_req
 
+        self._plan_stage_h = obs_memory.NULL_HANDLE
+        self._plan_mem_h = None
+        try:
+            self._build_plan(alphas_np)
+        except Exception as e:
+            if not obs_memory.is_resource_exhausted(e):
+                # the staging is freed with the frame; only a genuine OOM
+                # keeps its entry for the forensics report
+                self._plan_stage_h.release()
+            oom_reraise(e, engine="distributed", mode=mode, phase="init",
+                        n_states=int(self.n_states))
+        # "auto" prices the built plan's phase counts
+        self.pipeline_depth = self._pipeline_req
+        emit_engine_init(self, "distributed",
+                         init_s=time.perf_counter() - t_init)
+        register_engine_memory(self, "distributed")
+        self._register_plan_memory()
+        self.timer.report()    # the tree, printed with display_timings on
+
+    def _build_plan(self, alphas_np: np.ndarray) -> None:
+        """The mode's plan: the ell/compact routing plan, or the lookup and
+        (streamed, hybrid) the encoded host plan."""
+        mode, group, dev = self.mode, self.group, self.device
         t0 = time.perf_counter()
         if mode in ("ell", "compact"):
             if mode == "compact":
@@ -505,15 +567,55 @@ class DistributedEngine:
                         raise RuntimeError(
                             f"the ranks found different compact "
                             f"magnitudes W: {ws.tolist()}")
-            self._plan_stream(compact=mode == "compact")
+            with self.timer.scope("build_plan"):
+                Bc = min(self.shard_size, max(self.batch_size, 8))
+                cfb = 8 if self.real else 16
+                stage_h = self._track_staging(
+                    "plan_stream",
+                    2 * (Bc * 16 + Bc * self.num_terms * (8 + cfb)),
+                    -(-self.shard_size // Bc))
+                self._plan_stream(compact=mode == "compact")
+                stage_h.release()
             self.timings["plan_build_s"] = time.perf_counter() - t0
         else:
-            self._init_lookup(alphas_np, basis.number_bits)
+            self._init_lookup(alphas_np, self.operator.basis.number_bits)
             self._capacity = self._fused_capacity()
             if mode != "fused":
                 self._build_streamed()
-        # "auto" prices the built plan's phase counts
-        self.pipeline_depth = self._pipeline_req
+
+    def _track_staging(self, kind: str, nbytes: int, nchunks: int):
+        """A plan build's staged buffers in the memory ledger for the
+        build's duration (``plan/<kind>:<i>/staging``, the JAX paths):
+        what an OOM during the build points at."""
+        if obs_enabled():
+            self._plan_stage_h = obs_memory.track(
+                f"plan/{obs_memory.next_instance(kind)}/staging",
+                int(nbytes), kind="staging", chunks=int(nchunks))
+        return self._plan_stage_h
+
+    def _register_plan_memory(self) -> None:
+        """The streamed plan's host bytes (``plan/stream_plan:<i>/host``,
+        device ``host``) and, on the card, the pinned H2D ring's device
+        slots (``…/ring``) in the memory ledger for the engine's lifetime,
+        plus the ``stream_plan_bytes`` gauge; re-registered after a
+        re-tune rebuilds the plan."""
+        if self._plan_mem_h is not None:
+            self._plan_mem_h.release()
+            self._plan_mem_h = None
+        if not obs_enabled() or self.mode not in ("streamed", "hybrid"):
+            return
+        base = f"plan/{obs_memory.next_instance('stream_plan')}"
+        h = obs_memory.track(f"{base}/host", int(self.plan_bytes),
+                             device="host", kind="stream_plan", tier="ram",
+                             chunks=int(self.nchunks))
+        if getattr(self, "_dev_bufs", None) is not None:
+            obs_memory.track(f"{base}/ring",
+                             obs_memory.tensor_bytes(self._dev_bufs),
+                             device="device", kind="h2d_ring",
+                             slots=int(self._dev_bufs.shape[0]), handle=h)
+        self._plan_mem_h = h
+        weakref.finalize(self, h.release)
+        gauge("stream_plan_bytes").set(int(self.plan_bytes))
 
     def _build_streamed(self) -> None:
         """Build, encode and stage the streamed (or hybrid) plan at the
@@ -523,8 +625,14 @@ class DistributedEngine:
         dev = self.device
         self._phase_count_cache = {}
         self._capacity = self._fused_capacity()
+        cfb = 8 if self.real else 16
+        stage_h = self._track_staging(
+            "stream_build", 2 * (self.batch_size * self.num_terms
+                                 * (4 + cfb) + self.n_devices
+                                 * self._capacity * 5), self.nchunks)
         t0 = time.perf_counter()
-        raw = self._build_stream_plan()
+        with self.timer.scope("build_plan"):
+            raw = self._build_stream_plan()
         self.timings["plan_build_s"] = time.perf_counter() - t0
         if self.mode == "hybrid" and self._hybrid_mask is None:
             self._hybrid_mask = self._auto_hybrid_mask(raw)
@@ -545,6 +653,9 @@ class DistributedEngine:
                 self._copy_stream = torch.cuda.Stream(dev)
             self._dev_bufs = None
             self._grow_ring(2)
+        self._drift_state = None
+        stage_h.release()           # staging gone; the plan is resident
+        obs_memory.sample_watermark("plan_upload/distributed")
 
     # -- ranks ---------------------------------------------------------------
 
@@ -1072,6 +1183,9 @@ class DistributedEngine:
         ring is the counterpart of the JAX engine's prefetch depth."""
         n, L = self.nchunks, len(self._shards)
         timeline = self._timeline
+        # the plan_upload fault site, only while DMT_FAULT arms a site
+        host = self._fetch_plan_chunk if faults.enabled() \
+            else self._plan_host.__getitem__
         if self.device.type != "cuda":
             for ci in range(n):
                 entry = None
@@ -1080,8 +1194,8 @@ class DistributedEngine:
                     entry = {"chunk": ci, "stall_ms": 0.0, "stage_ms": 0.0}
                     timeline.append(entry)
                     t0 = time.perf_counter()
-                yield [self._chunk_views(self._plan_host[ci, d])
-                       for d in range(L)]
+                rec = host(ci)
+                yield [self._chunk_views(rec[d]) for d in range(L)]
                 if entry is not None:
                     entry["dispatch_ms"] = round(
                         (time.perf_counter() - t0) * 1e3, 4)
@@ -1107,8 +1221,7 @@ class DistributedEngine:
                 copy.wait_event(self._free[slot])
                 if ev is not None:
                     ev[3 * (base + ci)].record(copy)
-                self._dev_bufs[slot].copy_(self._plan_host[ci],
-                                           non_blocking=True)
+                self._dev_bufs[slot].copy_(host(ci), non_blocking=True)
                 self._ready[slot].record(copy)
                 if ev is not None:
                     ev[3 * (base + ci) + 1].record(copy)
@@ -1134,6 +1247,17 @@ class DistributedEngine:
             if entry is not None:
                 entry["dispatch_ms"] = round(
                     (time.perf_counter() - t0) * 1e3, 4)
+
+    def _fetch_plan_chunk(self, ci: int) -> torch.Tensor:
+        """The host half of one plan chunk's upload: the ``plan_upload``
+        fault site and the fetch of its ``[L, stride]`` records, retried
+        with backoff (``io_retries``, ``io_retry_base_s``)."""
+        def fetch():
+            faults.check("plan_upload", exc=RuntimeError, chunk=ci)
+            return self._plan_host[ci]
+
+        return faults.with_retries("plan_upload", fetch,
+                                   exc_types=(RuntimeError,))
 
     # -- streamed: apply -----------------------------------------------------
 
@@ -1681,6 +1805,19 @@ class DistributedEngine:
             y[d] = yd
         return y.transpose(1, 2)
 
+    def memory_arrays(self) -> Dict[str, object]:
+        """Every resident tensor group by ledger name (the JAX engine's
+        names; fused, streamed and hybrid engines carry the per-shard
+        lookup instead of structure tables)."""
+        out = {"operator_tables": self.tables,
+               "basis_rows": (self._alphas, self._norms),
+               "diag": self._diag}
+        if self.mode in ("fused", "streamed", "hybrid"):
+            out["lookup"] = (self._lk_pair, self._lk_dir)
+        for name, arrs in self.structure_arrays().items():
+            out[f"structure/{name}"] = arrs
+        return out
+
     def structure_arrays(self) -> Dict[str, torch.Tensor]:
         """The precomputed plan tensors by name, each ``[L, …]`` over the
         shards held here (``[1, …]`` on a rank; empty in streamed and fused
@@ -1743,12 +1880,27 @@ class DistributedEngine:
         if self._retune_pending is not None:
             # the safe boundary: no device work of this apply is queued
             self.maybe_retune()
-        if not obs_enabled():
-            return self._matvec_body(xh, check)
-        return self._matvec_observed(xh, check)
+        note_applying(self)
+        # chaos site for the exchange: fires BEFORE any device work, so an
+        # injected "failed collective" leaves the engine state intact and
+        # the next apply runs clean (every rank armed alike raises alike)
+        faults.check("exchange", exc=RuntimeError, engine="distributed")
+        try:
+            if not obs_enabled():
+                return self._matvec_body(xh, check)
+            idx = self._apply_idx
+            self._apply_idx += 1
+            with obs_trace.span("apply", kind="apply", engine="distributed",
+                                mode=self.mode, apply=idx), \
+                    obs_profile.sample_window("distributed", idx,
+                                              mode=self.mode):
+                return self._matvec_observed(xh, check, idx)
+        except Exception as e:
+            oom_reraise(e, engine="distributed", mode=self.mode,
+                        phase="apply", n_states=int(self.n_states))
 
-    def _matvec_observed(self, xh: torch.Tensor, check: Optional[bool]
-                         ) -> torch.Tensor:
+    def _matvec_observed(self, xh: torch.Tensor, check: Optional[bool],
+                         idx: int) -> torch.Tensor:
         """:meth:`_matvec_body` with its telemetry (JAX ``_matvec_inner``'s
         tail): ``matvec_apply`` with this process's exchange bytes, the
         ``exchange_bytes`` counter and ``matvec_apply_ms`` histogram, and
@@ -1760,11 +1912,11 @@ class DistributedEngine:
         phases = obs_phases.phases_enabled()
         streamed = self.mode in ("streamed", "hybrid")
         self._timeline = [] if (phases and streamed) else None
-        idx = self._apply_idx
-        self._apply_idx += 1
         t0 = time.perf_counter()
         try:
-            y = self._matvec_body(xh, check)
+            with self.timer.scope("matvec"):
+                y = self._matvec_body(xh, check)
+            self._health(xh, y, idx)
             if phases and self.device.type == "cuda":
                 # the apply's one synchronization: the wall covers its
                 # device work, and the timeline's events are complete
@@ -1782,6 +1934,89 @@ class DistributedEngine:
             self._emit_phases(idx, dt_ms, cols, timeline)
         histogram("matvec_apply_ms", engine="distributed").observe(dt_ms)
         return y
+
+    def _health(self, xh: torch.Tensor, y: torch.Tensor, idx: int) -> None:
+        """The apply's health and memory tail (JAX ``_matvec_inner``):
+        drain the probes earlier applies queued, queue this apply's
+        exchange counters (the chunked modes), and every
+        ``health_every``-th apply the output probe and, on an
+        ``f32``/``bf16`` streamed engine, a compress-drift sample; every
+        ``memory_every``-th apply a watermark.  Nothing here waits on the
+        device."""
+        obs_health.drain()
+        if self.mode == "fused":
+            obs_health.defer_exchange_counters("distributed", idx,
+                                               *self._last_counters)
+        elif self.mode in ("streamed", "hybrid"):
+            # structural, validated zero at build: the series stays
+            # visible (zero being the healthy reading), as in fused mode
+            obs_health.defer_exchange_counters("distributed", idx, 0, 0)
+        if obs_health.probe_due(idx):
+            obs_health.probe_apply("distributed", y, idx)
+            if self.mode in ("streamed", "hybrid") \
+                    and self.stream_compress in ("f32", "bf16"):
+                self._probe_compress_drift(xh, idx)
+        if obs_memory.watermark_due(idx):
+            obs_memory.sample_watermark("apply/distributed", apply=idx)
+
+    # -- lossy-tier numerical-drift probe ----------------------------------
+
+    #: the probe chunk: the drift sample is a 1-in-N subsample by
+    #: construction (one chunk's live plan entries, probe-cadence applies)
+    _DRIFT_CHUNK = 0
+
+    def _drift_probe_state(self):
+        """Lazy state of the compress-drift probe: the probe chunk's x-row
+        indices, EXACT (lossless-path) coefficients and quantization deltas
+        on the device, for the first shard held here.  None when the probe
+        does not apply — not a quantized tier, a complex sector, or raw
+        (non-dictionary) coefficients, whose exact values are not kept."""
+        st = self._drift_state
+        if st is not None:
+            return st or None        # False: checked, unavailable
+        self._drift_state = False
+        spec = self._codec.spec
+        if spec["tier"] not in ("f32", "bf16") or spec["ckind"] != "real" \
+                or spec["coeff"] != "dict":
+            return None
+        try:
+            d = self._shards[0]
+            per = self.plan_chunk(self._DRIFT_CHUNK, d)
+            dec = self._codec.decode_chunk_host(per, d)
+            codes = np.asarray(per["coeff"], np.int64)
+            exact = np.asarray(self._codec.dicts[d])[codes].real.astype(
+                np.float64)
+            live = np.asarray(dec["dest"]) < int(spec["n_recv"])
+            exact = np.where(live, exact, 0.0)
+            delta = PC._quantize(exact, spec["tier"]) - exact
+            dev = self.device
+            self._drift_state = {
+                "rows": torch.from_numpy(np.asarray(
+                    dec["row"], np.int64)).to(dev),
+                "exact": torch.from_numpy(exact).to(dev),
+                "delta": torch.from_numpy(delta).to(dev)}
+        except Exception as e:       # a failed probe must not cost the run
+            from ..utils.logging import log_warn
+            log_warn(f"compress-drift probe disabled: {e!r}")
+            return None
+        return self._drift_state
+
+    def _probe_compress_drift(self, xh: torch.Tensor, idx: int) -> None:
+        """Queue one input-weighted drift sample of a quantized-tier apply:
+        ‖Δc·x[rows]‖ / ‖c·x[rows]‖ over the probe chunk's live entries of
+        the first shard held here, where Δc is the quantized-minus-exact
+        coefficient — two reductions behind the apply, resolved deferred
+        by the health layer (no synchronization)."""
+        st = self._drift_probe_state()
+        if st is None:
+            return
+        x = xh.reshape(len(self._shards), self.shard_size, -1)[0]  # [M, R]
+        g = x[st["rows"]]                                          # [n, R]
+        num = torch.linalg.vector_norm(st["delta"][:, None] * g)
+        den = torch.linalg.vector_norm(st["exact"][:, None] * g)
+        obs_health.defer_compress_drift("distributed", idx,
+                                        self.stream_compress,
+                                        self._DRIFT_CHUNK, num, den)
 
     def _emit_phases(self, idx: int, dt_ms: float, cols: int,
                      timeline: Optional[list]) -> None:
@@ -1863,6 +2098,7 @@ class DistributedEngine:
         cap = self._capacity if B == base else self._fused_capacity(B)
         self._last_fused = (B, cap)
         y, overflow, invalid = self._apply_fused(x, B, cap)
+        self._last_counters = (overflow, invalid)
         if check or (check is None and B not in self._checked):
             self._validate_counters(*self._agree(overflow, invalid), B, cap)
             self._checked.add(B)
@@ -2207,6 +2443,7 @@ class DistributedEngine:
                                                     self.num_terms)
         if rebuild:
             self._build_streamed()
+            self._register_plan_memory()
         self.pipeline_depth = self._pipeline_req
         if self._tuner is not None:
             self._tuner.note_rebuild(prop)

@@ -30,7 +30,15 @@ With the obs layer on every apply emits ``matvec_apply`` (bytes 0: no
 exchange) and the ``matvec_apply_ms`` series, and with ``phases`` on an
 ``apply_phases`` event whose structural counts equal the JAX engine's
 (``_phase_counts``); the wall then covers the apply to its end on the
-device (one synchronization at the apply's end on the card).  With obs off
+device (one synchronization at the apply's end on the card).  Each apply
+runs in an ``apply`` span, drains the health probes queued by earlier
+applies and queues its own every ``health_every``-th apply
+(``obs/health.py``: no synchronization), samples a memory watermark every
+``memory_every``-th apply, and runs inside a ``torch.profiler`` window
+every ``profile_every``-th apply under ``DMT_PROFILE=sampled``.  The
+construction emits ``engine_init``, registers the tables in the memory
+ledger, and a device out-of-memory failure in the build or an apply is
+raised as ``obs.memory.OomError`` with its forensics report.  With obs off
 the apply takes no timing at all.
 
 The JAX engine's artifact and structure caches, the split-gather table and
@@ -47,7 +55,11 @@ import numpy as np
 import torch
 
 from ..models.operator import Operator
+from ..obs import health as obs_health
+from ..obs import memory as obs_memory
 from ..obs import phases as obs_phases
+from ..obs import profile as obs_profile
+from ..obs import trace as obs_trace
 from ..obs.events import emit, obs_enabled
 from ..obs.metrics import histogram
 from ..ops import kernels as K
@@ -55,7 +67,10 @@ from ..ops.bits import build_sorted_lookup, state_index_bucketed
 from ..utils import u64
 from ..utils.config import get_config
 from ..utils.device import resolve_device
+from ..utils.timers import TreeTimer
 from .distributed import SENTINEL_STATE as _SENTINEL_BITS
+from .engine_obs import (emit_engine_init, note_applying, oom_reraise,
+                         register_engine_memory)
 
 __all__ = ["LocalEngine", "pad_to_multiple", "SENTINEL_STATE",
            "choose_ell_split", "compact_magnitude", "compact_magnitudes"]
@@ -242,7 +257,7 @@ class LocalEngine:
     def __init__(self, operator: Operator, batch_size: Optional[int] = None,
                  mode: Optional[str] = None,
                  build_budget_gb: Optional[float] = None, device=None):
-        self.device = dev = resolve_device(device)
+        self.device = resolve_device(device)
         cfg = get_config()
         mode = mode or cfg.matvec_mode
         if build_budget_gb is None:
@@ -278,28 +293,49 @@ class LocalEngine:
         self.ell_split = None
         #: True when the ELL tables came from the two-pass build
         self.low_memory_build = False
+        #: the construction's and the applies' timing tree
+        self.timer = TreeTimer("LocalEngine")
+        t_init = time.perf_counter()
+        # pre-build watermark: the delta against the post-init sample is
+        # the construction's device footprint
+        obs_memory.sample_watermark("engine_init_start/local")
+        try:
+            self._construct(operator, mode)
+        except Exception as e:
+            oom_reraise(e, engine="local", mode=mode, phase="init",
+                        n_states=int(n))
+        emit_engine_init(self, "local", init_s=time.perf_counter() - t_init)
+        register_engine_memory(self, "local")
+        self.timer.report()    # the tree, printed with display_timings on
 
+    def _construct(self, operator: Operator, mode: str) -> None:
+        """Lookup, tables, diagonal and the mode's structure build."""
+        dev, basis = self.device, operator.basis
+        n_pad, b = self.n_padded, self.batch_size
         reps, norms = basis.representatives, basis.norms
         alphas, nrm = _padded_basis_arrays(reps, norms, n_pad)
         pair, dir_tab, self._lk_shift, self._lk_probes = build_sorted_lookup(
             reps, basis.number_bits)
-        self._lk_pair = torch.from_numpy(pair.astype(np.int64)).to(dev)
-        self._lk_dir = torch.from_numpy(dir_tab).to(dev)
-        self._alphas = u64.from_numpy(alphas, dev)            # [N_pad]
-        self._norms = torch.from_numpy(nrm).to(dev)           # [N_pad]
-        self.tables = K.device_tables(operator, dev)
+        with self.timer.scope("transfer"):
+            self._lk_pair = torch.from_numpy(pair.astype(np.int64)).to(dev)
+            self._lk_dir = torch.from_numpy(dir_tab).to(dev)
+            self._alphas = u64.from_numpy(alphas, dev)        # [N_pad]
+            self._norms = torch.from_numpy(nrm).to(dev)       # [N_pad]
+            self.tables = K.device_tables(operator, dev)
         self.num_terms = int(self.tables.off.x.shape[0])
         # by row chunk: one [N_pad, K] pass would hold several [N_pad, K]
         # int64 temporaries at once, more than the ELL tables themselves
-        self._diag = torch.empty(n_pad, dtype=torch.float64, device=dev)
-        for s in range(0, n_pad, b):
-            self._diag[s:s + b] = K.apply_diag(self.tables.diag,
-                                               self._alphas[s:s + b])
+        with self.timer.scope("diag"):
+            self._diag = torch.empty(n_pad, dtype=torch.float64, device=dev)
+            for s in range(0, n_pad, b):
+                self._diag[s:s + b] = K.apply_diag(self.tables.diag,
+                                                   self._alphas[s:s + b])
 
-        if mode == "ell":
-            self._build_ell()
-        elif mode == "compact":
-            self._build_compact()
+        with self.timer.scope("build_structure"):
+            if mode == "ell":
+                self._build_ell()
+            elif mode == "compact":
+                self._build_compact()
         # ell and compact were validated at build time
         self._checked = mode != "fused"
         self._apply_idx = 0
@@ -571,13 +607,40 @@ class LocalEngine:
         if x.ndim not in (1, 2) or x.shape[0] != self.n_states:
             raise ValueError(f"expected [{self.n_states}] or "
                              f"[{self.n_states}, k], got {tuple(x.shape)}")
-        if not obs_enabled():
-            return self._matvec_body(x, check)
-        phases = obs_phases.phases_enabled()
+        note_applying(self)
+        try:
+            if not obs_enabled():
+                return self._matvec_body(x, check)
+            return self._matvec_observed(x, check)
+        except Exception as e:
+            oom_reraise(e, engine="local", mode=self.mode, phase="apply",
+                        n_states=int(self.n_states))
+
+    def _matvec_observed(self, x: torch.Tensor, check: Optional[bool]
+                         ) -> torch.Tensor:
+        """:meth:`_matvec_body` in its ``apply`` span and sampled profile
+        window, with the health probes, the watermark and the telemetry
+        events (JAX ``_matvec_impl``/``_matvec_inner``)."""
         idx = self._apply_idx
         self._apply_idx += 1
+        with obs_trace.span("apply", kind="apply", engine="local",
+                            mode=self.mode, apply=idx), \
+                obs_profile.sample_window("local", idx, mode=self.mode):
+            return self._matvec_inner(x, check, idx)
+
+    def _matvec_inner(self, x: torch.Tensor, check: Optional[bool],
+                      idx: int) -> torch.Tensor:
+        phases = obs_phases.phases_enabled()
         t0 = time.perf_counter()
-        y = self._matvec_body(x, check)
+        with self.timer.scope("matvec"):
+            y = self._matvec_body(x, check)
+        # health: fold in the probes earlier applies queued (their copies
+        # have landed; nothing waits), then queue this apply's
+        obs_health.drain()
+        if obs_health.probe_due(idx):
+            obs_health.probe_apply("local", y, idx)
+        if obs_memory.watermark_due(idx):
+            obs_memory.sample_watermark("apply/local", apply=idx)
         if phases and self.device.type == "cuda":
             # the apply's one synchronization: the wall covers its work
             torch.cuda.current_stream(self.device).synchronize()
@@ -665,6 +728,19 @@ class LocalEngine:
 
     def __call__(self, x):
         return self.matvec(x)
+
+    def memory_arrays(self) -> Dict[str, object]:
+        """Every resident tensor group by ledger name (the JAX engine's
+        names): the operator term tables, the basis lookup, the padded
+        representative/norm rows, the diagonal, and the mode's structure
+        tables."""
+        out = {"operator_tables": self.tables,
+               "lookup": (self._lk_pair, self._lk_dir),
+               "basis_rows": (self._alphas, self._norms),
+               "diag": self._diag}
+        for name, arrs in self.structure_arrays().items():
+            out[f"structure/{name}"] = arrs
+        return out
 
     def structure_arrays(self) -> Dict[str, torch.Tensor]:
         """The precomputed-structure tensors by name (empty in fused

@@ -16,6 +16,16 @@ Every pool builds on one ``device`` — ``cuda`` unless the caller names
 another (the CPU tests pass ``device="cpu"``); without a card the pool
 raises at construction, as the engines do, and nothing falls back to the
 CPU.
+
+Over ranks (JAX ``EnginePool(mesh=)``): ``EnginePool(group=g)`` builds
+every spec as a rank engine ``DistributedEngine(op, group=g,
+mode=spec.mode)`` on the group's device, and its live topology is the
+group's world size.  Every rank drains the same jobs and must take the
+same decisions in the same order — admission, batch packing, LRU
+eviction — or a rank is left waiting in a collective; so the bytes the
+budget counts are the engine's resident bytes summed over the ranks (one
+all-reduce at build and after a re-tune), the same figure on every rank
+as the JAX pool reads from its global arrays.
 """
 
 from __future__ import annotations
@@ -53,17 +63,23 @@ def build_operator(spec: JobSpec):
     return heisenberg_from_edges(basis, edges)
 
 
-def build_engine(spec: JobSpec, live_devices=None, device=None):
+def build_engine(spec: JobSpec, live_devices=None, device=None,
+                 group=None):
     """One engine for the spec on ``device`` (default ``cuda``, raising
     without one): :class:`~..parallel.engine.LocalEngine` for
     single-device non-streamed jobs, :class:`~..parallel.distributed.
-    DistributedEngine` otherwise (its D shards on the one device).
+    DistributedEngine` otherwise (its D shards on the one device).  With
+    ``group`` (a :class:`~..parallel.mesh.ShardGroup`; JAX ``mesh=``)
+    every spec builds a rank engine over the group, on its device.
 
     ``live_devices`` clamps the spec's requested shard count to the
     CURRENT topology: a spec respooled from a service that ran at D
     devices must still build after a relaunch at D′ < D."""
-    dev = resolve_device(device)
     op = build_operator(spec)
+    from ..parallel.distributed import DistributedEngine
+    if group is not None:
+        return DistributedEngine(op, group=group, mode=spec.mode)
+    dev = resolve_device(device)
     n_devices = int(spec.n_devices or 0)
     if live_devices is not None and n_devices > int(live_devices):
         obs_emit("engine_clamp", job_id=spec.job_id,
@@ -73,20 +89,24 @@ def build_engine(spec: JobSpec, live_devices=None, device=None):
     if n_devices in (0, 1) and spec.mode not in ("streamed", "hybrid"):
         from ..parallel.engine import LocalEngine
         return LocalEngine(op, mode=spec.mode, device=dev)
-    from ..parallel.distributed import DistributedEngine
     return DistributedEngine(op, n_devices=n_devices or 1, mode=spec.mode,
                              device=dev)
 
 
 def engine_bytes(eng) -> int:
     """Resident footprint the budget counts: device structure tables
-    plus the streamed mode's host-RAM plan (encoded bytes)."""
+    plus the streamed mode's host-RAM plan (encoded bytes).  A rank
+    engine holds one shard's share of each, so the figure is all-reduced
+    over its group — collective: every rank calls it together."""
     total = 0
     for attr in ("ell_nbytes", "plan_bytes"):
         try:
             total += int(getattr(eng, attr, 0) or 0)
         except (TypeError, ValueError):
             pass
+    if getattr(eng, "group", None) is not None:
+        total = int(eng.reduce_sum(torch.tensor(
+            total, dtype=torch.int64, device=eng.device)))
     return total
 
 
@@ -95,14 +115,24 @@ class EnginePool:
 
     ``device`` is where every engine is built (default ``cuda``; raises
     without a card unless the caller passes ``device="cpu"``).
-    ``live_devices`` (default: ``torch.cuda.device_count()`` on the card, 1
-    on the CPU, at acquire time) is the pool's view of the CURRENT
-    topology: a warm engine whose shard count no longer fits is dropped
-    on its next acquire and rebuilt clamped to the live capacity."""
+    ``live_devices`` (default: the group's world size with ``group``,
+    else ``torch.cuda.device_count()`` on the card, 1 on the CPU, at
+    acquire time) is the pool's view of the CURRENT topology: a warm
+    engine whose shard count no longer fits is dropped on its next
+    acquire and rebuilt clamped to the live capacity.  ``group`` (a
+    :class:`~..parallel.mesh.ShardGroup`) builds rank engines over it on
+    its device (see the module docstring)."""
 
     def __init__(self, max_bytes: Optional[int] = None,
                  builder: Optional[Callable] = None,
-                 live_devices: Optional[int] = None, device=None):
+                 live_devices: Optional[int] = None, device=None,
+                 group=None):
+        self.group = group
+        if group is not None:
+            if device is not None and resolve_device(device) != group.device:
+                raise ValueError(f"device {device}: the pool's group runs "
+                                 f"on {group.device}")
+            device = group.device
         self.device = resolve_device(device)
         if max_bytes is None:
             max_bytes = int(get_config().serve_pool_gb * 1e9)
@@ -110,7 +140,7 @@ class EnginePool:
         self.live_devices = live_devices
         self._builder = builder or (lambda spec: build_engine(
             spec, live_devices=self.live_device_count(),
-            device=self.device))
+            device=self.device, group=self.group))
         self._engines: "OrderedDict[str, object]" = OrderedDict()
         self._bytes: dict = {}
         self.builds = 0
@@ -121,6 +151,8 @@ class EnginePool:
         """The current topology the pool serves on."""
         if self.live_devices is not None:
             return int(self.live_devices)
+        if self.group is not None:
+            return int(self.group.world_size)
         if self.device.type == "cuda":
             return int(torch.cuda.device_count())
         return 1

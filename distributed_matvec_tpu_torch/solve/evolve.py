@@ -41,11 +41,13 @@ import numpy as np
 import torch
 
 from ..models.observables import _complex_native
-from ..utils import preempt
+from ..obs import trace as obs_trace
+from ..utils import faults, preempt
 from ..utils.device import start_device
 from .kpm import _sync
-from .lanczos import (_rand_like, _vdot, rank_owner, rank_reducer,
-                      refuse_checkpoint)
+from .lanczos import (_rand_like, _vdot, engine_owner, guard_engine,
+                      rank_owner, rank_reducer, refuse_checkpoint,
+                      solve_scope, track_workspace)
 
 __all__ = ["EvolveResult", "krylov_evolve"]
 
@@ -116,16 +118,26 @@ def krylov_evolve(
     ``psi0`` when it is a tensor, else to ``cuda`` (raising when there is
     none).
     """
+    with solve_scope("evolve", t_final=float(t_final)):
+        return _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim,
+                              tol, seed, max_steps, checkpoint_path,
+                              observables, obs_every, device)
+
+
+def _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim, tol, seed,
+                   max_steps, checkpoint_path, observables, obs_every,
+                   device) -> EvolveResult:
     refuse_checkpoint(checkpoint_path)
-    owner = getattr(matvec, "__self__", None)
+    owner = engine_owner(matvec)
     red = rank_reducer(matvec)
     t_final = float(t_final)
     if not t_final > 0.0:
         raise ValueError(f"t_final must be > 0, got {t_final}")
     m_cap = max(int(krylov_dim), 2)
+    guarded = guard_engine(matvec, "evolve")
 
     def raw_mv(x):
-        y = matvec(x)
+        y = guarded(x)
         return y[0] if isinstance(y, tuple) else y
 
     if psi0 is None:
@@ -189,90 +201,100 @@ def krylov_evolve(
             obs_vals.setdefault(name, []).append((t, fn(psi)))
 
     ranks = rank_owner(matvec)
+    # the Krylov basis in the memory ledger for the solve's duration
+    mem_h = track_workspace("evolve", "krylov_basis",
+                            (m_cap + 1) * psi.numel() * psi.element_size(),
+                            krylov_dim=int(m_cap))
     preempt.ensure_installed()
     first_s = 0.0
     steady_s = 0.0
     while t < t_final * (1.0 - 1e-15):
         if max_steps is not None and step >= int(max_steps):
             break
-        # safe point per accepted step (ranks agree on the latch first)
+        # chaos site and safe point per accepted step (ranks agree on the
+        # latch first)
+        faults.check("solver_block", exc=RuntimeError, solver="evolve",
+                     iter=int(step))
         preempt.safe_point("evolve", step,
                            ranks.group if ranks is not None else None)
-        t_wall = time.perf_counter()
-        # -- Krylov basis for this state (valid for any dt) ----------------
-        nrm = float(torch.sqrt(_vdot(psi, psi, red).real))
-        V = [psi / nrm]
-        alph: List[float] = []
-        bet: List[float] = []
-        breakdown = False
-        for jj in range(m_cap):
-            w = apply_c(V[jj])
-            napply += 1
-            a = float(_vdot(V[jj], w, red).real)
-            w = w - a * V[jj]
-            if jj:
-                w = w - bet[jj - 1] * V[jj - 1]
-            # one full reorthogonalization pass: the small-T exponential
-            # needs an orthonormal basis
-            for vi in V:
-                w = w - _vdot(vi, w, red) * vi
-            alph.append(a)
-            b = float(torch.sqrt(_vdot(w, w, red).real))
-            if b <= _BREAKDOWN * max(abs(a), 1.0):
-                breakdown = True
+        with obs_trace.span("iteration", kind="iteration",
+                            solver="evolve", iter=int(step)):
+            t_wall = time.perf_counter()
+            # -- Krylov basis for this state (valid for any dt) ------------
+            nrm = float(torch.sqrt(_vdot(psi, psi, red).real))
+            V = [psi / nrm]
+            alph: List[float] = []
+            bet: List[float] = []
+            breakdown = False
+            for jj in range(m_cap):
+                w = apply_c(V[jj])
+                napply += 1
+                a = float(_vdot(V[jj], w, red).real)
+                w = w - a * V[jj]
+                if jj:
+                    w = w - bet[jj - 1] * V[jj - 1]
+                # one full reorthogonalization pass: the small-T exponential
+                # needs an orthonormal basis
+                for vi in V:
+                    w = w - _vdot(vi, w, red) * vi
+                alph.append(a)
+                b = float(torch.sqrt(_vdot(w, w, red).real))
+                if b <= _BREAKDOWN * max(abs(a), 1.0):
+                    breakdown = True
+                    bet.append(b)
+                    break
                 bet.append(b)
-                break
-            bet.append(b)
-            V.append(w / b)
-        m_eff = len(alph)
-        T = np.diag(np.asarray(alph))
-        for i in range(m_eff - 1):
-            T[i + 1, i] = T[i, i + 1] = bet[i]
-        theta, S = np.linalg.eigh(T)
-        # energies[i] = <psi|H|psi> at times[i]: the recurrence's first
-        # alpha is the energy of the state this step starts from
-        if len(energies) < len(times):
-            energies.append(alph[0])
-            if e0_ref is None:
-                e0_ref = alph[0]
+                V.append(w / b)
+            m_eff = len(alph)
+            T = np.diag(np.asarray(alph))
+            for i in range(m_eff - 1):
+                T[i + 1, i] = T[i, i + 1] = bet[i]
+            theta, S = np.linalg.eigh(T)
+            # energies[i] = <psi|H|psi> at times[i]: the recurrence's first
+            # alpha is the energy of the state this step starts from
+            if len(energies) < len(times):
+                energies.append(alph[0])
+                if e0_ref is None:
+                    e0_ref = alph[0]
+                    eval_observables()
+
+            # -- adaptive acceptance: rejections re-exponentiate the same T --
+            dt_try = min(dt, t_final - t)
+            while True:
+                u = S @ (np.exp(-1j * dt_try * theta) * S[0, :])
+                err = (0.0 if breakdown
+                       else abs(bet[m_eff - 1] * u[m_eff - 1]))
+                if err <= float(tol) * dt_try or dt_try <= 1e-12 * t_final:
+                    break
+                rejects += 1
+                dt_try *= 0.5
+
+            # -- commit ------------------------------------------------------
+            uj = torch.from_numpy(u).to(psi.device, cdtype)
+            psi = nrm * sum(uj[i] * V[i] for i in range(m_eff))
+            t += dt_try
+            step += 1
+            nrm_new = float(torch.sqrt(_vdot(psi, psi, red).real))
+            norm_drift = max(norm_drift, abs(nrm_new - 1.0))
+            e_t = alph[0]           # <psi|H|psi> at the step start
+            energy_drift = max(energy_drift,
+                               abs(e_t - e0_ref) / max(1.0, abs(e0_ref)))
+            times.append(t)
+            if obs_list and step % max(int(obs_every), 1) == 0:
                 eval_observables()
-
-        # -- adaptive acceptance: rejections re-exponentiate the same T --
-        dt_try = min(dt, t_final - t)
-        while True:
-            u = S @ (np.exp(-1j * dt_try * theta) * S[0, :])
-            err = (0.0 if breakdown
-                   else abs(bet[m_eff - 1] * u[m_eff - 1]))
-            if err <= float(tol) * dt_try or dt_try <= 1e-12 * t_final:
-                break
-            rejects += 1
-            dt_try *= 0.5
-
-        # -- commit ----------------------------------------------------------
-        uj = torch.from_numpy(u).to(psi.device, cdtype)
-        psi = nrm * sum(uj[i] * V[i] for i in range(m_eff))
-        t += dt_try
-        step += 1
-        nrm_new = float(torch.sqrt(_vdot(psi, psi, red).real))
-        norm_drift = max(norm_drift, abs(nrm_new - 1.0))
-        e_t = alph[0]           # <psi|H|psi> at the step start
-        energy_drift = max(energy_drift,
-                           abs(e_t - e0_ref) / max(1.0, abs(e0_ref)))
-        times.append(t)
-        if obs_list and step % max(int(obs_every), 1) == 0:
-            eval_observables()
-        # grow only when the estimate is an order under budget (and never
-        # past dt_max)
-        if not breakdown and err < 0.1 * float(tol) * dt_try:
-            dt = min(dt_try * 1.41421356, dt_max)
-        else:
-            dt = dt_try
-        _sync(psi)
-        dwall = time.perf_counter() - t_wall
+            # grow only when the estimate is an order under budget (and never
+            # past dt_max)
+            if not breakdown and err < 0.1 * float(tol) * dt_try:
+                dt = min(dt_try * 1.41421356, dt_max)
+            else:
+                dt = dt_try
+            _sync(psi)
+            dwall = time.perf_counter() - t_wall
         if step == 1:
             first_s = dwall
         else:
             steady_s += dwall
+    mem_h.release()
 
     # close the energy trajectory at the final state (one extra apply) so
     # energies aligns with times; this also covers a run that took no step

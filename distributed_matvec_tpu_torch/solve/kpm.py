@@ -43,10 +43,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import preempt
+from ..obs import trace as obs_trace
+from ..utils import faults, preempt
 from ..utils.device import start_device
-from .lanczos import (_rand_like, _vdot, rank_owner, rank_reducer,
-                      refuse_checkpoint)
+from .lanczos import (_rand_like, _vdot, engine_owner, guard_engine,
+                      rank_owner, rank_reducer, refuse_checkpoint,
+                      solve_scope, track_workspace)
 
 __all__ = ["KPMResult", "spectral_bounds", "kpm_moments", "kpm_dos",
            "kpm_spectral_function", "jackson_kernel", "lorentz_kernel",
@@ -60,10 +62,13 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def _mv_fn(matvec: Callable):
-    """Tuple-stripping eager apply."""
+def _mv_fn(matvec: Callable, solver: str):
+    """Tuple-stripping eager apply, its first call checked against the
+    engine that ran it (``lanczos.guard_engine``)."""
+    guarded = guard_engine(matvec, solver)
+
     def mv(x):
-        y = matvec(x)
+        y = guarded(x)
         return y[0] if isinstance(y, tuple) else y
     return mv
 
@@ -101,9 +106,9 @@ def spectral_bounds(matvec: Callable, n: Optional[int] = None,
     """
     from scipy.linalg import eigh_tridiagonal
 
-    mv = _mv_fn(matvec)
+    mv = _mv_fn(matvec, "spectral_bounds")
     red = rank_reducer(matvec)
-    owner = getattr(matvec, "__self__", None)
+    owner = engine_owner(matvec)
     if v0 is None:
         if owner is not None and hasattr(owner, "random_hashed"):
             v0 = owner.random_hashed(seed)
@@ -194,9 +199,16 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
         raise ValueError(f"n_vectors must be >= 1, got {n_vectors}")
     refuse_checkpoint(checkpoint_path)
     n_moments = int(n_moments)
-    mv = _mv_fn(matvec)
+    with solve_scope("kpm", n_moments=n_moments):
+        return _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0,
+                            bounds, bounds_iters, margin, device)
+
+
+def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
+                 bounds_iters, margin, device) -> KPMResult:
+    mv = _mv_fn(matvec, "kpm")
     red = rank_reducer(matvec)
-    owner = getattr(matvec, "__self__", None)
+    owner = engine_owner(matvec)
 
     v0_given = V0 is not None
     if V0 is None:
@@ -246,6 +258,10 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     del y0
 
     ranks = rank_owner(matvec)
+    # the Chebyshev pair in the memory ledger for the solve's duration
+    mem_h = track_workspace("kpm", "chebyshev_pair",
+                            2 * t_lo.numel() * t_lo.element_size(),
+                            n_vectors=R)
     preempt.ensure_installed()
     steady_s = 0.0
     # the probe apply is the first block; every pass after it is steady
@@ -253,7 +269,10 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     # each pass: harvest the doubling pair for the current t_j, then
     # advance the recurrence by one apply
     while filled < n_moments:
-        # safe point per moment block (ranks agree on the latch first)
+        # chaos site and safe point per moment block (ranks agree on the
+        # latch first)
+        faults.check("solver_block", exc=RuntimeError, solver="kpm",
+                     iter=int(j))
         preempt.safe_point("kpm", j,
                            ranks.group if ranks is not None else None)
         t_step = time.perf_counter()
@@ -266,13 +285,16 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
             mu_cols[2 * j] = 2.0 * _col_dots(t_hi, t_hi, red) - mu_cols[0]
             filled += 1
         if filled < n_moments:
-            y = mv(t_hi).to(dtype)
+            with obs_trace.span("iteration", kind="iteration",
+                                solver="kpm", iter=int(j)):
+                y = mv(t_hi).to(dtype)
             napply += 1
             t_lo, t_hi = t_hi, (2.0 / a) * y - (2.0 * b / a) * t_hi - t_lo
             _sync(t_hi)
             j += 1
         steady_s += time.perf_counter() - t_step
 
+    mem_h.release()
     mu = mu_cols.mean(axis=1)
     stderr = (mu_cols.std(axis=1) / np.sqrt(max(R, 1))
               if R > 1 else np.zeros(n_moments))

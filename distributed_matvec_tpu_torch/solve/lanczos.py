@@ -28,9 +28,24 @@ Vectors are whatever ``matvec`` takes and returns (``[1, M]`` hashed for the
 streamed engine); padded slots are zero by engine invariant, so the dots
 are exact.  They are float64, or complex128 for a complex-Hermitian
 operator: Gram-Schmidt and the norms then use conjugated inner products,
-and the projected matrix stays real symmetric.  Checkpointing, the
-watchdog, tracing and the (re, im) pair form of the JAX solvers are not in
-the port.
+and the projected matrix stays real symmetric.  Each solve is one
+``solve`` span with an ``iteration`` span per check block (the engine
+applies nest inside as ``apply`` spans), registers its Krylov workspace in
+the memory ledger, and runs the JAX package's watchdog (:class:`_Watchdog`:
+orthogonality loss from the ω estimate, a nonfinite residual, Ritz
+stagnation, an unconverged β breakdown) as ``solver_health`` events through
+``obs/health.py``.  Every block boundary is the ``solver_block`` fault site
+(``utils/faults.py``) beside the preemption safe point.  Checkpointing and
+the (re, im) pair form of the JAX solvers are not in the port.
+
+The solvers find the engine behind ``matvec`` through
+:func:`engine_owner` (the bound method's ``__self__``), which gives them a
+rank engine's sum over ranks and a quantized tier's reorthogonalization
+rule.  A wrapped matvec hides the engine, so every solver checks its first
+apply against the engine that ran it (:func:`guard_engine`, reading
+``parallel/engine_obs.APPLYING``): a rank engine or an ``f32``/``bf16``
+streamed or hybrid engine it was not given raises ``ValueError`` — on every
+rank alike, after that one apply — instead of returning a wrong value.
 
 On a rank engine (``DistributedEngine(group=…)``, one shard per process)
 each rank holds its row of every vector, and every dot and norm is summed
@@ -44,6 +59,9 @@ from the same gathered bits.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -51,11 +69,22 @@ import numpy as np
 import torch
 from scipy.linalg import eigh
 
-from ..utils import preempt
+from ..obs import health as obs_health
+from ..obs import memory as obs_memory
+from ..obs import trace as obs_trace
+from ..obs.events import emit as obs_emit
+from ..obs.events import obs_enabled
+from ..parallel.engine_obs import APPLYING
+from ..utils import faults, preempt
 from ..utils.config import get_config
 from ..utils.device import start_device
 
-__all__ = ["LanczosResult", "lanczos", "lanczos_block", "rank_reducer"]
+__all__ = ["LanczosResult", "lanczos", "lanczos_block", "rank_reducer",
+           "engine_owner", "guard_engine"]
+
+# the ledger handles of the solve in progress (see ``solve_scope``)
+_WORKSPACES: contextvars.ContextVar = contextvars.ContextVar(
+    "dmt_solve_workspaces", default=None)
 
 # Gram-Schmidt visits the basis in blocks of this many rows
 _GS_BLOCK = 8
@@ -72,10 +101,117 @@ _NO_CHECKPOINT = ("checkpoint_path: solver checkpoint/resume writes HDF5 and "
                   "apps and io/hdf5.py)")
 
 
+def engine_owner(matvec: Callable):
+    """The object ``matvec`` is a bound method of (the engine, for
+    ``eng.matvec``), or None for any other callable."""
+    return getattr(matvec, "__self__", None)
+
+
+def quantized_engine(eng) -> bool:
+    """Whether ``eng`` is a streamed or hybrid engine with quantized
+    (``f32``/``bf16``) coefficients: Hermitian only to that rounding."""
+    return (getattr(eng, "mode", None) in ("streamed", "hybrid")
+            and getattr(eng, "stream_compress", None) in ("f32", "bf16"))
+
+
+def guard_engine(matvec: Callable, solver: str) -> Callable:
+    """``matvec``, checked at its first call against the engine whose apply
+    ran (the engines name themselves in the list it opens in
+    ``APPLYING`` for that call only): when that is a rank
+    engine or a quantized streamed/hybrid engine other than
+    :func:`engine_owner` of ``matvec``, the solver could not see it — it
+    would sum over this rank's shard only, or skip the quantized tier's
+    full reorthogonalization — so the call raises ``ValueError``.  Every
+    rank makes the same first apply and raises alike; no collective is
+    left waiting."""
+    owner = engine_owner(matvec)
+    checked = []
+
+    def run(*args, **kwargs):
+        if checked:
+            return matvec(*args, **kwargs)
+        box = []
+        tok = APPLYING.set(box)
+        try:
+            y = matvec(*args, **kwargs)
+        finally:
+            APPLYING.reset(tok)
+        checked.append(True)
+        hidden = [e for e in box if e is not owner and (
+            getattr(e, "group", None) is not None or quantized_engine(e))]
+        del box
+        if hidden:
+            ran = hidden[0]
+            what = (f"a rank engine (world size {ran.group.world_size})"
+                    if getattr(ran, "group", None) is not None
+                    else f"a stream_compress={ran.stream_compress!r} "
+                         f"{ran.mode} engine")
+            raise ValueError(
+                f"{solver}: the matvec ran {type(ran).__name__} "
+                f"(mode={ran.mode!r}), {what}, through a wrapper the solver "
+                "cannot see the engine behind — pass the bound eng.matvec "
+                "(the solver then sums over the ranks and takes the "
+                "quantized tier's reorthogonalization)")
+        return y
+
+    return run
+
+
+@contextlib.contextmanager
+def solve_scope(name: str, **attrs):
+    """One ``solve`` span (JAX ``obs_trace.span(name, kind="solve", …)``).
+    The workspaces that :func:`track_workspace` registers inside it are
+    released when it closes, however the solve ends: a raise
+    (``Preempted``, an injected fault, ``HealthError``, an OOM) leaves no
+    entry in the ledger."""
+    handles = []
+    tok = _WORKSPACES.set(handles)
+    try:
+        with obs_trace.span(name, kind="solve", **attrs):
+            yield
+    finally:
+        _WORKSPACES.reset(tok)
+        for h in handles:
+            h.release()
+
+
+def solve_span(name: str, k_arg: bool = True):
+    """Run the decorated solver inside one :func:`solve_scope`; ``k`` is
+    read from the call as the JAX wrappers read it (the second positional
+    argument after ``matvec``, or the keyword)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(matvec, *args, **kwargs):
+            attrs = {}
+            if k_arg:
+                attrs["k"] = int(kwargs.get("k", args[1] if len(args) > 1
+                                            else 1))
+            with solve_scope(name, **attrs):
+                return fn(matvec, *args, **kwargs)
+        return wrapped
+    return deco
+
+
+def track_workspace(solver: str, name: str, nbytes: int, **meta):
+    """Register a solve's workspace in the memory ledger as
+    ``solver/<solver>:<i>/<name>`` (the JAX paths); returns the handle the
+    solver releases where JAX does.  The enclosing :func:`solve_scope`
+    releases it too, so a solve that raises leaves no entry behind."""
+    if not obs_enabled():
+        return obs_memory.NULL_HANDLE
+    h = obs_memory.track(
+        f"solver/{obs_memory.next_instance(solver)}/{name}", int(nbytes),
+        **meta)
+    scope = _WORKSPACES.get()
+    if scope is not None:
+        scope.append(h)
+    return h
+
+
 def rank_owner(matvec: Callable):
     """The rank engine behind ``matvec`` (``DistributedEngine(group=…)``),
     or None."""
-    owner = getattr(matvec, "__self__", None)
+    owner = engine_owner(matvec)
     return owner if getattr(owner, "group", None) is not None else None
 
 
@@ -115,6 +251,67 @@ def refuse_checkpoint(checkpoint_path) -> None:
     solvers do not checkpoint yet."""
     if checkpoint_path is not None:
         raise NotImplementedError(_NO_CHECKPOINT)
+
+
+class _Watchdog:
+    """Per-solve health state: Ritz-stagnation tracking plus the ω and
+    breakdown checks, reported as ``solver_health`` events through
+    :mod:`obs.health` (warn = log only; critical = one ``[Warn]`` line,
+    or a :class:`~obs.health.HealthError` under ``DMT_HEALTH=strict``)."""
+
+    #: consecutive convergence checks without a ≥1% residual improvement
+    #: before a stagnation warning (restart plateaus are normal — one flat
+    #: check is not a stall)
+    STALL_CHECKS = 5
+
+    def __init__(self, solver: str):
+        self.solver = solver
+        self.best_res = np.inf
+        self.stalled = 0
+
+    def report_omega(self, omega: Optional[float], it: int) -> None:
+        """Threshold a precomputed ω estimate.  Called only on checks that
+        did NOT converge: a solve that just met its tolerance must not be
+        failed (strict mode) by the same tiny β that delivered it."""
+        if omega is None or not obs_health.probes_enabled():
+            return
+        if omega >= obs_health.OMEGA_CRITICAL:
+            obs_health.record("orthogonality_loss", "critical",
+                              solver=self.solver, iter=int(it),
+                              omega=float(omega))
+        elif omega >= obs_health.OMEGA_WARN:
+            obs_health.record("orthogonality_loss", "warn",
+                              solver=self.solver, iter=int(it),
+                              omega=float(omega))
+
+    def check_stagnation(self, res, it: int) -> None:
+        if not obs_health.probes_enabled():
+            return
+        cur = float(np.max(np.atleast_1d(res)))
+        if not np.isfinite(cur):
+            obs_health.record("nonfinite_residual", "critical",
+                              solver=self.solver, iter=int(it), residual=cur)
+            return
+        if cur < 0.99 * self.best_res:
+            self.best_res = cur
+            self.stalled = 0
+            return
+        self.stalled += 1
+        if self.stalled >= self.STALL_CHECKS:
+            obs_health.record("ritz_stagnation", "warn", solver=self.solver,
+                              iter=int(it), residual=cur,
+                              checks_without_progress=self.stalled)
+            self.stalled = 0
+
+    def breakdown(self, it: int, beta: float, converged: bool) -> None:
+        """β-breakdown: the Krylov space closed.  Converged closure is the
+        happy path (exact invariant subspace — no event); an UNCONVERGED
+        breakdown means the solve cannot reach the tolerance and is
+        critical."""
+        if not obs_health.probes_enabled() or converged:
+            return
+        obs_health.record("beta_breakdown", "critical", solver=self.solver,
+                          iter=int(it), beta=float(beta))
 
 
 class _OmegaTracker:
@@ -311,6 +508,7 @@ def _run_window(mv, V, alph, bet, m0: int, nsteps: int, red=None) -> None:
         W = torch.cat([W[1:], vnew[None]])
 
 
+@solve_span("lanczos")
 def lanczos(
     matvec: Callable,
     n: Optional[int] = None,
@@ -356,10 +554,8 @@ def lanczos(
     refuse_checkpoint(checkpoint_path)
     red = rank_reducer(matvec)
     ranks = rank_owner(matvec)
-    owner = getattr(matvec, "__self__", None)
-    quantized = (getattr(owner, "mode", None) in ("streamed", "hybrid")
-                 and getattr(owner, "stream_compress", None)
-                 in ("f32", "bf16"))
+    owner = engine_owner(matvec)
+    quantized = quantized_engine(owner)
     if reorth is None:
         # a quantized dictionary rounds the coefficients, so the operator
         # is Hermitian only to that rounding: the ω estimate assumes an
@@ -381,8 +577,7 @@ def lanczos(
         complex_v0 = v0 is not None and (
             v0.is_complex() if isinstance(v0, torch.Tensor)
             else np.iscomplexobj(v0))
-        engine_real = getattr(getattr(matvec, "__self__", None), "real",
-                              True)
+        engine_real = getattr(owner, "real", True)
         dtype = torch.complex128 if complex_v0 or engine_real is False \
             else torch.float64
     if dtype not in (torch.float64, torch.complex128):
@@ -396,9 +591,10 @@ def lanczos(
     v = torch.as_tensor(v0).to(device, dtype)
     shape = v.shape
     nflat = v.numel()
+    guarded = guard_engine(matvec, "lanczos")
 
     def mv(x):
-        y = matvec(x.reshape(shape))
+        y = guarded(x.reshape(shape))
         if y.dtype != dtype:
             raise ValueError(f"matvec returned {y.dtype}; the solver runs "
                              f"in {dtype}")
@@ -413,6 +609,11 @@ def lanczos(
     V[0] = v.reshape(nflat) / _norm(v, red)
     alph_d = torch.zeros(mcap, dtype=torch.float64, device=device)
     bet_d = torch.zeros(mcap, dtype=torch.float64, device=device)
+    # the Krylov workspace in the memory ledger (what an OOM report shows)
+    mem_h = track_workspace(
+        "lanczos", "krylov_basis",
+        V.numel() * V.element_size() + 16 * mcap, rows=mcap + 1)
+    watchdog = _Watchdog("lanczos")
 
     lock_theta = np.zeros(0)
     lock_sigma = np.zeros(0)
@@ -451,18 +652,30 @@ def lanczos(
         used_full = (not selective or pending_full
                      or nsteps < max(check_every // 2, 1))
         pending_full = False
-        if used_full:
-            _run_steps(mv, V, alph_d, bet_d, m, nsteps, red)
-        else:
-            _run_window(mv, V, alph_d, bet_d, m, nsteps, red)
-            om = omega_tr.advance(alph_d.cpu().numpy(), bet_d.cpu().numpy(),
-                                  m + nsteps)
-            if om >= _OMEGA_SQRT_EPS:
-                # semiorthogonality is no longer guaranteed; the window
-                # block wrote only rows above m, so redo it from the same
-                # state with the full sweep (iterations count once)
+        # iteration span: one convergence-check block of nsteps steps (the
+        # engine applies nest inside as apply spans)
+        with obs_trace.span("iteration", kind="iteration",
+                            solver="lanczos", iter=int(total_iters),
+                            steps=int(nsteps)):
+            if used_full:
                 _run_steps(mv, V, alph_d, bet_d, m, nsteps, red)
-                used_full = True
+            else:
+                _run_window(mv, V, alph_d, bet_d, m, nsteps, red)
+                om = omega_tr.advance(alph_d.cpu().numpy(),
+                                      bet_d.cpu().numpy(), m + nsteps)
+        if not used_full and om >= _OMEGA_SQRT_EPS:
+            # semiorthogonality is no longer guaranteed; the window block
+            # wrote only rows above m, so redo it from the same state with
+            # the full sweep (iterations count once).  Level "info": the
+            # scheme working as Ritz pairs converge, not a health problem
+            obs_emit("solver_health", check="selective_reorth_fallback",
+                     level="info", solver="lanczos",
+                     iter=int(total_iters + nsteps), omega=float(om))
+            with obs_trace.span("iteration", kind="iteration",
+                                solver="lanczos", iter=int(total_iters),
+                                steps=int(nsteps), redo=True):
+                _run_steps(mv, V, alph_d, bet_d, m, nsteps, red)
+            used_full = True
         full_sweeps += used_full
         alph = alph_d.cpu().numpy()
         bet = bet_d.cpu().numpy()
@@ -488,11 +701,23 @@ def lanczos(
         T = _projected_matrix(alph, bet, lock_theta, lock_sigma, m)
         theta, S = eigh(T, subset_by_index=(0, kk - 1))
         res = np.abs(bet[m - 1] * S[m - 1, :])
+        omega = obs_health.omega_estimate(alph, bet, max(lo, m - nsteps),
+                                          m) \
+            if obs_health.probes_enabled() else None
         if m >= k and np.all(res < tol * np.maximum(1.0, np.abs(theta))):
             converged = True
             break
+        watchdog.report_omega(omega, total_iters)
         if broke is not None:
+            # the Krylov space closed without meeting the tolerance
+            watchdog.breakdown(total_iters, float(bet[broke]),
+                               converged=False)
             break
+        watchdog.check_stagnation(res, total_iters)
+        # chaos site at the block boundary (inert unless DMT_FAULT arms
+        # it; delay= stretches a solve so a kill lands mid-iteration)
+        faults.check("solver_block", exc=RuntimeError, solver="lanczos",
+                     iter=int(total_iters))
         # safe point: the recurrence state is host-consistent and no
         # collective is in flight; ranks agree on the latch first
         preempt.safe_point("lanczos", total_iters,
@@ -505,6 +730,7 @@ def lanczos(
             device, dtype)
         E = Sj.T @ V[:m]
         evecs = [(e / _norm(e, red)).reshape(shape) for e in E]
+    mem_h.release()
     return LanczosResult(
         eigenvalues=np.asarray(theta[:kk]) if theta is not None
         else np.zeros(0),
@@ -517,6 +743,7 @@ def lanczos(
     )
 
 
+@solve_span("lanczos_block")
 def lanczos_block(
     matvec: Callable,
     n: Optional[int] = None,
@@ -572,7 +799,7 @@ def lanczos_block(
     preemption latch stops the solve at the next block boundary with
     ``Preempted("lanczos_block", columns so far, None)``.
     """
-    owner = getattr(matvec, "__self__", None)
+    owner = engine_owner(matvec)
     ranks = rank_owner(matvec)
     red = None if ranks is None else ranks.reduce_sum
 
@@ -634,13 +861,15 @@ def lanczos_block(
                          f"distributed engine), got shape "
                          f"{tuple(V0.shape)}")
     n, p = V0.shape
+    guarded = guard_engine(matvec, "lanczos_block")
 
     def mv(X):
         # hashed engines take and give [D, M, p]; the dense algebra runs
         # on the flat [D·M, p] view (pad slots are zero by engine
         # invariant).  Width read off X: a column-target solve narrows
         pc = int(X.shape[1])
-        Y = matvec(X.reshape(vec_shape + (pc,))) if vec_shape else matvec(X)
+        Y = guarded(X.reshape(vec_shape + (pc,))) if vec_shape \
+            else guarded(X)
         Y = Y[0] if isinstance(Y, tuple) else Y
         return Y.reshape(-1, pc) if vec_shape else Y
 
@@ -692,28 +921,42 @@ def lanczos_block(
             out.append(e.reshape(vec_shape) if vec_shape else e)
         return out
 
+    # the block basis in the memory ledger, re-pointed as it grows
+    mem_h = track_workspace("lanczos_block", "block_basis",
+                            Q.numel() * Q.element_size(), block_size=int(p))
+    watchdog = _Watchdog("lanczos_block")
+    a_seq: list = []        # scalarized per-step (α, β) for the ω estimate
+    b_seq: list = []
     preempt.ensure_installed()
     j = 0
     while True:
-        # safe point between block steps (the JAX solver's, without its
-        # checkpoint): a preempted solve stops at a block boundary
+        # chaos site and safe point between block steps (the JAX
+        # solver's, without its checkpoint): a preempted solve stops at a
+        # block boundary
+        faults.check("solver_block", exc=RuntimeError,
+                     solver="lanczos_block", iter=int(total))
         preempt.safe_point("lanczos_block", total,
                            ranks.group if ranks is not None else None)
-        Qj = blocks[-1]
-        # step 0 reuses the probe's apply
-        W = (W0 if j == 0 else mv(Qj)).to(dtype)
-        W0 = None
-        A = gram(Qj, W)
-        W = W - Qj @ A
-        if B_list:          # empty right after a narrowing restart
-            W = W - blocks[-2] @ torch.as_tensor(
-                B_list[-1]).to(dev, dtype).conj().T
-        # full reorthogonalization, two passes, locked block included
-        for _ in range(2):
-            for Qi in (() if lock_Y is None else (lock_Y,)) \
-                    + tuple(blocks):
-                W = W - Qi @ gram(Qi, W)
-        Qn, B = qr(W)
+        # iteration span: one block step (p_cur matvec columns + the
+        # block recurrence); the engine apply nests inside
+        with obs_trace.span("iteration", kind="iteration",
+                            solver="lanczos_block", iter=int(total),
+                            block=j):
+            Qj = blocks[-1]
+            # step 0 reuses the probe's apply
+            W = (W0 if j == 0 else mv(Qj)).to(dtype)
+            W0 = None
+            A = gram(Qj, W)
+            W = W - Qj @ A
+            if B_list:          # empty right after a narrowing restart
+                W = W - blocks[-2] @ torch.as_tensor(
+                    B_list[-1]).to(dev, dtype).conj().T
+            # full reorthogonalization, two passes, locked block included
+            for _ in range(2):
+                for Qi in (() if lock_Y is None else (lock_Y,)) \
+                        + tuple(blocks):
+                    W = W - Qi @ gram(Qi, W)
+            Qn, B = qr(W)
         A_list.append(A.cpu().numpy())
         B_list.append(B.cpu().numpy())
         widths.append(p_cur)
@@ -745,6 +988,18 @@ def lanczos_block(
         kk = min(k, m)
         theta, S = eigh(T, subset_by_index=(0, kk - 1))
         res = np.linalg.norm(B_list[-1] @ S[m - widths[-1]:, :], axis=0)
+        mem_h.set(mem_h.paths[0] if mem_h.paths else "",
+                  sum(b.numel() * b.element_size() for b in blocks)
+                  + (0 if lock_Y is None
+                     else lock_Y.numel() * lock_Y.element_size()))
+        # the JAX estimate: scalarized per-step (α, β) of the block
+        # recurrence, the last step's one-step amplification
+        a_seq.append(float(np.max(np.abs(A_list[-1]))))
+        b_seq.append(float(np.min(np.abs(np.diag(B_list[-1])))))
+        omega = obs_health.omega_estimate(
+            np.asarray(a_seq), np.asarray(b_seq),
+            len(b_seq) - 1, len(b_seq)) \
+            if obs_health.probes_enabled() else None
         newly_done = 0
         if targets is None:
             if m >= k and np.all(res < tol * np.maximum(1.0,
@@ -777,12 +1032,15 @@ def lanczos_block(
                 converged = all(t["snapshot"]["converged"]
                                 for t in targets)
                 break
+        watchdog.report_omega(omega, total)
         # breakdown: the Krylov space closed (rank-deficient new block)
         rdiag = np.abs(np.diag(B_list[-1]))
         if rdiag.min() < 1e-12 * max(rdiag.max(), 1.0):
+            watchdog.breakdown(total, float(rdiag.min()), converged=False)
             break
         if total + p_cur > max_iters:
             break
+        watchdog.check_stagnation(res, total)
         if newly_done:
             remaining = [t for t in targets if not t.get("done")]
             p_new = max(len(remaining),
@@ -802,6 +1060,7 @@ def lanczos_block(
                 Q0, _ = qr(_ritz_block(S_r, m))
                 blocks = [Q0.to(dtype)]
                 A_list, B_list, widths = [], [], []
+                a_seq, b_seq = [], []      # ω table resets with the basis
                 lock_theta = np.zeros(0)
                 lock_Y = lock_C = None
                 p_cur = p_new
@@ -824,12 +1083,14 @@ def lanczos_block(
             lock_Y = Y_new
             blocks = [Qn]
             A_list, B_list, widths = [], [], []
+            a_seq, b_seq = [], []      # ω table resets with the basis
             n_restarts += 1
             j += 1
             continue
         blocks.append(Qn)
         j += 1
 
+    mem_h.release()
     m_fin = int(lock_theta.shape[0]) + sum(widths)
     kk = min(k, m_fin) if m_fin else 0
 

@@ -47,6 +47,10 @@ Real sectors only (the JAX solver's (re, im) pair form is not ported);
 checkpoint/resume is not in the port.  The JAX solver checks the
 preemption latch only between the segments it checkpoints; without a
 checkpoint it runs one-shot with no safe point, and so does this one.
+The solve is one ``solve`` span with an ``iteration`` span per LOBPCG
+iteration; its block workspace is in the memory ledger (the JAX
+estimate), and a nonfinite eigenvalue is a critical ``solver_health``
+event (JAX ``_finish``).
 """
 
 from __future__ import annotations
@@ -57,8 +61,12 @@ import numpy as np
 import torch
 
 from ..models.observables import _complex_native
+from ..obs import health as obs_health
+from ..obs import trace as obs_trace
+from ..obs.events import emit as obs_emit
 from ..utils.device import start_device
-from .lanczos import rank_owner, refuse_checkpoint
+from .lanczos import (engine_owner, guard_engine, rank_owner,
+                      refuse_checkpoint, solve_span, track_workspace)
 
 __all__ = ["lobpcg"]
 
@@ -262,42 +270,44 @@ def _lobpcg_standard(A: Callable, X: torch.Tensor, m: int,
     i = 0
     converged = 0
     while i < m and converged < k:
-        # residual basis selection
-        R = _project_out(torch.cat((X, P), dim=1), R, rows)
-        XPR = torch.cat((X, P, R), dim=1)
+        with obs_trace.span("iteration", kind="iteration",
+                            solver="lobpcg", iter=i):
+            # residual basis selection
+            R = _project_out(torch.cat((X, P), dim=1), R, rows)
+            XPR = torch.cat((X, P, R), dim=1)
 
-        # projected eigensolve
-        theta_all, Q = _rayleigh_ritz_orth(A, XPR, rows)
+            # projected eigensolve
+            theta_all, Q = _rayleigh_ritz_orth(A, XPR, rows)
 
-        # eigenvector X extraction
-        B = Q[:, :k]
-        B = B / torch.linalg.vector_norm(B, dim=0, keepdim=True)
-        X = XPR @ B
-        X = X / rows.norms(X)
+            # eigenvector X extraction
+            B = Q[:, :k]
+            B = B / torch.linalg.vector_norm(B, dim=0, keepdim=True)
+            X = XPR @ B
+            X = X / rows.norms(X)
 
-        # difference terms P: concat(0, Q[k:, :k]) orthogonalized against
-        # Q[:, :k] in the standard basis before mapping with XPR, so the
-        # directions come out orthonormal
-        q, _ = torch.linalg.qr(Q[:k, k:].T)
-        diff_rayleigh_ortho = Q[:, k:] @ q
-        P = XPR @ diff_rayleigh_ortho
-        normP = rows.norms(P)
-        P = P / torch.where(normP == 0, 1.0, normP)
+            # difference terms P: concat(0, Q[k:, :k]) orthogonalized against
+            # Q[:, :k] in the standard basis before mapping with XPR, so the
+            # directions come out orthonormal
+            q, _ = torch.linalg.qr(Q[:k, k:].T)
+            diff_rayleigh_ortho = Q[:, k:] @ q
+            P = XPR @ diff_rayleigh_ortho
+            normP = rows.norms(P)
+            P = P / torch.where(normP == 0, 1.0, normP)
 
-        # new residuals
-        AX = A(X)
-        R = AX - theta_all[None, :k] * X
-        resid_norms = rows.norms(R)[0]
+            # new residuals
+            AX = A(X)
+            R = AX - theta_all[None, :k] * X
+            resid_norms = rows.norms(R)[0]
 
-        # convergence by self-consistency of the eigenpair: the residual
-        # against the floating-point error of computing it
-        reltol = rows.norms(AX)[0] + theta_all[:k]
-        reltol = reltol * n
-        reltol = reltol * 10
-        converged = int(torch.sum(resid_norms < tol * reltol))
+            # convergence by self-consistency of the eigenpair: the residual
+            # against the floating-point error of computing it
+            reltol = rows.norms(AX)[0] + theta_all[:k]
+            reltol = reltol * n
+            reltol = reltol * 10
+            converged = int(torch.sum(resid_norms < tol * reltol))
 
-        i += 1
-        theta = theta_all[None, :k]
+            i += 1
+            theta = theta_all[None, :k]
 
     return theta[0, :], X, i
 
@@ -326,6 +336,23 @@ def _host(a) -> np.ndarray:
         else np.asarray(a)
 
 
+def _finish(mem_h, evals, iters: int) -> None:
+    """End-of-solve bookkeeping (JAX ``_finish``): release the ledger
+    entry, emit ``solver_end``, and report nonfinite eigenvalues as a
+    critical ``solver_health`` event."""
+    mem_h.release()
+    vals = [float(v) for v in np.atleast_1d(evals)]
+    obs_emit("solver_end", solver="lobpcg", iters=int(iters),
+             eigenvalues=vals)
+    if vals and not np.all(np.isfinite(vals)) \
+            and obs_health.probes_enabled():
+        obs_health.record(
+            "nonfinite_eigenvalues", "critical", solver="lobpcg",
+            iters=int(iters),
+            count=int(np.sum(~np.isfinite(np.asarray(vals)))))
+
+
+@solve_span("lobpcg")
 def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
            tol: float = 1e-9, seed: int = 0, X0=None,
            checkpoint_path: Optional[str] = None, device=None
@@ -349,7 +376,7 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
     else to ``cuda`` (raising when there is none).
     """
     refuse_checkpoint(checkpoint_path)
-    owner = getattr(matvec, "__self__", None)
+    owner = engine_owner(matvec)
     if owner is not None and _complex_native(owner):
         raise ValueError(
             "lobpcg runs real sectors only (the JAX solver's (re, im) "
@@ -358,9 +385,14 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
     dist = owner is not None and hasattr(owner, "from_hashed")
     dev = owner.device if dist and device is None \
         else start_device(X0, device)
+    guarded = guard_engine(matvec, "lobpcg")
+    # the JAX estimate of the block workspace (X, P, R and their images)
+    mem_h = track_workspace("lobpcg", "block_workspace",
+                            6 * 8 * int(n) * max(int(k), 1),
+                            estimate=True, k=int(k))
 
     def raw_mv(x):
-        y = matvec(x)
+        y = guarded(x)
         return y[0] if isinstance(y, tuple) else y
 
     def run_flipped(mv, X, rows):
@@ -382,7 +414,9 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
         if X0 is None:
             X0 = np.random.default_rng(seed).standard_normal((n, k))
         U0q, _ = np.linalg.qr(_host(X0))
-        return run_flipped(raw_mv, torch.from_numpy(U0q).to(dev), _Rows(n))
+        out = run_flipped(raw_mv, torch.from_numpy(U0q).to(dev), _Rows(n))
+        _finish(mem_h, out[0], out[2])
+        return out
 
     # -- hashed flat space adapters ------------------------------------
     D, M = owner.n_devices, owner.shard_size
@@ -414,4 +448,5 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
     evals, U, iters = run_flipped(
         mv_flat, torch.from_numpy(rows.local_rows(U0q)).to(dev), rows)
     V = owner.from_hashed(U.reshape(lead, M, k))       # [n, k] block order
+    _finish(mem_h, evals, iters)
     return evals, torch.from_numpy(V).to(dev), iters

@@ -245,15 +245,25 @@ def agree_config(cfg: TunedConfig, group=None) -> TunedConfig:
     rank restores a saved config, another re-searches under a freshly
     measured calibration).  Rank 0's knobs win: every rank of a
     :class:`~..parallel.mesh.ShardGroup` all-gathers the fixed-width
-    encoding and decodes row 0."""
+    encoding and decodes row 0.  On any collective failure every rank
+    falls back to its own deterministic search result, which is still
+    one config whenever the inputs matched (never let the agreement
+    mechanism itself be a new failure mode)."""
     if group is None or group.world_size < 2:
         return cfg
-    import torch
+    try:
+        import torch
 
-    vec = torch.tensor(cfg.encode(), dtype=torch.int64, device=group.device)
-    rows = group.all_gather(vec).cpu().numpy()
-    agreed = TunedConfig.decode(rows[0], cfg.mode, priced_ms=cfg.priced_ms,
-                                source=cfg.source)
+        vec = torch.tensor(cfg.encode(), dtype=torch.int64,
+                           device=group.device)
+        rows = group.all_gather(vec).cpu().numpy()
+        agreed = TunedConfig.decode(rows[0], cfg.mode,
+                                    priced_ms=cfg.priced_ms,
+                                    source=cfg.source)
+    except Exception as e:
+        log_warn(f"autotune agreement round failed ({e!r}); "
+                 "using the local deterministic search result")
+        return cfg
     if not agreed.same_knobs(cfg):
         log_warn(f"autotune: adopting rank 0 config "
                  f"{agreed.token()} over local {cfg.token()}")

@@ -9,10 +9,15 @@ via environment variables (``DMT_<NAME>=value``) or programmatically through
 :func:`get_config` / :func:`set_config`.
 
 Every field and every ``DMT_*`` name of the JAX package's config is kept, so
-one environment configures both packages alike.  A field whose subsystem is
-not in the port yet says so in its comment (``port: no effect``); it is
-still parsed, so a run's config identity (flight bundles, ``/healthz``) is
-the same in both packages.  The engines read their unset constructor
+one environment configures both packages alike.  A field that has no effect
+in the port says so in its comment (``port: no effect``): the four TPU
+workarounds (``split_gather``, ``term_loop``, ``complex_pair``,
+``allow_complex_on_tpu``), which never will, and ``artifact_max_gb``, whose
+structure sidecars come with the persistence slice.  They are still parsed,
+so a run's config identity (flight bundles, ``/healthz``) is the same in
+both packages, and each warns once (``log_warn``) when it is set to a value
+other than its default — a warning, not an error, because one environment
+configures both packages.  The engines read their unset constructor
 arguments here, where the JAX engines read them: ``matvec_mode``,
 ``matvec_batch_size``, ``stream_compress``, ``stream_kernel``,
 ``pipeline``, ``hybrid``, ``tune``, ``all_to_all_capacity_factor``,
@@ -43,10 +48,12 @@ __all__ = ["RuntimeConfig", "get_config", "set_config", "update_config"]
 @dataclass
 class RuntimeConfig:
     # -- observability (CommonParameters.chpl:2) ----------------------------
-    display_timings: bool = False          # kDisplayTimings (port: no effect)
+    display_timings: bool = False          # kDisplayTimings: the engines'
+    #   timer trees (utils/timers.py) and the enumeration's timed scopes
+    #   print to stderr
     log_debug: bool = False                # logDebug gating (FFI.chpl:78-80)
-    profile_dir: str = ""                  # non-empty → profiler traces
-    #   (port: no effect; the JAX package's jax.profiler hook)
+    profile_dir: str = ""                  # non-empty → utils/profiling.
+    #   maybe_profile writes a torch.profiler Chrome trace there
     obs: str = "on"                        # telemetry layer (obs/): metrics
     #   registry + structured event sink.  "off" (DMT_OBS=off) disables the
     #   whole layer — every instrument becomes a shared no-op object
@@ -54,11 +61,13 @@ class RuntimeConfig:
     #   (DMT_OBS_DIR): non-empty → append-only JSONL stream per process at
     #   <obs_dir>/rank_<r>/events.jsonl; empty → in-memory only
     health: str = "on"                     # numerical-health watchdog
-    #   (DMT_HEALTH; port: no effect — obs/health.py is not ported)
+    #   (DMT_HEALTH, obs/health.py): "on" logs and continues, "strict"
+    #   raises HealthError on a critical condition, "off" disables probes
     health_every: int = 16                 # engine-apply probe cadence
-    #   (DMT_HEALTH_EVERY; port: no effect)
+    #   (DMT_HEALTH_EVERY): the first and every n-th apply queue the
+    #   output probe (deferred, no synchronization)
     memory_every: int = 64                 # device-memory watermark cadence
-    #   (DMT_MEMORY_EVERY; port: no effect — obs/memory.py is not ported)
+    #   (DMT_MEMORY_EVERY, obs/memory.py): the first and every n-th apply
     trace: str = "on"                      # end-to-end solve tracing
     #   (DMT_TRACE, obs/trace.py): "on" stamps every event's envelope with
     #   trace_id/job_id/span_id and emits one `span` event per closed span;
@@ -79,11 +88,14 @@ class RuntimeConfig:
     #   one apply_phases event (structural counts + measured walls); "off"
     #   keeps matvec_apply and drops the phase events
     profile: str = "off"                   # continuous profiling plane
-    #   (DMT_PROFILE; port: no effect — obs/profile.py is not ported)
+    #   (DMT_PROFILE, obs/profile.py): "sampled" wraps every
+    #   profile_every-th apply in a torch.profiler window (kernel costs,
+    #   obs/kernel_costs.py), "triggered" captures on SLO alerts only
     profile_every: int = 64                # sampled-profile cadence
-    #   (DMT_PROFILE_EVERY; port: no effect)
+    #   (DMT_PROFILE_EVERY)
     profile_overhead_pct: float = 2.0      # measured-overhead budget
-    #   (DMT_PROFILE_OVERHEAD_PCT; port: no effect)
+    #   (DMT_PROFILE_OVERHEAD_PCT): sampling latches off past it after
+    #   two windows
 
     # -- enumeration (CommonParameters.chpl:5-6) ----------------------------
     is_representative_batch_size: int = 10240   # kIsRepresentativeBatchSize
@@ -155,14 +167,16 @@ class RuntimeConfig:
 
     # -- fault tolerance (utils/faults.py / preempt.py, parallel/heartbeat.py)
     fault: str = ""                        # deterministic fault injection
-    #   (DMT_FAULT; port: no effect — utils/faults.py is not ported)
-    io_retries: int = 3                    # bounded I/O read retries (port:
-    #   no effect — no disk tier; the JSON artifacts are read once)
-    io_retry_base_s: float = 0.05          # (port: no effect)
+    #   (DMT_FAULT, utils/faults.py): sites exchange, plan_upload,
+    #   solver_block
+    io_retries: int = 3                    # bounded retries of the
+    #   plan_upload host fetch (utils/faults.with_retries)
+    io_retry_base_s: float = 0.05          # first backoff, doubling
     heartbeat_s: float = 0.0               # cross-rank heartbeat interval
-    #   (DMT_HEARTBEAT_S; port: no effect — parallel/heartbeat.py is not
-    #   ported)
-    heartbeat_timeout_s: float = 120.0     # (port: no effect)
+    #   (DMT_HEARTBEAT_S, parallel/heartbeat.py): the watchdog's default
+    #   interval (2 s while 0); the CLI slice's app starts it when > 0
+    heartbeat_timeout_s: float = 120.0     # a peer's beat older than this
+    #   is a stall: stall_report, flight bundle, exit 76
     preempt: str = "auto"                  # SIGTERM/SIGINT preemption latch
     #   (DMT_PREEMPT): "auto" installs the latch handlers around solves
     #   (the solve service exits EXIT_PREEMPTED=75 so a supervisor
@@ -212,16 +226,40 @@ def _from_env(cfg: RuntimeConfig) -> RuntimeConfig:
     return cfg
 
 
+#: fields the port parses and ignores: the TPU workarounds, and the
+#: structure sidecars' cap (the persistence slice)
+NO_EFFECT = ("split_gather", "term_loop", "complex_pair",
+             "allow_complex_on_tpu", "artifact_max_gb")
+_warned: set = set()
+
+
+def _warn_no_effect(cfg: RuntimeConfig) -> None:
+    """Warn once per field when a field of :data:`NO_EFFECT` is set to a
+    value other than its default."""
+    from .logging import log_warn
+
+    default = RuntimeConfig()
+    for name in NO_EFFECT:
+        value = getattr(cfg, name)
+        if name in _warned or value == getattr(default, name):
+            continue
+        _warned.add(name)
+        log_warn(f"config {name}={value!r} has no effect in the PyTorch "
+                 "port (set for the JAX package)")
+
+
 def get_config() -> RuntimeConfig:
     global _config
     if _config is None:
         _config = _from_env(RuntimeConfig())
+        _warn_no_effect(_config)
     return _config
 
 
 def set_config(cfg: RuntimeConfig) -> None:
     global _config
     _config = cfg
+    _warn_no_effect(cfg)
 
 
 def update_config(**kwargs) -> RuntimeConfig:
@@ -230,4 +268,5 @@ def update_config(**kwargs) -> RuntimeConfig:
         if not hasattr(cfg, k):
             raise AttributeError(f"unknown config field {k!r}")
         setattr(cfg, k, v)
+    _warn_no_effect(cfg)
     return cfg

@@ -236,3 +236,30 @@ def test_lanczos_reorth_from_config(chain10, both_configs):
     tcfg.update_config(lanczos_reorth="sideways")
     with pytest.raises(ValueError, match="reorth"):
         lanczos(eng.matvec, n=eng.n_states, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("split_gather", "on"), ("term_loop", "scan"), ("complex_pair", "on"),
+    ("allow_complex_on_tpu", True), ("artifact_max_gb", 2.0)])
+def test_no_effect_fields_warn_once(both_configs, monkeypatch, field,
+                                    value):
+    """The fields the port ignores warn once when set off their default
+    (one environment configures both packages, so they do not raise);
+    the fields this slice gave effect to do not warn."""
+    import distributed_matvec_tpu_torch.utils.logging as tlog
+
+    warned = []
+    monkeypatch.setattr(tlog, "log_warn", warned.append)
+    monkeypatch.setattr(tcfg, "_warned", set())
+    assert field in tcfg.NO_EFFECT
+    tcfg.get_config()
+    assert warned == []                       # defaults: silent
+    tcfg.update_config(**{field: value})
+    tcfg.update_config(**{field: value})
+    assert len(warned) == 1 and field in warned[0]
+    tcfg.update_config(health="strict", profile="sampled", fault="x",
+                       heartbeat_s=1.0, display_timings=True)
+    assert len(warned) == 1
+    assert set(tcfg.NO_EFFECT) == {"split_gather", "term_loop",
+                                   "complex_pair", "allow_complex_on_tpu",
+                                   "artifact_max_gb"}

@@ -453,3 +453,71 @@ def test_served_streamed_job_on_card(cuda, tmp_path):
     np.testing.assert_allclose(recs["cuda"]["eigenvalues"],
                                recs["cpu"]["eigenvalues"], rtol=1e-13,
                                atol=0)
+
+
+def test_health_probe_resolves_at_a_later_apply_on_card(cuda, monkeypatch):
+    """On the card the probe's scalars land in pinned host memory behind a
+    CUDA event: the apply that queued them reads nothing, and a NaN in x
+    is reported by a later apply's drain (or a blocking drain) — with no
+    ``synchronize`` inside either apply."""
+    from distributed_matvec_tpu_torch import obs
+    from distributed_matvec_tpu_torch.obs import health
+    from distributed_matvec_tpu_torch.utils.config import update_config
+
+    monkeypatch.setenv("DMT_PHASES", "off")   # its end-of-apply wait
+    monkeypatch.delenv("DMT_HEALTH", raising=False)
+    op = heisenberg_chain(16, symmetric=True)
+    eng = LocalEngine(op, device=cuda)
+    x = torch.randn(op.basis.number_states, dtype=torch.float64,
+                    device=cuda)
+    x[5] = float("nan")
+    obs.reset_all()
+    saved = update_config().health_every
+    update_config(health_every=1)
+    calls = []
+    orig = torch.cuda.Stream.synchronize
+    try:
+        torch.cuda.Stream.synchronize = \
+            lambda self: calls.append(1) or orig(self)
+        eng.matvec(x)
+        eng.matvec(x.nan_to_num())
+    finally:
+        torch.cuda.Stream.synchronize = orig
+        update_config(health_every=saved)
+    health.drain(block=True)
+    evs = obs.events("health")
+    assert evs and evs[0]["check"] == "nonfinite_output"
+    assert evs[0]["apply"] == 0
+    assert calls == []
+
+
+def test_oom_on_card_becomes_oom_error(cuda):
+    """A real allocation failure in a build is ``OomError`` with a report
+    whose watermark reads the card, and the ballast in the ledger."""
+    from distributed_matvec_tpu_torch.obs import memory
+
+    op = heisenberg_chain(24, symmetric=True)
+    op.basis.build()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(cuda)
+    ballast = torch.empty(max(free - (64 << 20), 0), dtype=torch.uint8,
+                          device=cuda)
+    h = memory.track("ballast", ballast.numel(), device="device")
+    try:
+        with pytest.raises(memory.OomError) as exc_info:
+            LocalEngine(op, device=cuda)
+        rep = exc_info.value.report
+    finally:
+        h.release()
+        del ballast
+        torch.cuda.empty_cache()
+    assert rep["ledger"]["children"]["ballast"]["bytes"] > 0
+    assert rep["watermark"]["bytes_free"] >= 0 and rep["remediation"]
+
+
+def test_decode_kernel_attributes(cuda):
+    from distributed_matvec_tpu_torch.ops import cuda_kernels
+
+    a = cuda_kernels.kernel_attributes(16, False)
+    assert a["num_regs"] > 0 and a["max_threads_per_block"] >= 128
+    assert set(a) == set(cuda_kernels.ATTRIBUTE_FIELDS)

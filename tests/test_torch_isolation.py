@@ -23,6 +23,29 @@ def _modules():
         port.__path__, "distributed_matvec_tpu_torch.")]
 
 
+#: the fault-tolerance and obs modules (their JAX source by module)
+SLICE_11 = {"utils.timers": "utils/timers.py",
+            "utils.profiling": "utils/profiling.py",
+            "utils.faults": "utils/faults.py",
+            "parallel.heartbeat": "parallel/heartbeat.py",
+            "parallel.engine_obs": "parallel/engine.py",
+            "obs.health": "obs/health.py",
+            "obs.memory": "obs/memory.py",
+            "obs.profile": "obs/profile.py",
+            "obs.kernel_costs": "obs/hlo.py"}
+
+
+@pytest.mark.parametrize("sub", sorted(SLICE_11))
+def test_copied_module_names_its_source(sub):
+    """Each module copied from the JAX package names its source on its
+    first line."""
+    path = os.path.join(PKG, *sub.split(".")) + ".py"
+    with open(path, encoding="utf-8") as f:
+        first = f.readline()
+    assert first.startswith("# Ported from distributed_matvec_tpu/"
+                            + SLICE_11[sub]), first
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "ml_dtypes", "distributed_matvec_tpu")
@@ -34,7 +57,8 @@ def test_import_pulls_in_no_jax():
     assert "distributed_matvec_tpu_torch.parallel.mesh" in mods
     for sub in ("serve.capacity", "serve.scheduler", "serve.service",
                 "obs.export", "obs.flight", "utils.config",
-                "utils.preempt", "utils.logging", "apps.solve_service"):
+                "utils.preempt", "utils.logging", "apps.solve_service",
+                *SLICE_11):
         assert f"distributed_matvec_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

@@ -181,6 +181,35 @@ def test_span_parentage_and_job_scope(clean):
     assert tobs.open_spans() == []
 
 
+def test_span_ids_unique_with_one_random_draw(clean, monkeypatch):
+    """Span ids keep the JAX form ``<ordinal hex>-<4 hex>`` and stay
+    unique, but the random hex is drawn once per process (and again after
+    a reset), not once per span: ``os.urandom`` is slow on some hosts."""
+    import re
+
+    from distributed_matvec_tpu_torch.obs import trace
+
+    tobs.trace_id()
+    draws = []
+    orig = trace._rand_id
+
+    def counting(nbytes=8):
+        draws.append(nbytes)
+        return orig(nbytes)
+    monkeypatch.setattr(trace, "_rand_id", counting)
+    ids = []
+    for _ in range(50):
+        with tobs.span("apply", kind="apply"):
+            ids.append(tobs.current_span_id())
+    assert len(set(ids)) == 50
+    assert all(re.fullmatch(r"[0-9a-f]+-[0-9a-f]{4}", i) for i in ids)
+    assert draws == [2]
+    tobs.reset_trace()
+    with tobs.span("apply", kind="apply"):
+        pass
+    assert draws.count(2) == 2
+
+
 def test_jsonl_sink_and_trace_id_agreement(clean, monkeypatch, tmp_path):
     run = tmp_path / "run"
     monkeypatch.setenv("DMT_OBS_DIR", str(run))

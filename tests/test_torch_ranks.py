@@ -611,3 +611,41 @@ def test_rank_tune_agrees_config_and_rekey(ranks):
     for o in outs:
         assert o["live"]["retunes"] == [o["live"]["token"]]
         np.testing.assert_array_equal(o["live"]["y"], o["twin_y"])
+
+
+def test_rank_wrapped_matvec_raises_on_every_rank(ranks):
+    """ROADMAP Queue 3 item 1, the rank probe: a wrapped rank engine's
+    matvec no longer gives rank 0 a shard-local E0 (−20.498) and leaves
+    rank 1 in a collective — ``lanczos`` and ``lanczos_block`` raise on
+    both ranks at their first apply, and the ranks meet in the next
+    collective; the bound method gives the ring E0."""
+    outs = [o["wrapped"] for o in ranks[2]]
+    for o in outs:
+        assert o["bound"] / 4 == pytest.approx(RING_12_E0_OVER_4, abs=1e-9)
+        assert len(o["errors"]) == 2
+        for msg in o["errors"]:
+            assert msg is not None and "rank engine" in msg
+            assert "bound eng.matvec" in msg
+        assert o["after"] == 2.0
+    assert outs[0]["bound"] == outs[1]["bound"]
+
+
+def test_agree_config_falls_back_on_collective_failure(monkeypatch):
+    """``tune.agree_config`` returns the rank's own config when its
+    all-gather raises (JAX ``tune/search.py:244-273``), with a warning."""
+    from distributed_matvec_tpu_torch import tune
+
+    class Group:
+        world_size, rank, device = 2, 0, torch.device("cpu")
+
+        def all_gather(self, t):
+            raise RuntimeError("connection closed by peer")
+
+    cfg = tune.TunedConfig(mode="streamed", batch_size=1024,
+                           pipeline_depth=2, stream_compress="lossless",
+                           hybrid_split="-", priced_ms=1.0, source="search")
+    warned = []
+    monkeypatch.setattr(sys.modules["distributed_matvec_tpu_torch.tune."
+                                    "search"], "log_warn", warned.append)
+    assert tune.agree_config(cfg, Group()) is cfg
+    assert warned and "agreement round failed" in warned[0]

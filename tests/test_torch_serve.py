@@ -828,3 +828,50 @@ def test_dynamics_results_carry_rates(chain12):
     if ev.num_steps > 1:
         assert ev.steady_steps_per_s == pytest.approx(
             (ev.num_steps - 1) / ev.steady_seconds)
+
+
+def test_serve_over_two_ranks(tmp_path):
+    """JAX ``tests/test_serve.py::test_multihost_serve_two_ranks`` on the
+    port: two gloo ranks (``torch_rank_worker.py ... serve``) drain two
+    same-basis ell jobs through ``EnginePool(group=)`` one per batch —
+    on each rank builds 1, hits 1 and one ``engine_init``, both jobs done
+    with the 12-ring's E0, the same bits on both ranks."""
+    import subprocess
+    import sys as _sys
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_rank_worker.py")
+    root = os.path.dirname(os.path.dirname(worker))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    for k in ("DMT_OBS_DIR", "DMT_OBS"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [_sys.executable, worker, str(r), "2",
+         f"file://{tmp_path / 'rendezvous'}", str(tmp_path), "serve"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=root) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=120)
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise
+    got = []
+    for r, (p, log) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+        rec = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert rec["jax_imported"] == []
+        got.append(rec["serve"])
+    for s in got:
+        assert s["done"] == 2 and s["statuses"] == ["done", "done"]
+        assert (s["builds"], s["hits"], s["evictions"]) == (1, 1, 0)
+        assert s["engine_init"] == 1
+        assert s["live"] == 2
+        assert s["pool_events"].count("build") == 1
+        assert s["pool_events"].count("hit") == 1
+        for e0 in s["e0"]:
+            assert e0 / 4 == pytest.approx(-5.3873909174, abs=1e-7)
+    assert got[0]["e0"] == got[1]["e0"]

@@ -20,6 +20,7 @@ Tolerances:
   JAX's (the same algorithm, other rounding).
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -35,6 +36,7 @@ from distributed_matvec_tpu.solve import lobpcg as jax_lobpcg
 from distributed_matvec_tpu.utils.config import get_config, update_config
 import distributed_matvec_tpu_torch as port
 from distributed_matvec_tpu_torch import (DistributedEngine, LocalEngine,
+                                          kpm_moments, krylov_evolve,
                                           lanczos, lanczos_block, lobpcg)
 from distributed_matvec_tpu_torch.convert import (operator_arrays,
                                                   operator_from_reference)
@@ -439,3 +441,67 @@ def test_lanczos_keeps_selective_on_lossless(chain14_tiers):
     assert res.num_iters == sel.num_iters
     assert res.full_sweeps == sel.full_sweeps < res.num_iters // 16
     assert abs(res.eigenvalues[0] - e0) < 1e-10
+
+
+WRAPS = {
+    "lambda": lambda eng: (lambda v: eng.matvec(v)),
+    "shift": lambda eng: (lambda v: eng.matvec(v) - 0.5 * v),
+    "partial": lambda eng: functools.partial(eng.matvec, check=None),
+}
+
+
+@pytest.mark.parametrize("wrap", sorted(WRAPS))
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+def test_wrapped_quantized_matvec_raises(chain14_tiers, tier, wrap):
+    """ROADMAP Queue 3 item 1, the quantized probe: a wrapped bf16 engine's
+    matvec hid the engine from ``lanczos``, which then ran the selective
+    scheme and returned −194.874 (the bound method: −23.823).  Now the
+    solver meets the engine at its first apply and raises, naming the
+    engine and the bound matvec; every solver alike."""
+    e0, engines = chain14_tiers
+    eng = engines[tier]
+    mv = WRAPS[wrap](eng)
+    M = eng.shard_size
+    calls = {"n": 0}
+
+    def counted(v):
+        calls["n"] += 1
+        return mv(v)
+
+    for solve in (
+            lambda: lanczos(counted, v0=eng.random_hashed(0), k=1,
+                            tol=1e-10, device="cpu"),
+            # flat [M, p] blocks through a reshaping wrapper
+            lambda: lanczos_block(
+                lambda X: counted(X.reshape(1, M, -1)).reshape(M, -1),
+                k=1, block_size=2, device="cpu",
+                V0=eng.random_hashed(0, cols=2).reshape(M, 2)),
+            lambda: kpm_moments(counted, n_moments=8,
+                                V0=eng.random_hashed(0, cols=1),
+                                bounds=(-30.0, 10.0), device="cpu"),
+            lambda: krylov_evolve(counted, psi0=eng.random_hashed(0),
+                                  t_final=0.1, device="cpu")):
+        calls["n"] = 0
+        with pytest.raises(ValueError, match=f"stream_compress='{tier}'.*"
+                                             "bound eng.matvec"):
+            solve()
+        assert calls["n"] == 1                  # after the first apply
+    # the bound method is untouched: the repaired value
+    res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device="cpu")
+    assert abs(res.eigenvalues[0] - e0) <= 1e-2 * abs(e0)
+
+
+def test_wrapped_lossless_and_local_matvecs_still_run(chain14_tiers):
+    """Wrapping an engine the guard does not concern (lossless streamed,
+    ``LocalEngine``) keeps working: the same E0 bits and iterations as the
+    bound method."""
+    e0, engines = chain14_tiers
+    eng = engines["lossless"]
+    ref = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1, tol=1e-10,
+                  device="cpu")
+    got = lanczos(lambda v: eng.matvec(v), v0=eng.random_hashed(0), k=1,
+                  tol=1e-10, device="cpu")
+    assert got.eigenvalues[0] == ref.eigenvalues[0]
+    assert got.num_iters == ref.num_iters
+    assert abs(got.eigenvalues[0] - e0) < 1e-10

@@ -1,15 +1,18 @@
 """One rank of a CPU ``DistributedEngine`` rank group, for
 ``test_torch_ranks.py``.
 
-    python tests/torch_rank_worker.py RANK WORLD INIT_METHOD OUT_DIR
+    python tests/torch_rank_worker.py RANK WORLD INIT_METHOD OUT_DIR [serve]
 
 Starts a gloo group on the CPU, builds every case of ``CASES[WORLD]`` as a
 rank engine (one shard per process), runs the checks' inputs through it —
 plan and tables, matvec (sequential and pipelined), Lanczos, the block
 solvers, KPM, Krylov evolution, bound observables and the fused-capacity
 overflow — then, at W = 2, the streamed engine's other forms (``FORMS``)
-a codec mismatch and the self-tuning runtime (``run_tune``) — and saves
-what it saw to ``OUT_DIR/rank{RANK}.pt``.
+a codec mismatch, the self-tuning runtime (``run_tune``) and a wrapped
+matvec (``run_wrapped``) — and saves what it saw to
+``OUT_DIR/rank{RANK}.pt``.  With ``serve`` it runs only the solve service
+over the group (``run_serve``, the JAX ``tests/multihost_worker.py``
+serve leg).
 It imports the port only, never JAX; the parent test compares against both
 packages.
 """
@@ -429,9 +432,78 @@ def run_tune(g, out_dir):
     return out
 
 
+def run_wrapped(g):
+    """ROADMAP Queue 3 item 1, the rank probe: ``lanczos`` on a wrapped
+    rank engine's matvec summed its dots over this rank's shard only
+    (−20.498 on rank 0 at chain_12_symm, −21.550 with the bound method)
+    and left rank 1 in a collective.  Now every rank raises at the first
+    apply; a collective right after shows no rank was left behind.
+    Records (bound E0, the error message, the check sum)."""
+    from distributed_matvec_tpu_torch import (DistributedEngine, lanczos,
+                                              lanczos_block)
+
+    op = build_op(12, 6, 1, SYMS_12_K0)
+    eng = DistributedEngine(op, mode="ell", batch_size=32, group=g,
+                            device="cpu")
+    M = eng.shard_size
+    out = {"bound": float(lanczos(eng.matvec, v0=eng.random_hashed(1),
+                                  tol=1e-12).eigenvalues[0])}
+    errors = []
+    for solve in (lambda: lanczos(lambda v: eng.matvec(v),
+                                  v0=eng.random_hashed(1), tol=1e-12),
+                  # flat [M, p] blocks through a reshaping wrapper
+                  lambda: lanczos_block(
+                      lambda X: eng.matvec(X.reshape(1, M, -1)).reshape(
+                          M, -1), k=1, block_size=2,
+                      V0=eng.random_hashed(1, cols=2).reshape(M, 2))):
+        try:
+            solve()
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    out["after"] = float(g.all_reduce(torch.ones((), dtype=torch.float64)))
+    return out
+
+
+def run_serve(g):
+    """The solve service over the group (JAX ``EnginePool(mesh=)``): two
+    same-basis ell ``eigs`` jobs drained one per batch
+    (``block_width=1``), so the second comes from the pool — builds 1,
+    hits 1, one ``engine_init`` — and both E0s recorded."""
+    from distributed_matvec_tpu_torch import obs
+    from distributed_matvec_tpu_torch.serve import (EnginePool, JobQueue,
+                                                    JobSpec, Scheduler)
+
+    inits = len(obs.events("engine_init"))
+    pool = EnginePool(group=g)
+    sched = Scheduler(queue=JobQueue(), pool=pool, rates=None,
+                      block_width=1)
+    specs = [JobSpec(job_id=f"mh{i}",
+                     basis={"number_spins": 12, "hamming_weight": 6},
+                     k=1, tol=1e-9, max_iters=200, mode="ell",
+                     n_devices=g.world_size) for i in range(2)]
+    for s in specs:
+        sched.submit(s)
+    n_done = sched.drain(scan_spool=False)
+    recs = [sched.queue.result(s.job_id) for s in specs]
+    return {"done": n_done, "builds": pool.builds, "hits": pool.hits,
+            "evictions": pool.evictions,
+            "statuses": [r["status"] for r in recs],
+            "e0": [r["eigenvalues"][0] for r in recs],
+            "engine_init": len(obs.events("engine_init")) - inits,
+            "live": pool.live_device_count(),
+            "pool_events": [e["event"] for e in obs.events("engine_pool")]}
+
+
+class _Done(Exception):
+    """The one leg asked for has run."""
+
+
 def main(argv):
     rank, world, init_method, out_dir = (int(argv[1]), int(argv[2]),
                                          argv[3], argv[4])
+    leg = argv[5] if len(argv) > 5 else "all"
     torch.set_num_threads(1)
     sys.path.insert(0, ROOT)
     import warnings
@@ -443,6 +515,9 @@ def main(argv):
                          timeout_s=TIMEOUT_S)
     out = {"rank": rank, "world": world, "seconds": {}}
     try:
+        if leg == "serve":
+            out["serve"] = run_serve(g)
+            raise _Done
         out["wire"] = run_wire(g)
         for name, spec in CASES[world].items():
             t0 = time.perf_counter()
@@ -451,15 +526,18 @@ def main(argv):
         if world == 2:
             out["forms"] = run_forms(g)
             out["tune"] = run_tune(g, out_dir)
+            out["wrapped"] = run_wrapped(g)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             out["overflow"] = run_overflow(g)
         out["preempt"] = run_preempt(g)
-        out["jax_imported"] = sorted(
-            m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "distributed_matvec_tpu"))
+    except _Done:
+        pass
     except Exception:
         out["error"] = traceback.format_exc()
+    out["jax_imported"] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "distributed_matvec_tpu"))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     import torch.distributed as dist
 
