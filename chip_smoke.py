@@ -269,12 +269,42 @@ rejected``) and every ``job:`` span a child of a ``serve_batch`` span in
 ``rank_0/events.jsonl``; the decode kernel against its plain version on
 one of the served engine's chunks.  Then the service process
 (``python -m distributed_matvec_tpu_torch.apps.solve_service``) with two
-ell jobs on chain_30_symm (cut to fit the time limit) gets SIGTERM once
-they run: exit 75, both specs still in ``queue/``, ``done/`` empty; the
-same argv again exits 0 with E0s within 1e-10 of an in-process solve of
-the same operator.  Prints per-job latency, build seconds per
-engine, the batch's seconds, block applies and share outside them, the
-streamed apply's ms, and the seconds from SIGTERM to exit.
+ell jobs on chain_24_symm (cut to fit the time limit; each solver block
+of this process stretched by ``DMT_FAULT=solver_block:delay=300``) gets
+SIGTERM once they run: exit 75, both specs still in ``queue/``, ``done/``
+empty; the same argv again, without the delay, exits 0 with E0s within
+1e-10 of an in-process solve of the same operator.  Prints per-job
+latency, build seconds per engine, the batch's seconds, block applies and
+share outside them, the streamed apply's ms, and the seconds from SIGTERM
+to exit.
+
+``apps`` runs after ``streamed_complex``: the two command lines of the
+port.  Where ``yaml`` or ``h5py`` does not import (the phase's line says
+which do), ``python -m distributed_matvec_tpu_torch.apps.diagonalize`` on
+chain_32_symm's YAML text must exit non-zero within 20 s with the JAX
+package's message for the first one missing, before any enumeration and
+without an output file; where both import, its ``main`` runs end to end
+on chain_16_symm into a temporary directory (E0/4 within 1e-9 of the
+anchor, the file read back).  Then a ``Config`` built from the
+chain_32_symm dict through the YAML loader's ``basis_from_dict`` and
+``operator_from_dict`` (the dict ``chain_config`` gives, which the CPU
+tests hold to the YAML text and to ``heisenberg_chain(32,
+symmetric=True)``), enumerated once, through the diagonalize solve
+function: ``mode="streamed"`` (``lossless``), k = 1, tol 1e-10, E0 within
+1e-10 of the ``full`` leg's, residual below 1e-8, the eigenvector in
+block order, the decode kernel's launches counted from 0 around the call
+equal to 72 × the columns applied; then ``mode="ell"`` on the same
+``Config``, E0 within 1e-10.  The dynamics solve function: ``kpm`` (64
+moments, 4 vectors) on a streamed engine of tiers' chain_30_symm with the
+card's atomic receive side, its moments within 1e-12·|μ0| of
+``kpm_moments`` called directly on the same engine with the same seed;
+then on chain_26_symm with its moments bit-equal to the direct call (both
+under ``torch.use_deterministic_algorithms``, whose receive side costs
+≈ 38× the atomic one: cut from chain_30_symm to fit the time limit);
+each with its decode launches counted (one per plan chunk per column
+applied); ``evolve`` on
+chain_16_symm equal to ``krylov_evolve`` called directly, its norm drift
+below 1e-12.  Its decode launches are ``launches_apps``.
 
 ``local_small`` runs after ``small``: chain_16_symm through ``LocalEngine``
 in ``ell``, ``compact`` and ``fused`` mode at ``batch_size=61`` (chunking
@@ -285,10 +315,11 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
 of ``full``, ``solvers``, ``resilience``, ``serve``, ``sharded``,
-``pipeline``, ``tiers``, ``ranks`` and ``costmodel``, and apart at one
-shard, at four, in the pipelined applies, in the quantized tiers, on the
-ranks (the served streamed job's included), under the service, in the
-resilience leg and on the autotuned engines;
+``pipeline``, ``tiers``, ``ranks``, ``apps`` and ``costmodel``, and apart
+at one shard, at four, in the pipelined applies, in the quantized tiers,
+on the ranks (the served streamed job's included), under the service, in
+the resilience leg, in the two apps' solve functions and on the autotuned
+engines;
 largest error against the plain version, time per launch beside its bound
 and the plain version's time, at one shard and at four), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -1595,25 +1626,36 @@ def _service_argv(spool, run_dir, hbm_gb):
             "--drain", "--obs-dir", run_dir, "--hbm-gb", repr(hbm_gb)]
 
 
+#: the serve SIGTERM leg's ring (cut from chain_{CUT_N}_symm to fit the
+#: time limit), and the delay each solver block takes in the first service
+#: process, so that SIGTERM finds its jobs running
+SERVE_PREEMPT_N = 24
+SERVE_PREEMPT_FAULT = "solver_block:delay=300:n=100000"
+
+
 def serve_preempt_leg(device, tmp, hbm_gb):
     """The service process under SIGTERM: two ell eigs jobs on
-    chain_{CUT_N}_symm (cut from chain_32_symm to fit the time limit: each
-    process enumerates its basis), SIGTERM once both run, exit 75 with
-    both still spooled, then the same argv again drains them to the E0 of
+    chain_{SERVE_PREEMPT_N}_symm (cut from chain_32_symm, then from
+    chain_{CUT_N}_symm, to fit the time limit: each process enumerates its
+    basis), every solver block of the first process stretched by
+    ``SERVE_PREEMPT_FAULT``; SIGTERM once both run, exit 75 with both still
+    spooled, then the same argv again (no fault) drains them to the E0 of
     an in-process ``LocalEngine`` solve of the same operator (1e-10)."""
     import signal as _signal
 
     from distributed_matvec_tpu_torch import LocalEngine, lanczos
+    from distributed_matvec_tpu_torch.models.lattices import heisenberg_chain
     from distributed_matvec_tpu_torch.serve import JobSpec, submit_to_spool
 
-    op, _ = cut_operator()
+    op = heisenberg_chain(SERVE_PREEMPT_N, symmetric=True)
+    op.basis.build()
     n_states = int(op.basis.number_states)
     ref = LocalEngine(op, device=device)
     e0_served = float(lanczos(ref.matvec, n=n_states, k=1, tol=1e-10,
                               device=device).eigenvalues[0])
     del ref, op
     release(device)
-    basis = _chain32_basis(CUT_N)
+    basis = _chain32_basis(SERVE_PREEMPT_N)
     spool, run_dir = os.path.join(tmp, "spool_pre"), \
         os.path.join(tmp, "run_pre")
     for i in range(2):
@@ -1627,8 +1669,9 @@ def serve_preempt_leg(device, tmp, hbm_gb):
     out = {}
     t0 = time.perf_counter()
     with open(os.path.join(tmp, "preempt_log.txt"), "w") as log:
-        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
-                                stderr=subprocess.STDOUT)
+        proc = subprocess.Popen(argv, cwd=ROOT,
+                                env=dict(env, DMT_FAULT=SERVE_PREEMPT_FAULT),
+                                stdout=log, stderr=subprocess.STDOUT)
         try:
             deadline = time.monotonic() + 300
             while True:
@@ -1676,7 +1719,7 @@ def serve_preempt_leg(device, tmp, hbm_gb):
         if rec["status"] != "done":
             raise AssertionError(f"relaunched pre{i}: {rec['status']}")
         e0s.append(rec["eigenvalues"][0])
-    out["n"] = CUT_N
+    out["n"] = SERVE_PREEMPT_N
     out["e0"] = e0s
     out["e0_in_process"] = e0_served
     out["e0_minus_served"] = [e - e0_served for e in e0s]
@@ -3366,6 +3409,259 @@ def streamed_complex_phase(device, n=None):
     return info
 
 
+# -- the apps phase ----------------------------------------------------------------
+
+#: the dynamics leg's sizes: KPM on tiers' chain_{CUT_N}_symm with the
+#: card's atomic receive side, its moments held to a direct call within
+#: APPS_KPM_RTOL·|μ0|, and again bit for bit on chain_26_symm (that check
+#: runs under deterministic algorithms, whose receive-side sums cost
+#: ≈ 0.77 s per apply at chain_{CUT_N}_symm); evolve on chain_16_symm
+APPS_KPM_N = 26
+APPS_KPM_RTOL = 1e-12
+APPS_KPM_MOMENTS = 64
+APPS_KPM_VECTORS = 4
+APPS_EVOLVE_N = 16
+APPS_EVOLVE_T = 0.5
+#: the CLI's refusal where yaml or h5py is missing must come within this,
+#: with the message the JAX package gives
+APPS_REFUSAL_S = 20.0
+APPS_MISSING_MESSAGE = {"yaml": "No module named 'yaml'",
+                        "h5py": "h5py is required for HDF5 I/O"}
+
+
+def chain_config(n):
+    """``heisenberg_chain(n, symmetric=True)`` as the dict its YAML config
+    loads to (the ``*_symm`` schema: translation and reflection generators
+    in sector 0, spin inversion 1, σσ terms on the ring's edges)."""
+    edges = [[i, (i + 1) % n] for i in range(n)]
+    return {"basis": {"number_spins": n, "hamming_weight": n // 2,
+                      "spin_inversion": 1,
+                      "symmetries": [
+                          {"permutation": [(i + 1) % n for i in range(n)],
+                           "sector": 0},
+                          {"permutation": [n - 1 - i for i in range(n)],
+                           "sector": 0}]},
+            "hamiltonian": {"name": "H", "terms": [
+                {"expression": f"σ{a}₀ σ{a}₁", "sites": edges}
+                for a in "ˣʸᶻ"]}}
+
+
+def chain_yaml(n) -> str:
+    """:func:`chain_config` as YAML text (JSON is YAML: no ``yaml``
+    package is needed to write it)."""
+    return json.dumps(chain_config(n), ensure_ascii=False, indent=1)
+
+
+def chain_cfg(n):
+    """A port ``Config`` from :func:`chain_config` through the YAML
+    loader's dict builders, its basis enumerated; (cfg, seconds)."""
+    from distributed_matvec_tpu_torch.models.yaml_io import (
+        Config, basis_from_dict, operator_from_dict)
+
+    d = chain_config(n)
+    basis = basis_from_dict(d["basis"])
+    cfg = Config(basis=basis,
+                 hamiltonian=operator_from_dict(d["hamiltonian"], basis))
+    t0 = time.perf_counter()
+    basis.build()
+    return cfg, time.perf_counter() - t0
+
+
+def importable(name) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def app_refusal_leg(device, tmp, missing):
+    """The diagonalize CLI in a subprocess on a YAML file where ``missing``
+    (yaml first, as the app reads it first) cannot be imported: a nonzero
+    exit naming it, before any enumeration, within APPS_REFUSAL_S."""
+    path = os.path.join(tmp, "chain32.yaml")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(chain_yaml(32))
+    out = os.path.join(tmp, "refused.h5")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "distributed_matvec_tpu_torch.apps.diagonalize",
+         path, "-o", out, "--device", device.type], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    secs = time.perf_counter() - t0
+    last = (p.stderr.strip().splitlines() or [""])[-1]
+    if p.returncode == 0 or APPS_MISSING_MESSAGE[missing] not in p.stderr \
+            or "basis:" in p.stdout or os.path.exists(out) \
+            or secs > APPS_REFUSAL_S:
+        raise AssertionError(
+            f"diagonalize without {missing}: rc {p.returncode} in "
+            f"{secs:.1f} s, stdout {p.stdout[-400:]!r}, stderr "
+            f"{p.stderr[-400:]!r}")
+    return {"missing": missing, "rc": p.returncode, "seconds": secs,
+            "stderr_last_line": last}
+
+
+def apps_main_leg(device, tmp):
+    """Where yaml and h5py both import: the diagonalize CLI's ``main`` end
+    to end on chain_16_symm into ``tmp``, the file read back."""
+    import h5py
+    import numpy as np
+
+    from distributed_matvec_tpu_torch.apps import diagonalize
+
+    path = os.path.join(tmp, "chain16.yaml")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(chain_yaml(16))
+    out = os.path.join(tmp, "chain16.h5")
+    t0 = time.perf_counter()
+    rc = diagonalize.main([path, "-o", out, "--device", device.type,
+                           "--mode", "streamed"])
+    secs = time.perf_counter() - t0
+    with h5py.File(out, "r") as f:
+        e0 = float(f["hamiltonian/eigenvalues"][0])
+        vec = f["hamiltonian/eigenvectors"][...]
+        n_reps = int(f["basis/representatives"].shape[0])
+    if rc != 0 or abs(e0 / 4 - N16_E0_OVER_4) > 1e-9 \
+            or vec.shape != (1, n_reps):
+        raise AssertionError(f"diagonalize main: rc {rc}, E0/4 {e0 / 4}, "
+                             f"eigenvectors {vec.shape} over {n_reps}")
+    return {"rc": rc, "seconds": secs, "e0": e0,
+            "eigenvectors_shape": list(vec.shape)}
+
+
+def apps_phase(device, e0_full, op_cut, n=32, kpm_n=APPS_KPM_N,
+               evolve_n=APPS_EVOLVE_N):
+    """The two CLIs' solve functions on the card; see the module
+    docstring."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from distributed_matvec_tpu_torch.apps import diagonalize, dynamics
+    from distributed_matvec_tpu_torch.models.yaml_io import Config
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.solve import (krylov_evolve,
+                                                    kpm_moments)
+    from distributed_matvec_tpu_torch.utils.config import (get_config,
+                                                           update_config)
+
+    out = {"packages": {m: importable(m) for m in ("yaml", "h5py")}}
+    tmp = tempfile.mkdtemp(prefix="dmt_apps_")
+    saved = get_config().stream_compress
+    os.environ["DMT_ENUMERATION_BACKEND"] = "native"
+    try:
+        missing = [m for m in ("yaml", "h5py") if not out["packages"][m]]
+        if missing:
+            out["refusal"] = app_refusal_leg(device, tmp, missing[0])
+        else:
+            out["main"] = apps_main_leg(device, tmp)
+        update_config(stream_compress="lossless")
+
+        # diagonalize: one Config, enumerated once, streamed then ell
+        cfg, enum_s = chain_cfg(n)
+        out["n_states"] = int(cfg.basis.number_states)
+        out["enumeration_s"] = enum_s
+        PC.fused_decode_gather_scatter.launches = 0
+        rs = diagonalize.solve(cfg, k=1, tol=1e-10, mode="streamed",
+                               device=device)
+        launches = PC.fused_decode_gather_scatter.launches
+        eng = rs.engine
+        e0 = float(rs.eigenvalues[0])
+        out["streamed"] = {
+            "engine_s": rs.engine_s, "solve_s": rs.solve_s, "e0": e0,
+            "e0_minus_full": e0 - e0_full,
+            "residual": float(rs.residuals[0]),
+            "columns": rs.iterations, "applies": eng.n_applies,
+            "nchunks": eng.nchunks, "launches": launches,
+            "eigenvector_shape": list(rs.eigenvectors.shape)}
+        if not (rs.converged and abs(e0 - e0_full) < 1e-10
+                and rs.residuals[0] < 1e-8
+                and rs.eigenvectors.shape == (1, out["n_states"])
+                and launches == eng.nchunks * rs.iterations > 0):
+            raise AssertionError(f"diagonalize streamed: {out['streamed']}")
+        del rs, eng
+        release(device)
+        rl = diagonalize.solve(cfg, k=1, tol=1e-10, mode="ell",
+                               device=device)
+        e0l = float(rl.eigenvalues[0])
+        out["ell"] = {"engine_s": rl.engine_s, "solve_s": rl.solve_s,
+                      "e0": e0l, "e0_minus_full": e0l - e0_full,
+                      "residual": float(rl.residuals[0]),
+                      "iterations": rl.iterations}
+        if not (rl.converged and abs(e0l - e0_full) < 1e-10):
+            raise AssertionError(f"diagonalize ell: {out['ell']}")
+        del rl, cfg
+        release(device)
+
+        # dynamics: KPM, the app's run against a direct kpm_moments call
+        # on the same engine with the same seed — on chain_{CUT_N}_symm
+        # with the atomic receive side (within APPS_KPM_RTOL·|μ0|), then
+        # on the cut ring under deterministic sums (bit for bit)
+        kpm_launches = 0
+        legs = ((CUT_N, "kpm", lambda f: f()), (kpm_n, "kpm_bit_equal",
+                                                deterministic))
+        for ring, name, run in legs:
+            if ring == CUT_N:
+                cfg, kpm_enum_s = Config(basis=op_cut.basis,
+                                         hamiltonian=op_cut), 0.0
+            else:
+                cfg, kpm_enum_s = chain_cfg(ring)
+            PC.fused_decode_gather_scatter.launches = 0
+            payload, kres, keng, kpm_s = run(lambda: dynamics.run(
+                cfg, solver="kpm", mode="streamed", device=device,
+                moments=APPS_KPM_MOMENTS, vectors=APPS_KPM_VECTORS))
+            n_launch = PC.fused_decode_gather_scatter.launches
+            t0 = time.perf_counter()
+            direct = run(lambda: kpm_moments(
+                keng.matvec, n_moments=APPS_KPM_MOMENTS,
+                n_vectors=APPS_KPM_VECTORS, seed=42, bounds_iters=64))
+            direct_s = time.perf_counter() - t0
+            columns = 64 + APPS_KPM_MOMENTS // 2 * APPS_KPM_VECTORS
+            diff = float(np.abs(payload["moments"] - direct.moments).max())
+            bar = (0.0 if run is deterministic
+                   else APPS_KPM_RTOL * abs(float(direct.moments[0])))
+            out[name] = {"n": cfg.basis.number_spins,
+                         "n_states": int(cfg.basis.number_states),
+                         "enumeration_s": kpm_enum_s, "seconds": kpm_s,
+                         "direct_s": direct_s,
+                         "applies": kres.num_applies, "launches": n_launch,
+                         "nchunks": keng.nchunks,
+                         "bounds": list(kres.bounds),
+                         "max_abs_diff_vs_direct": diff, "bound": bar,
+                         "moments_bit_equal": diff == 0.0}
+            if not (np.all(np.isfinite(payload["moments"])) and diff <= bar
+                    and n_launch == keng.nchunks * columns):
+                raise AssertionError(f"dynamics {name}: {out[name]}")
+            kpm_launches += n_launch
+            del payload, kres, keng, direct, cfg
+            release(device)
+
+        # dynamics: evolve on chain_16_symm against a direct krylov_evolve
+        cfg, _ = chain_cfg(evolve_n)
+        payload, eres, eeng, evo_s = deterministic(lambda: dynamics.run(
+            cfg, solver="evolve", mode="streamed", device=device,
+            t_final=APPS_EVOLVE_T))
+        direct = deterministic(lambda: krylov_evolve(
+            eeng.matvec, t_final=APPS_EVOLVE_T, seed=42))
+        same = all(np.array_equal(payload[k], getattr(direct, k))
+                   for k in ("times", "energies"))
+        out["evolve"] = {"n_states": int(cfg.basis.number_states),
+                         "seconds": evo_s, "steps": eres.num_steps,
+                         "norm_drift": eres.norm_drift,
+                         "energy_drift": eres.energy_drift,
+                         "equal_to_direct": same}
+        if not (same and eres.norm_drift < 1e-12
+                and abs(eres.times[-1] - APPS_EVOLVE_T) < 1e-12):
+            raise AssertionError(f"dynamics evolve: {out['evolve']}")
+        del payload, eres, eeng, direct, cfg
+        release(device)
+        out["launches"] = launches + kpm_launches
+    finally:
+        update_config(stream_compress=saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, out["launches"]
+
+
 # -- phase 15: costmodel ----------------------------------------------------------
 
 #: applies per engine of the phase-attribution leg, and windows of the live
@@ -3681,6 +3977,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("streamed_complex", streamed_complex_phase, device)
     torch.cuda.empty_cache()
+    _, apps_launches = run_phase("apps", apps_phase, device, full["e0"],
+                                 op_cut)
+    torch.cuda.empty_cache()
     _, cost_launches, cost_err = run_phase("costmodel", costmodel_phase,
                                            device, eng, ell, op_cut)
     del ell, eng, op_cut
@@ -3691,7 +3990,7 @@ def main() -> int:
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
         + pipe_launches + tier_launches + ranks["launches"]
-        + serve_launches + cost_launches + resil_launches,
+        + serve_launches + cost_launches + resil_launches + apps_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            tiers["kernel_max_abs_err"],
@@ -3719,6 +4018,9 @@ def main() -> int:
         # the autotuned engines' applies (static: lanczos_block; live: the
         # tuner's windows), chain_32_symm at D = 1
         "launches_costmodel": cost_launches,
+        # the apps leg: the diagonalize solve function's streamed solve at
+        # chain_32_symm and the dynamics KPM run (D = 1)
+        "launches_apps": apps_launches,
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],

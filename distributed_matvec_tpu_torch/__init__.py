@@ -8,10 +8,15 @@ top:
 
   utils/        — unsigned 64-bit arithmetic on int64 tensors, the device
                   choice, the native build directory, the runtime config,
-                  the JSON artifact cache
+                  the artifact cache (basis checkpoints, structure
+                  sidecars, calibration and tuning records)
+  io/           — HDF5 files: basis checkpoints, eigenpairs, observables,
+                  golden matvecs, engine structure sidecars (h5py is
+                  imported when a file is read or written)
   models/       — expressions → nonbranching terms, symmetry groups, bases,
-                  operators, lattice constructors (copied); bound
-                  observables (expectation values over an engine's basis)
+                  operators, lattice constructors, the YAML loader
+                  (copied); bound observables (expectation values over an
+                  engine's basis)
   enumeration/  — representative enumeration, NumPy + C++ (copied)
   ops/          — tensor kernels (diag/off-diag apply, orbit scan, lookup),
                   the plan codec and its CUDA decode kernel (csrc/)
@@ -30,6 +35,9 @@ top:
   tune/         — the autotuner: knob search under the calibrated rates,
                   tuned artifacts, the live rate posterior
   serve/        — the solve service (spool, priced admission, warm pool)
+  apps/         — the command lines: ``diagonalize``, ``dynamics``,
+                  ``solve_service`` (``python -m
+                  distributed_matvec_tpu_torch.apps.<name>``)
   entry.py      — one forward step of the flagship model
 
 Entry points run on the CUDA device unless the caller passes
@@ -40,6 +48,7 @@ raise.
 from . import models, utils  # noqa: F401
 from .models.basis import SpinBasis
 from .models.operator import Operator
+from .models.yaml_io import Config, load_config_from_yaml
 from .parallel.distributed import DistributedEngine
 from .parallel.engine import LocalEngine
 from .solve import (EvolveResult, KPMResult, LanczosResult,
@@ -48,7 +57,8 @@ from .solve import (EvolveResult, KPMResult, LanczosResult,
                     lanczos_block, lobpcg, lorentz_kernel, reconstruct_dos,
                     spectral_bounds)
 
-__all__ = ["SpinBasis", "Operator", "LocalEngine", "DistributedEngine",
+__all__ = ["SpinBasis", "Operator", "Config", "load_config_from_yaml",
+           "LocalEngine", "DistributedEngine",
            "LanczosResult", "lanczos", "lanczos_block", "lobpcg",
            "KPMResult", "spectral_bounds", "kpm_moments", "kpm_dos",
            "kpm_spectral_function", "jackson_kernel", "lorentz_kernel",

@@ -1,5 +1,6 @@
-"""Models layer, copied from ``distributed_matvec_tpu/models`` (without the
-YAML loader), and the bound observables (``observables.py``)."""
+"""Models layer, copied from ``distributed_matvec_tpu/models`` (the YAML
+loader imports ``yaml`` only when it loads a file), and the bound
+observables (``observables.py``)."""
 
 from . import (basis, expression, lattices, observables,  # noqa: F401
-               operator, symmetry)
+               operator, symmetry, yaml_io)

@@ -454,8 +454,14 @@ class DistributedEngine:
         self._checked: set = set()
 
         basis = operator.basis
+        #: True when the representatives came from the artifact cache
+        #: (``utils/artifacts.py::make_or_restore_basis``) rather than a
+        #: fresh enumeration (False when the caller handed over a built
+        #: basis)
+        self.basis_restored = False
         if not basis.is_built:
-            basis.build()
+            from ..utils.artifacts import make_or_restore_basis
+            self.basis_restored = make_or_restore_basis(basis)
         reps, norms = basis.representatives, basis.norms
         if layout is not None:
             if layout.n_shards != D or layout.n_global != reps.size:

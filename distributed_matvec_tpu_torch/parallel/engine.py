@@ -41,9 +41,12 @@ ledger, and a device out-of-memory failure in the build or an apply is
 raised as ``obs.memory.OomError`` with its forensics report.  With obs off
 the apply takes no timing at all.
 
-The JAX engine's artifact and structure caches, the split-gather table and
-the (re, im) pair form are not carried over: Hopper gathers f64 and
-complex128 natively.  Everything here is plain PyTorch.
+The basis comes from the artifact cache when it holds a checkpoint
+(``utils/artifacts.py``), and the ``ell``/``compact`` structure from a
+sidecar (``structure_cache=`` or the cache's default), as in the JAX
+engine; both need ``h5py``.  The split-gather table and the (re, im) pair
+form are not carried over: Hopper gathers f64 and complex128 natively.
+Everything here is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from ..ops.bits import build_sorted_lookup, state_index_bucketed
 from ..utils import u64
 from ..utils.config import get_config
 from ..utils.device import resolve_device
+from ..utils.logging import log_debug
 from ..utils.timers import TreeTimer
 from .distributed import SENTINEL_STATE as _SENTINEL_BITS
 from .engine_obs import (emit_engine_init, note_applying, oom_reraise,
@@ -145,6 +149,23 @@ def choose_ell_split(hist: np.ndarray, n_rows: int, T: int,
     if (n_rows * T - cost[T0]) < 0.15 * n_rows * T:
         T0, S = T, 0
     return T0, S, Tmax
+
+
+# Copied from distributed_matvec_tpu/parallel/engine.py (host NumPy).
+def hash_basis_operator(h, operator) -> None:
+    """Feed everything that identifies a (basis, operator) pair into a hash:
+    the basis JSON, the ACTUAL representative/norm arrays (they may have been
+    restored rather than enumerated), and the nonbranching term tables."""
+    import json as _json
+
+    basis = operator.basis
+    h.update(_json.dumps(basis._json_dict(), sort_keys=True,
+                         default=str).encode())
+    h.update(np.ascontiguousarray(basis.representatives).tobytes())
+    h.update(np.ascontiguousarray(basis.norms).tobytes())
+    dt, ot = operator.diag_table, operator.off_diag_table
+    for a in (dt.v, dt.s, dt.m, dt.r, ot.x, ot.v, ot.s, ot.m, ot.r):
+        h.update(np.ascontiguousarray(a).tobytes())
 
 
 # Copied from distributed_matvec_tpu/parallel/engine.py (host NumPy).
@@ -252,11 +273,22 @@ class LocalEngine:
     the one-pass ELL build is taken while 1.6× its full-width tables fit
     ``build_budget_gb`` (default: the config's ``ell_build_budget_gb``,
     12).  ``device`` defaults to ``cuda`` and raises when there is none.
+
+    An unbuilt basis is restored from the artifact cache when it holds a
+    checkpoint of it, else enumerated (``basis_restored``:
+    ``utils/artifacts.py::make_or_restore_basis``).  In ``ell`` and
+    ``compact`` mode the structure is restored from ``structure_cache``
+    (a base path; the sidecar is ``<path>.structure.h5``) or, with none
+    given, from the artifact cache's default sidecar, and saved there
+    after a build (``structure_restored``); default-path saves honour
+    ``artifact_max_gb`` and fail soft.  Both need ``h5py``; without it
+    the engine builds as before.
     """
 
     def __init__(self, operator: Operator, batch_size: Optional[int] = None,
                  mode: Optional[str] = None,
-                 build_budget_gb: Optional[float] = None, device=None):
+                 build_budget_gb: Optional[float] = None, device=None,
+                 structure_cache: Optional[str] = None):
         self.device = resolve_device(device)
         cfg = get_config()
         mode = mode or cfg.matvec_mode
@@ -275,8 +307,13 @@ class LocalEngine:
                 "the gather-form engine requires a Hermitian operator "
                 "(as does the reference's eigensolver)")
         basis = operator.basis
+        #: True when the representatives came from the artifact cache
+        #: rather than a fresh enumeration (False when the caller handed
+        #: over a built basis)
+        self.basis_restored = False
         if not basis.is_built:
-            basis.build()
+            from ..utils.artifacts import make_or_restore_basis
+            self.basis_restored = make_or_restore_basis(basis)
         self.operator = operator
         self.mode = mode
         self.real = operator.effective_is_real
@@ -299,8 +336,11 @@ class LocalEngine:
         # pre-build watermark: the delta against the post-init sample is
         # the construction's device footprint
         obs_memory.sample_watermark("engine_init_start/local")
+        #: True when the structure came from a ``structure_cache`` restore
+        #: (explicit path or the artifact cache's default)
+        self.structure_restored = False
         try:
-            self._construct(operator, mode)
+            self._construct(operator, mode, structure_cache)
         except Exception as e:
             oom_reraise(e, engine="local", mode=mode, phase="init",
                         n_states=int(n))
@@ -308,8 +348,10 @@ class LocalEngine:
         register_engine_memory(self, "local")
         self.timer.report()    # the tree, printed with display_timings on
 
-    def _construct(self, operator: Operator, mode: str) -> None:
-        """Lookup, tables, diagonal and the mode's structure build."""
+    def _construct(self, operator: Operator, mode: str,
+                   structure_cache: Optional[str]) -> None:
+        """Lookup, tables, diagonal and the mode's structure, restored from
+        the structure cache or built (and then saved there)."""
         dev, basis = self.device, operator.basis
         n_pad, b = self.n_padded, self.batch_size
         reps, norms = basis.representatives, basis.norms
@@ -331,15 +373,136 @@ class LocalEngine:
                 self._diag[s:s + b] = K.apply_diag(self.tables.diag,
                                                    self._alphas[s:s + b])
 
-        with self.timer.scope("build_structure"):
-            if mode == "ell":
-                self._build_ell()
-            elif mode == "compact":
-                self._build_compact()
-        # ell and compact were validated at build time
+        if mode in ("ell", "compact"):
+            cache = self._resolve_structure_cache(structure_cache)
+            self.structure_restored = self._try_load_structure(cache)
+            if cache is not None:
+                from ..utils.artifacts import record_cache_event
+                record_cache_event(
+                    "structure", "hit" if self.structure_restored else "miss")
+            if not self.structure_restored:
+                with self.timer.scope("build_structure"):
+                    if mode == "ell":
+                        self._build_ell()
+                    else:
+                        self._build_compact()
+                self._save_structure(cache, soft=structure_cache is None)
+        # ell and compact were validated at build time (a restored
+        # structure was validated by the build that saved it)
         self._checked = mode != "fused"
         self._apply_idx = 0
         self._phase_count_cache: Dict[tuple, dict] = {}
+
+    # -- structure checkpoint (ell/compact) --------------------------------------
+
+    def _resolve_structure_cache(self, path: Optional[str]) -> Optional[str]:
+        """Explicit caller path wins; otherwise the content-addressed
+        artifact-cache default (None when the layer is off or h5py is
+        missing)."""
+        if path is not None:
+            return path
+        from ..utils import artifacts
+        if not artifacts.hdf5_cache_enabled():
+            return None      # the fingerprint hashes the whole basis
+        return artifacts.default_structure_cache(
+            self._structure_fingerprint())
+
+    @staticmethod
+    def _structure_sidecar(path: str) -> str:
+        """The structure checkpoint lives in its own file next to ``path``
+        (representatives etc.), so a rewrite truncates instead of growing."""
+        return path + ".structure.h5"
+
+    def _structure_fingerprint(self) -> str:
+        """Identity of the precomputed structure: basis (including the
+        *actual* representatives/norms, which may have been restored rather
+        than enumerated), operator term tables, mode, dtype form, padding.
+        The JAX engine's digest with its own tag: the two packages' tables
+        have one layout, but complex coefficients may differ in the last
+        bit, so neither restores the other's sidecar.  Memoized — hashing
+        the representatives twice per construction (load attempt + save)
+        would cost seconds at scale."""
+        if getattr(self, "_fp_cache", None) is not None:
+            return self._fp_cache
+        import hashlib
+
+        h = hashlib.sha256()
+        hash_basis_operator(h, self.operator)
+        h.update(f"{self.mode}|{self.real}|{self.batch_size}"
+                 f"|{self.n_states}|{self.n_padded}|torch-v1".encode())
+        self._fp_cache = h.hexdigest()
+        return self._fp_cache
+
+    def _try_load_structure(self, path: Optional[str]) -> bool:
+        if not path:
+            return False
+        import os
+
+        from ..io.hdf5 import load_engine_structure
+
+        sidecar = self._structure_sidecar(path)
+        if not os.path.exists(sidecar):
+            return False     # don't hash GBs when there is nothing to load
+        data = load_engine_structure(sidecar, self._structure_fingerprint())
+        if data is None:
+            return False
+
+        def dev(name):
+            return torch.from_numpy(np.ascontiguousarray(data[name])).to(
+                self.device)
+
+        T0, Tmax = int(data["T0"]), int(data["Tmax"])
+        tail = "tail_rows" in data
+        self.ell_split = (T0, int(data["tail_rows"].size) if tail else 0,
+                          Tmax)
+        if self.mode == "ell":
+            self._ell_idx, self._ell_coeff = dev("idx"), dev("coeff")
+            self._ell_tail = (dev("tail_rows"), dev("tail_idx"),
+                              dev("tail_coeff")) if tail else None
+        else:
+            self._c_W = float(data["W"])
+            self._c_idx = dev("idx")
+            self._c_tail = (dev("tail_rows"), dev("tail_idx")) \
+                if tail else None
+            self._c_inv_n = self._compact_inv_norms()
+        log_debug(f"engine structure restored from {path}")
+        return True
+
+    def _save_structure(self, path: Optional[str], soft: bool = False) -> None:
+        """Checkpoint the packed structure.  ``soft`` marks DEFAULT-path
+        (artifact cache) saves: they honor the ``artifact_max_gb`` size cap
+        and degrade to a warning on I/O errors — a read-only checkout or a
+        full cache disk must never turn a cache write into an
+        engine-construction error.  Explicit paths keep loud semantics.
+        The tables leave the card inside the save, after the cap check."""
+        if not path:
+            return
+        from ..io.hdf5 import save_engine_structure
+
+        T0, _, Tmax = self.ell_split
+        payload = {"T0": T0, "Tmax": Tmax}
+        if self.mode == "ell":
+            payload.update(idx=self._ell_idx, coeff=self._ell_coeff)
+            if self._ell_tail is not None:
+                rows, idx_t, cf_t = self._ell_tail
+                payload.update(tail_rows=rows, tail_idx=idx_t,
+                               tail_coeff=cf_t)
+        else:
+            payload.update(W=self._c_W, idx=self._c_idx)
+            if self._c_tail is not None:
+                rows, idx_t = self._c_tail
+                payload.update(tail_rows=rows, tail_idx=idx_t)
+        sidecar = self._structure_sidecar(path)
+        if soft:
+            from ..utils.artifacts import soft_save_structure
+            if not soft_save_structure(sidecar,
+                                       self._structure_fingerprint(),
+                                       self.mode, payload):
+                return
+        else:
+            save_engine_structure(sidecar, self._structure_fingerprint(),
+                                  self.mode, payload)
+        log_debug(f"engine structure checkpointed to {sidecar}")
 
     # -- structure build -----------------------------------------------------
 
@@ -537,9 +700,13 @@ class LocalEngine:
         self._c_idx = out_idx
         self._c_tail = None if S == 0 else (t_rows[:S],
                                             t_idx[:, :S].contiguous())
-        inv_n = np.ones(n_pad)
+        self._c_inv_n = self._compact_inv_norms()
+
+    def _compact_inv_norms(self) -> torch.Tensor:
+        """``1/n(i)`` over the padded rows (1 on the padding)."""
+        inv_n = np.ones(self.n_padded)
         inv_n[:self.n_states] = 1.0 / np.asarray(self.operator.basis.norms)
-        self._c_inv_n = torch.from_numpy(inv_n).to(self.device)
+        return torch.from_numpy(inv_n).to(self.device)
 
     # -- applies ---------------------------------------------------------------
 

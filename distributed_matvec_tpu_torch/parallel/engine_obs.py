@@ -40,10 +40,10 @@ def note_applying(eng) -> None:
 def emit_engine_init(eng, engine_kind: str, init_s: Optional[float] = None
                      ) -> None:
     """One ``engine_init`` event carrying the construction split the
-    timer tree measured (structure/plan build, transfer, diag); the port
-    compiles nothing per engine (``compile_s`` 0) and restores nothing
-    (``basis_restored``/``structure_restored`` False) — the keys stay the
-    JAX event's."""
+    timer tree measured (structure/plan build, transfer, diag) and what the
+    artifact cache restored (``basis_restored``, ``structure_restored``);
+    the port compiles nothing per engine (``compile_s`` 0) — the keys stay
+    the JAX event's."""
     t = eng.timer
     build_s = (t.scope_total("build_structure")
                + t.scope_total("build_plan"))
@@ -52,8 +52,8 @@ def emit_engine_init(eng, engine_kind: str, init_s: Optional[float] = None
          mode=eng.mode,
          n_states=int(eng.n_states),
          pair=False,
-         basis_restored=False,
-         structure_restored=False,
+         basis_restored=bool(getattr(eng, "basis_restored", False)),
+         structure_restored=bool(getattr(eng, "structure_restored", False)),
          build_structure_s=round(build_s, 6),
          compile_s=0.0,
          kernels_s=round(build_s, 6),

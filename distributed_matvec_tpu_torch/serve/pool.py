@@ -43,18 +43,15 @@ from .spec import JobSpec
 
 __all__ = ["EnginePool", "build_operator", "build_engine", "engine_bytes"]
 
-_NO_YAML = ("a yaml job spec needs the port's YAML loader "
-            "(models/yaml_io.py), which comes with the CLI slice; submit an "
-            "inline basis + edges spec instead")
-
-
 def build_operator(spec: JobSpec):
     """The spec's Hamiltonian: inline Heisenberg (basis + edges, chain
-    when ``edges`` is None).  A ``yaml`` spec raises
-    ``NotImplementedError``: the port has no YAML loader yet (the
-    scheduler records such a job as failed and goes on serving)."""
+    when ``edges`` is None) or the yaml config's hamiltonian."""
     if spec.yaml is not None:
-        raise NotImplementedError(_NO_YAML)
+        from ..models.yaml_io import load_config_from_yaml
+        cfg = load_config_from_yaml(spec.yaml, hamiltonian=True)
+        if cfg.hamiltonian is None:
+            raise ValueError(f"{spec.yaml}: config has no hamiltonian")
+        return cfg.hamiltonian
     from ..models.basis import SpinBasis
     from ..models.lattices import chain_edges, heisenberg_from_edges
     basis = SpinBasis(**spec.basis)

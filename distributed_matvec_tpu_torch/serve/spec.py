@@ -13,10 +13,9 @@ namespacing key all of its telemetry is stamped with.
 The spec is the JAX package's, field for field: a spool written by either
 package is read by the other, and :meth:`JobSpec.engine_key`,
 :meth:`JobSpec.column_seed`, :meth:`JobSpec.pricing`, the JSON and
-:func:`estimate_dimension` give the same values in both.  A ``yaml`` spec
-is keyed and priced here, but building its engine waits for the port's
-YAML loader (``serve/pool.build_operator`` raises
-``NotImplementedError``).
+:func:`estimate_dimension` give the same values in both.  A ``yaml`` spec's
+engine is built from the file through the port's YAML loader
+(``serve/pool.build_operator``).
 
 The scheduling key is :meth:`JobSpec.engine_key`: a content hash of
 every field that determines the ENGINE a job needs (model + mode +

@@ -1,7 +1,21 @@
-# Ported from distributed_matvec_tpu/utils/artifacts.py (the JSON half: record_cache_event, the corrupt/quarantine policy, artifacts_enabled, artifact_root, artifact_path, within_size_cap).
+# Ported from distributed_matvec_tpu/utils/artifacts.py (all but ensure_compilation_cache).
 """Content-addressed on-disk artifact cache — default ON.
 
-The decision products the cost model writes live here, under one root:
+An engine spends far longer being constructed than applied, yet its two
+expensive construction products are pure functions of content that rarely
+changes:
+
+  basis/       representative + norm arrays, keyed by the basis JSON
+               (sector, symmetries, particle content) — the
+               ``makeBasisStates`` restore of Diagonalize.chpl:227-246,
+               automatic (:func:`make_or_restore_basis`);
+  structure/   ``LocalEngine``'s ELL/compact structure sidecars, keyed by
+               the engine's ``_structure_fingerprint()`` (basis content +
+               operator term tables + mode/dtype/padding).
+
+Both are HDF5 files and need ``h5py``; without it every engine builds as
+before, and nothing else is written in their place.  The decision
+products the cost model writes live under the same root:
 
   calibration/ measured hardware rates (``obs/roofline.py`` sidecars,
                written by ``python -m distributed_matvec_tpu_torch.obs.
@@ -17,29 +31,35 @@ The root resolves (first hit wins) as
   ``~/.cache/distributed_matvec_tpu/artifacts``
 
 and the whole layer is switched by the ``artifact_cache`` config knob
-(``DMT_ARTIFACT_CACHE=off`` to disable).  Every write is atomic and fails
-soft: a read-only checkout must never turn a cache write into an engine
-error.
+(``DMT_ARTIFACT_CACHE=off`` to disable).  Engines consult this layer only
+when the caller did not pass an explicit ``structure_cache`` path;
+explicit paths keep their loud save errors, while default-path saves fail
+soft — a read-only checkout must never turn a cache write into an engine
+error.  The basis artifact's :func:`basis_fingerprint` is the JAX
+package's, so the two packages share one cache entry for one basis (the
+structure sidecars are keyed apart: see ``LocalEngine``).
 
-Not in this module yet: the JAX package's HDF5 products — the basis
-checkpoint (``make_or_restore_basis``), the structure sidecars
-(``default_structure_cache``, ``soft_save_structure``) and
-``basis_fingerprint`` — come with the persistence slice (they need
-``h5py``).  ``ensure_compilation_cache`` points XLA's compilation cache,
-which the port does not have (as it has no AOT program cache).
+``ensure_compilation_cache`` is not ported: it points XLA's compilation
+cache, which the port does not have (as it has no AOT program cache).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 from .config import get_config
-from .logging import log_warn
+from .logging import log_debug, log_warn
 
 __all__ = [
     "artifact_root",
     "artifacts_enabled",
     "artifact_path",
+    "hdf5_cache_enabled",
+    "default_structure_cache",
+    "basis_fingerprint",
+    "soft_save_structure",
+    "make_or_restore_basis",
     "within_size_cap",
     "record_cache_event",
     "note_artifact_ok",
@@ -50,8 +70,9 @@ __all__ = [
 
 def record_cache_event(kind: str, event: str) -> None:
     """One artifact-cache outcome into the metrics registry
-    (``artifact_cache{kind=calibration|tuning, event=hit|miss|save|...}``)
-    — the single call site the cache users share."""
+    (``artifact_cache{kind=basis|structure|calibration|tuning,
+    event=hit|miss|save|evict|...}``) — the single call site the cache
+    users share."""
     from ..obs.metrics import counter
 
     counter("artifact_cache", kind=kind, event=event).inc()
@@ -177,7 +198,148 @@ def artifact_path(kind: str, fingerprint: str, suffix: str = "") -> str:
     return os.path.join(d, fingerprint + suffix)
 
 
+def hdf5_cache_enabled() -> bool:
+    """Whether the layer is on and can write its HDF5 products (basis
+    checkpoints, structure sidecars): ``h5py`` imports."""
+    if not artifacts_enabled():
+        return False
+    from ..io.hdf5 import _h5py
+
+    try:
+        _h5py()
+    except RuntimeError as e:
+        log_debug(f"HDF5 artifacts disabled: {e!r}")
+        return False
+    return True
+
+
+def default_structure_cache(fingerprint: str) -> Optional[str]:
+    """Content-addressed base path for an engine structure sidecar, or
+    ``None`` when the layer is off or h5py is missing (or the root is
+    uncreatable — a broken cache disk must degrade to a plain rebuild, not
+    an engine error)."""
+    if not hdf5_cache_enabled():
+        return None
+    try:
+        return artifact_path("structure", fingerprint)
+    except OSError as e:
+        log_debug(f"artifact cache unavailable: {e!r}")
+        return None
+
+
 def within_size_cap(nbytes: int) -> bool:
-    """Whether a default-path artifact of ``nbytes`` may be written (the
-    ``artifact_max_gb`` knob; explicit paths are never capped)."""
+    """Whether a DEFAULT-path structure sidecar of ``nbytes`` may be written
+    (the ``artifact_max_gb`` knob; explicit paths are never capped)."""
     return nbytes <= get_config().artifact_max_gb * 1e9
+
+
+def soft_save_structure(sidecar: str, fingerprint: str, mode: str,
+                        payload: dict) -> bool:
+    """DEFAULT-path (artifact cache) structure sidecar save: honors the
+    ``artifact_max_gb`` size cap and degrades to a warning on I/O errors
+    — a read-only checkout or a full cache disk must never turn a cache
+    write into an engine-construction error.  True when written."""
+    nbytes = sum(getattr(v, "nbytes", 0) for v in payload.values())
+    if not within_size_cap(nbytes):
+        record_cache_event("structure", "evict")
+        log_debug(f"structure artifact save skipped: {nbytes/1e9:.1f} GB "
+                  "exceeds artifact_max_gb")
+        return False
+    from ..io.hdf5 import save_engine_structure
+
+    try:
+        save_engine_structure(sidecar, fingerprint, mode, payload)
+    except OSError as e:
+        log_warn(f"structure artifact save skipped: {e!r}")
+        return False
+    record_cache_event("structure", "save")
+    return True
+
+
+def basis_fingerprint(basis) -> str:
+    """Identity of a basis *definition* (not its enumerated output): the
+    JSON dict that also seeds the engines' structure fingerprints — the
+    JAX package's digest, so both packages key one basis alike."""
+    import hashlib
+    import json
+
+    h = hashlib.sha256()
+    h.update(json.dumps(basis._json_dict(), sort_keys=True,
+                        default=str).encode())
+    h.update(b"|basis-v1")
+    return h.hexdigest()
+
+
+def _rank_zero() -> bool:
+    """Whether this process writes shared artifacts: rank 0 of an
+    initialized ``torch.distributed`` group, or the only process."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
+def make_or_restore_basis(basis, path: Optional[str] = None,
+                          save: bool = True) -> bool:
+    """Build ``basis``, restoring representatives from the artifact cache
+    when a matching checkpoint exists (True = restored).
+
+    ``path=None`` resolves the content-addressed default; an explicit path
+    is read and written alike.  Saves go through an atomic temp-file +
+    ``os.replace`` so concurrent processes warming the same basis can
+    never interleave partial writes (only rank 0 of a
+    ``torch.distributed`` run writes at all).  Everything fails soft: with
+    the layer off, h5py missing, or the cache dir unwritable this is
+    exactly ``basis.build()``.
+    """
+    if basis.is_built:
+        return False
+    from ..io.hdf5 import _h5py, restore_representatives, save_basis
+
+    try:
+        if path is None:
+            if not hdf5_cache_enabled():
+                basis.build()
+                return False
+            path = artifact_path("basis", basis_fingerprint(basis), ".h5")
+        else:
+            _h5py()
+    except (OSError, RuntimeError) as e:
+        log_debug(f"basis artifact cache unavailable: {e!r}")
+        basis.build()
+        return False
+    # a persistently corrupt checkpoint falls through to the rebuild
+    # path and the corrupt/quarantine tally
+    if restore_representatives(basis, path, require_norms=True):
+        record_cache_event("basis", "hit")
+        log_debug(f"basis representatives restored from {path}")
+        return True
+    record_cache_event("basis", "miss")
+    basis.build()
+    if not save or not _rank_zero():
+        return False
+    try:
+        import tempfile
+
+        from . import faults
+
+        faults.check("artifact_save", path=path)
+        d = os.path.dirname(os.path.abspath(path))
+        fd, tmp = tempfile.mkstemp(suffix=".h5.tmp", dir=d)
+        os.close(fd)
+        os.chmod(tmp, 0o644)
+        try:
+            save_basis(tmp, basis.representatives, basis.norms)
+            os.replace(tmp, path)
+            note_artifact_ok(path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        record_cache_event("basis", "save")
+        log_debug(f"basis representatives checkpointed to {path}")
+    except OSError as e:
+        log_warn(f"basis artifact save skipped: {e!r}")
+    return False

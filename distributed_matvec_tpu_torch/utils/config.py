@@ -12,8 +12,7 @@ Every field and every ``DMT_*`` name of the JAX package's config is kept, so
 one environment configures both packages alike.  A field that has no effect
 in the port says so in its comment (``port: no effect``): the four TPU
 workarounds (``split_gather``, ``term_loop``, ``complex_pair``,
-``allow_complex_on_tpu``), which never will, and ``artifact_max_gb``, whose
-structure sidecars come with the persistence slice.  They are still parsed,
+``allow_complex_on_tpu``), which never will.  They are still parsed,
 so a run's config identity (flight bundles, ``/healthz``) is the same in
 both packages, and each warns once (``log_warn``) when it is set to a value
 other than its default — a warning, not an error, because one environment
@@ -185,13 +184,14 @@ class RuntimeConfig:
 
     # -- artifact cache (utils/artifacts.py) --------------------------------
     artifact_cache: str = "on"             # content-addressed cache
-    #   (DMT_ARTIFACT_CACHE, utils/artifacts.py): the calibration sidecar
-    #   and the tuning artifacts and posteriors; "off" disables all three
+    #   (DMT_ARTIFACT_CACHE, utils/artifacts.py): basis checkpoints and
+    #   LocalEngine structure sidecars (with h5py), the calibration
+    #   sidecar, the tuning artifacts and posteriors; "off" disables all
     artifact_dir: str = ""                 # cache root (DMT_ARTIFACT_DIR
     #   wins; default ~/.cache/distributed_matvec_tpu/artifacts)
     artifact_max_gb: float = 8.0           # per-sidecar cap of the
-    #   structure sidecars (port: no effect — they come with the HDF5
-    #   persistence slice)
+    #   default-path structure sidecars (DMT_ARTIFACT_MAX_GB): a larger
+    #   LocalEngine structure is not written to the cache
 
     # -- solve service (serve/) ---------------------------------------------
     serve_pool_gb: float = 2.0             # engine-pool byte budget
@@ -226,10 +226,9 @@ def _from_env(cfg: RuntimeConfig) -> RuntimeConfig:
     return cfg
 
 
-#: fields the port parses and ignores: the TPU workarounds, and the
-#: structure sidecars' cap (the persistence slice)
+#: fields the port parses and ignores: the TPU workarounds
 NO_EFFECT = ("split_gather", "term_loop", "complex_pair",
-             "allow_complex_on_tpu", "artifact_max_gb")
+             "allow_complex_on_tpu")
 _warned: set = set()
 
 

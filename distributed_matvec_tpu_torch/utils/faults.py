@@ -31,12 +31,19 @@ The sites of the port:
   H2D ring of a streamed or hybrid apply (``RuntimeError``), retried
   through :func:`with_retries` (``io_retries``, ``io_retry_base_s``);
 * ``solver_block`` — each solver's block boundary, beside its preemption
-  safe point (``lanczos``, ``lanczos_block``, ``kpm``, ``evolve``).
+  safe point (``lanczos``, ``lanczos_block``, ``kpm``, ``evolve``);
+* ``ckpt_write`` / ``ckpt_rename`` — before an engine structure sidecar's
+  temp file is written and before it is renamed into place
+  (``io/hdf5.py``, ``OSError``);
+* ``artifact_read`` — each read of a basis checkpoint or a structure
+  sidecar, retried through :func:`with_retries` and then degrading to a
+  rebuild and the quarantine tally (``utils/artifacts.py``);
+* ``artifact_save`` — before the basis artifact's atomic save, which
+  then fails soft.
 
-The JAX package's I/O sites (``ckpt_*``, ``artifact_*``,
-``plan_chunk_read``, ``ckpt_reshard``) sit on its HDF5 checkpoints,
-artifacts and the streamed plan's disk tier, which come with the
-persistence slice.
+The JAX package's other I/O sites (``ckpt_*`` of the solvers' checkpoints,
+``plan_chunk_read``, ``ckpt_reshard``) sit on its solver checkpoints and
+the streamed plan's disk tier, which later slices port.
 
 Examples::
 

@@ -240,7 +240,7 @@ def test_lanczos_reorth_from_config(chain10, both_configs):
 
 @pytest.mark.parametrize("field,value", [
     ("split_gather", "on"), ("term_loop", "scan"), ("complex_pair", "on"),
-    ("allow_complex_on_tpu", True), ("artifact_max_gb", 2.0)])
+    ("allow_complex_on_tpu", True)])
 def test_no_effect_fields_warn_once(both_configs, monkeypatch, field,
                                     value):
     """The fields the port ignores warn once when set off their default
@@ -261,5 +261,43 @@ def test_no_effect_fields_warn_once(both_configs, monkeypatch, field,
                        heartbeat_s=1.0, display_timings=True)
     assert len(warned) == 1
     assert set(tcfg.NO_EFFECT) == {"split_gather", "term_loop",
-                                   "complex_pair", "allow_complex_on_tpu",
-                                   "artifact_max_gb"}
+                                   "complex_pair", "allow_complex_on_tpu"}
+
+
+@pytest.mark.parametrize("via", ["update_config", "env"])
+def test_artifact_max_gb_caps_default_sidecar(both_configs, monkeypatch,
+                                              tmp_path, via):
+    """``artifact_max_gb`` has an effect now: set without a warning, from
+    the config or ``DMT_ARTIFACT_MAX_GB``, it stops a default-path
+    structure sidecar larger than the cap (the next engine rebuilds), and
+    a cap above the sidecar lets it through (the next engine restores)."""
+    import distributed_matvec_tpu_torch.utils.logging as tlog
+
+    warned = []
+    monkeypatch.setattr(tlog, "log_warn", warned.append)
+    monkeypatch.setenv("DMT_ARTIFACT_CACHE", "on")
+    monkeypatch.setenv("DMT_ARTIFACT_DIR", str(tmp_path / "art"))
+
+    def cap(gb):
+        if via == "env":
+            monkeypatch.setenv("DMT_ARTIFACT_MAX_GB", str(gb))
+            tcfg._config = None
+        else:
+            tcfg.update_config(artifact_max_gb=gb)
+
+    from distributed_matvec_tpu_torch.models.lattices import (
+        heisenberg_chain)
+
+    def engine():
+        return LocalEngine(heisenberg_chain(10, symmetric=True), mode="ell",
+                           device="cpu")
+
+    cap(1e-9)
+    assert tcfg.get_config().artifact_max_gb == 1e-9
+    first = engine()
+    assert not first.structure_restored and not engine().structure_restored
+    assert first.ell_nbytes > 1e-9 * 1e9
+    cap(1.0)
+    assert not engine().structure_restored     # saved now
+    assert engine().structure_restored
+    assert warned == []

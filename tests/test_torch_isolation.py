@@ -33,17 +33,26 @@ SLICE_11 = {"utils.timers": "utils/timers.py",
             "obs.memory": "obs/memory.py",
             "obs.profile": "obs/profile.py",
             "obs.kernel_costs": "obs/hlo.py"}
+#: the CLIs and what they read and write (their source by module, from the
+#: repository root: the apps are the root ``apps/`` scripts)
+SLICE_12 = {"models.yaml_io": "distributed_matvec_tpu/models/yaml_io.py",
+            "io.__init__": "distributed_matvec_tpu/io/__init__.py",
+            "io.hdf5": "distributed_matvec_tpu/io/hdf5.py",
+            "utils.artifacts": "distributed_matvec_tpu/utils/artifacts.py",
+            "apps.diagonalize": "apps/diagonalize.py",
+            "apps.dynamics": "apps/dynamics.py"}
+SOURCES = {**{k: "distributed_matvec_tpu/" + v for k, v in SLICE_11.items()},
+           **SLICE_12}
 
 
-@pytest.mark.parametrize("sub", sorted(SLICE_11))
+@pytest.mark.parametrize("sub", sorted(SOURCES))
 def test_copied_module_names_its_source(sub):
-    """Each module copied from the JAX package names its source on its
-    first line."""
+    """Each module copied from the JAX package (or its apps) names its
+    source on its first line."""
     path = os.path.join(PKG, *sub.split(".")) + ".py"
     with open(path, encoding="utf-8") as f:
         first = f.readline()
-    assert first.startswith("# Ported from distributed_matvec_tpu/"
-                            + SLICE_11[sub]), first
+    assert first.startswith("# Ported from " + SOURCES[sub]), first
 
 
 def _forbidden(name: str) -> bool:
@@ -58,7 +67,8 @@ def test_import_pulls_in_no_jax():
     for sub in ("serve.capacity", "serve.scheduler", "serve.service",
                 "obs.export", "obs.flight", "utils.config",
                 "utils.preempt", "utils.logging", "apps.solve_service",
-                *SLICE_11):
+                *SLICE_11, "models.yaml_io", "io", "io.hdf5",
+                "apps.diagonalize", "apps.dynamics"):
         assert f"distributed_matvec_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

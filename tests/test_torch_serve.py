@@ -460,8 +460,9 @@ def test_failed_batch_marks_jobs_failed(clean):
 
 
 def test_yaml_spec_fails_and_service_goes_on(tmp_path, clean):
-    """A yaml spec is keyed as JAX keys it, but its engine needs the
-    port's YAML loader: the job is recorded failed, the next one runs."""
+    """A yaml spec is keyed as JAX keys it and built through the port's
+    YAML loader; a config without a hamiltonian fails its job (the JAX
+    pool's ValueError), and the next one runs."""
     d = str(tmp_path / "spool")
     ypath = tmp_path / "model.yaml"
     ypath.write_text("basis: {number_spins: 8}\n")
@@ -475,7 +476,7 @@ def test_yaml_spec_fails_and_service_goes_on(tmp_path, clean):
     with open(os.path.join(d, "done", "yml.json")) as f:
         rec = json.load(f)
     assert rec["status"] == "failed"
-    assert "NotImplementedError" in rec["error"] and "YAML" in rec["error"]
+    assert "ValueError" in rec["error"] and "no hamiltonian" in rec["error"]
     with open(os.path.join(d, "done", "after.json")) as f:
         assert json.load(f)["status"] == "done"
 
