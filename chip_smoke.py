@@ -69,8 +69,11 @@ Phases, one JSON line each with its seconds:
    time limit).
 9. ``sharded``: the same chain_32_symm operator (enumerated once, by the
    full leg) through ``DistributedEngine(op, n_devices=4, mode=m)`` — four
-   hash shards on the one card, row chunk 16 384 — in every mode:
-   ``streamed``, ``ell``, ``compact`` and ``fused``.  Each build's seconds,
+   hash shards on the one card, row chunk 16 384 — in the modes
+   ``streamed``, ``ell`` and ``fused``; ``compact`` at D = 4 runs on
+   chain_24_symm (``COMPACT_N``, cut from chain_32_symm to fit the time
+   limit), held to a ``LocalEngine`` ell apply of that operator.  Each
+   build's seconds,
    peak device memory and plan or table bytes; the apply, through
    ``from_hashed``, against ``local_full``'s ell apply (atol 1e-13 / rtol
    1e-12); 7 timed applies (host wall and CUDA events; fused: its first
@@ -85,7 +88,7 @@ Phases, one JSON line each with its seconds:
    launch over every (chunk, shard) beside the byte bound, and its
    launches counted from 0 around the main path: 4 × 72 per apply.  Times
    here are one card running four shards, not a four-card result.  The
-   streamed and fused engines stay built for the next phase.
+   streamed and fused engines stay built for the next phases.
 10. ``pipeline``: ``pipeline_depth`` switched on engines already built —
    the full leg's D = 1 streamed engine at depths 0, 2 and 4, the sharded
    leg's D = 4 streamed engine at 0 and 2, and one D = 4 fused apply at 2.
@@ -115,15 +118,16 @@ Phases, one JSON line each with its seconds:
    ``streamed`` at B = 65 536 with 2²¹-entry buckets (build, the decode
    kernel on three of its own chunks against the plain version, 3 timed
    applies with its launches counted from 0: one per plan chunk per apply;
-   then at depth 2 an apply bit-equal to depth 0 under deterministic
-   algorithms, and 3 more timed applies, counted alike).  Rank 0 gathers
+   then at depth 2 one apply bit-equal to depth 0 under deterministic
+   algorithms, its launches counted alike; the timed depth-2 applies are
+   cut to fit the time limit).  Rank 0 gathers
    each apply, which must equal a one-process ``LocalEngine`` ell apply
    (atol 1e-13 / rtol 1e-12); both ranks' E0 must be the same bits and
    within 1e-10 of the one-process Lanczos; both ranks' block-solver
    eigenvalues the same bits and within 1e-10 of the same solvers run in
    one process, as ``solvers`` runs them.  Per rank: build
    seconds, apply ms (host wall and CUDA events), the exchange's ms and
-   bytes per apply, the host ms waiting in retires at depth 2, each block
+   bytes per apply, each block
    solver's seconds, applies, share outside the applies and count of
    collectives, whether the exchange is staged through host memory, and
    whether this torch's gloo takes CUDA tensors itself in
@@ -133,7 +137,9 @@ Phases, one JSON line each with its seconds:
    every exchange through ``all_to_all_single``; its plan must equal the
    full leg's byte for byte and its apply the full leg's bit for bit at
    depth 0 and at depth 2 (chain_32_symm) (all applies under
-   ``torch.use_deterministic_algorithms``).  (c) With two or more cards,
+   ``torch.use_deterministic_algorithms``), the launches of both counted;
+   3 timed applies at depth 0 (the timed depth-2 applies are cut to fit
+   the time limit).  (c) With two or more cards,
    leg (a) over NCCL, one rank per card; on one card a line says it did
    not run and why.  (d) In the gloo ranks of (a), the solve service over
    the group (``EnginePool(group=g)``, ``block_width=1``): two ell
@@ -306,6 +312,31 @@ applied); ``evolve`` on
 chain_16_symm equal to ``krylov_evolve`` called directly, its norm drift
 below 1e-12.  Its decode launches are ``launches_apps``.
 
+``shards`` runs after ``sharded``: chain_32_symm enumerated straight into
+D = 4 hash shards at row chunk 16 384, streamed ``lossless``, on an
+operator whose basis is never built.  Where ``h5py`` imports,
+``enumerate_to_shards`` writes a temporary shard file and the engine is
+``DistributedEngine.from_shards``; where it does not (the phase's line
+says ``"h5py"`` and which ``route`` ran), the same routing loop runs into
+the module-private in-memory sink and the engine builds through
+``_shard_source`` — both routes make the same checks.  The enumeration's
+and the routing's seconds apart; each shard's states and norms bit-equal
+to ``HashedLayout``'s shards of the full leg's basis, the counts summing
+to the census; the shard-native plan's words and dictionary bit-equal to
+the sharded leg's global-layout D = 4 streamed engine's; 3 applies, each
+held to ``local_full``'s ell apply through the layout the engine
+materializes on request (atol 1e-13 / rtol 1e-12), host and device ms,
+the decode launches 4 × 72 per apply; ⟨x, Hx⟩ of
+``state_keyed_hashed(7)`` within 1e-12 relative of the same probe on the
+full leg's D = 1 engine; the Resharder D = 4 → 1 (owner the full engine)
+and 1 → 4 (owner the shard-native engine), each landing the probe
+bit-equal to its owner's, with its seconds.  Where ``h5py`` imports, also
+a checkpointed ``lanczos`` on chain_20_symm at D = 4 (ell), preempted at
+its second safe point and resumed at D = 2 to the uninterrupted E0
+within 1e-10; without it the line says the step was skipped.  Its
+decode launches (the shard-native applies and both probes) are
+``launches_shards``.
+
 ``local_small`` runs after ``small``: chain_16_symm through ``LocalEngine``
 in ``ell``, ``compact`` and ``fused`` mode at ``batch_size=61`` (chunking
 and padding engage), matvec rank-1 and ``[N, 3]`` against ``matvec_host``
@@ -315,11 +346,12 @@ k = 1 sector of the 16-ring in ``ell`` and ``fused`` mode against
 
 Then the kernels line ``{"kernels": [...]}`` (launches on the main paths
 of ``full``, ``solvers``, ``resilience``, ``serve``, ``sharded``,
-``pipeline``, ``tiers``, ``ranks``, ``apps`` and ``costmodel``, and apart
-at one shard, at four, in the pipelined applies, in the quantized tiers,
-on the ranks (the served streamed job's included), under the service, in
-the resilience leg, in the two apps' solve functions and on the autotuned
-engines;
+``shards``, ``pipeline``, ``tiers``, ``ranks``, ``apps`` and
+``costmodel``, and apart at one shard, at four, in the pipelined applies,
+in the quantized tiers, on the ranks (the served streamed job's
+included), under the service, in the resilience leg, in the two apps'
+solve functions, on the autotuned engines and on the shard-native
+engine;
 largest error against the plain version, time per launch beside its bound
 and the plain version's time, at one shard and at four), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
@@ -1997,7 +2029,8 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
     x_np = x.cpu().numpy()
     out = {"n_states": n, "n_shards": D, "batch_size": B}
     kernel = {"engines": {}}
-    for mode in ("streamed", "ell", "compact", "fused"):
+    # compact runs on chain_{COMPACT_N}_symm below (cut to fit the limit)
+    for mode in ("streamed", "ell", "fused"):
         eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
             op, n_devices=D, mode=mode, batch_size=B, device=device,
             stream_compress="lossless"))
@@ -2062,7 +2095,50 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
         del eng
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    out["compact"] = sharded_compact_leg(device, D, B, applies)
     return out, kernel
+
+
+#: the sharded leg's compact engine runs on this ring's symmetric sector
+#: (its chain_32_symm build took ≈ 43 s: cut to fit the time limit)
+COMPACT_N = 24
+
+
+def sharded_compact_leg(device, D, B, applies):
+    """``DistributedEngine(op, n_devices=D, mode="compact")`` on
+    chain_{COMPACT_N}_symm: build seconds, peak memory and table bytes,
+    its apply against a ``LocalEngine`` ell apply of the same operator
+    (atol 1e-13 / rtol 1e-12), timed applies."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine, LocalEngine
+
+    cfg, enum_s = chain_cfg(COMPACT_N)
+    op = cfg.hamiltonian
+    n = op.basis.number_states
+    x_np = np.random.default_rng(13).standard_normal(n)
+    ell = LocalEngine(op, mode="ell", device=device)
+    y_ref = ell.matvec(torch.from_numpy(x_np).to(device))
+    del ell
+    eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
+        op, n_devices=D, mode="compact", batch_size=B, device=device))
+    info = {"chain": COMPACT_N, "n_states": n, "enumerate_s": enum_s,
+            "build_s": build_s, "build_peak_bytes": peak,
+            "timings": eng.timings, "shard_size": eng.shard_size,
+            "counts": [int(c) for c in eng.counts],
+            "table_bytes": eng.ell_nbytes, "ell_split": eng.ell_split,
+            "query_capacity": eng.query_capacity}
+    y = torch.from_numpy(eng.matvec_global(x_np)).to(device)
+    info["vs_local_ell_max_abs_err"] = assert_close(
+        y, y_ref, f"D = {D} compact vs LocalEngine ell apply "
+        f"(chain_{COMPACT_N}_symm)")
+    info.update(apply_times(device, eng, eng.to_hashed(x_np),
+                            applies=applies))
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return info
 
 
 def sharded_kernel_check(device, eng):
@@ -2111,6 +2187,235 @@ def sharded_kernel_check(device, eng):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_per_launch": nbytes, "share_of_bound":
                 max(t_bytes, t_ops) / ms}
+
+
+# -- shards (after sharded) ---------------------------------------------------
+
+#: the resume leg's ring (where h5py imports) and its two shard counts
+SHARDS_RESUME_N = 20
+
+
+def shards_phase(device, op, ell_ref, full_eng, sharded_streamed, n=32,
+                 expect_states=CHAIN32_STATES, D=SHARDS, B=SHARDED_BATCH,
+                 applies=3):
+    """The sharded enumeration and the shard-native engine at full width;
+    see the module docstring.  ``op`` is the full leg's operator (its
+    basis built), ``ell_ref`` local_full's ell engine, ``full_eng`` the
+    full leg's D = 1 streamed engine and ``sharded_streamed`` the sharded
+    leg's D = 4 global-layout streamed engine.  Returns (info, the decode
+    launches of the leg's main path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine
+    from distributed_matvec_tpu_torch.enumeration import sharded
+    from distributed_matvec_tpu_torch.enumeration.host import shard_index
+    from distributed_matvec_tpu_torch.models.yaml_io import (
+        basis_from_dict, operator_from_dict)
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.parallel.reshard import Resharder
+
+    has_h5 = importable("h5py")
+    out = {"h5py": has_h5, "n_shards": D, "batch_size": B}
+    cfg = chain_config(n)
+    basis = basis_from_dict(cfg["basis"])
+    op_s = operator_from_dict(cfg["hamiltonian"], basis)
+    kw = dict(n_devices=D, mode="streamed", stream_compress="lossless",
+              batch_size=B, device=device)
+    tmp = tempfile.mkdtemp(prefix="dmt_shards_")
+    try:
+        # 1. the enumeration routed into D shards: into the HDF5 file where
+        #    h5py imports, else into the in-memory sink (the line says which)
+        timings = {}
+        t0 = time.perf_counter()
+        if has_h5:
+            path = os.path.join(tmp, "shards.h5")
+            man = sharded.enumerate_to_shards(
+                n, basis.hamming_weight, basis.group, D, path,
+                _timings=timings)
+
+            def load(d):
+                return sharded.load_shard(path, d)
+
+            def make():
+                return DistributedEngine.from_shards(op_s, path, **kw)
+        else:
+            sink, timings = sharded._enumerate_in_memory(
+                n, basis.hamming_weight, basis.group, D)
+            man, load = sink.manifest, sink.load
+
+            def make():
+                return DistributedEngine(op_s, _shard_source=(man, load),
+                                         **kw)
+        out.update(route="file" if has_h5 else "memory",
+                   enumerate_s=timings["enumerate_s"],
+                   route_s=timings["route_s"],
+                   enumerate_and_route_s=time.perf_counter() - t0)
+
+        # 2. per-shard states and norms against the full leg's basis
+        t0 = time.perf_counter()
+        reps = np.asarray(op.basis.representatives, np.uint64)
+        norms = np.asarray(op.basis.norms)
+        owner = shard_index(reps, D)
+        counts = [int(c) for c in man["counts"]]
+        for d in range(D):
+            s, w = load(d)
+            if not (np.array_equal(s, reps[owner == d])
+                    and np.array_equal(w, norms[owner == d])):
+                raise AssertionError(f"shard {d}'s states or norms differ "
+                                     "from HashedLayout's of the full leg")
+        if sum(counts) != expect_states or man["total"] != expect_states:
+            raise AssertionError(f"the shards hold {sum(counts)} states, "
+                                 f"the census {expect_states}")
+        del reps, norms, owner
+        out.update(counts=counts, total=int(man["total"]),
+                   shards_checked_s=time.perf_counter() - t0)
+
+        # 3. the shard-native build, and its plan against the sharded leg's
+        #    global-layout engine's
+        eng, build_s, peak = build_timed(device, make)
+        if basis.is_built:
+            raise AssertionError("the shard-native build built the basis")
+        ref = sharded_streamed
+        if not (eng.nchunks == ref.nchunks
+                and torch.equal(eng._plan_host, ref._plan_host)
+                and torch.equal(eng._cdict, ref._cdict)):
+            raise AssertionError("the shard-native plan differs from the "
+                                 "global-layout engine's")
+        out.update(build_s=build_s, build_peak_bytes=peak,
+                   timings=eng.timings, nchunks=eng.nchunks,
+                   plan_bytes=int(eng.plan_bytes), plan_bit_equal=True,
+                   stream_kernel=eng.stream_kernel)
+
+        # 4. applies, each held to local_full's ell apply through the
+        #    layout the engine materializes on request
+        x_np = np.random.default_rng(13).standard_normal(eng.n_states)
+        y_ref = ell_ref.matvec(torch.from_numpy(x_np).to(device))
+        t0 = time.perf_counter()
+        xh = eng.to_hashed(x_np)
+        out["layout_s"] = time.perf_counter() - t0
+        PC.fused_decode_gather_scatter.launches = 0
+        eng.n_applies = 0
+        full_eng.n_applies = 0
+        host, dev_ms, errs = [], [], []
+        for _ in range(applies):
+            _sync(device)
+            t0 = time.perf_counter()
+            if device.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            yh = eng.matvec(xh)
+            if device.type == "cuda":
+                e1.record()
+            _sync(device)
+            host.append((time.perf_counter() - t0) * 1e3)
+            if device.type == "cuda":
+                dev_ms.append(e0.elapsed_time(e1))
+            errs.append(assert_close(
+                torch.from_numpy(eng.from_hashed(yh)).to(device), y_ref,
+                f"D = {D} shard-native apply vs LocalEngine ell apply"))
+        per_apply = D * eng.nchunks
+        launches = PC.fused_decode_gather_scatter.launches
+        if device.type == "cuda" and launches != per_apply * applies:
+            raise AssertionError(f"{launches} decode launches for {applies} "
+                                 f"applies of {D} × {eng.nchunks} chunks")
+        out.update(applies=applies, launches_per_apply=per_apply,
+                   apply_ms_host=host, apply_ms_device=dev_ms,
+                   vs_local_ell_max_abs_err=max(errs))
+
+        # 5. the state-keyed probe: <x, Hx> at D = 4 and at D = 1
+        p4 = eng.state_keyed_hashed(7)
+        p1 = full_eng.state_keyed_hashed(7)
+        v4 = float(eng.dot(p4, eng.matvec(p4)))
+        v1 = float(full_eng.dot(p1, full_eng.matvec(p1)))
+        rel = abs(v4 - v1) / abs(v1)
+        if rel > 1e-12:
+            raise AssertionError(f"<x, Hx> of the state-keyed probe: "
+                                 f"{v4} at D = {D}, {v1} at D = 1")
+        launches = PC.fused_decode_gather_scatter.launches
+        want = per_apply * (applies + 1) + full_eng.nchunks
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"{launches} decode launches, {want} "
+                                 "expected on the leg's main path")
+        out.update(probe_d4=v4, probe_d1=v1, probe_rel_err=rel,
+                   launches=launches)
+
+        # 6. the Resharder both ways, each landing bit-equal on the probe
+        #    of its owner engine
+        for src, dst, x_src, want in ((eng, full_eng, p4, p1),
+                                      (full_eng, eng, p1, p4)):
+            t0 = time.perf_counter()
+            plan = Resharder(dst, src.n_devices, src.counts)
+            host_rows = x_src.cpu().numpy()
+            cnt = np.asarray(src.counts)
+            rows = plan.reshard_rows(
+                lambda i, s: host_rows[s, : cnt[s]], 1, dtype=np.float64)
+            _sync(device)
+            secs = time.perf_counter() - t0
+            if not torch.equal(rows[0], want):
+                raise AssertionError(
+                    f"reshard {src.n_devices} → {dst.n_devices}: the probe "
+                    "does not land bit-equal")
+            out[f"reshard_{src.n_devices}_to_{dst.n_devices}_s"] = secs
+        del rows, plan, eng, xh, yh, p4, p1
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 7. a checkpointed solve resumed on another D (files: h5py only)
+        out["resume"] = shards_resume_leg(device, tmp) if has_h5 else \
+            "skipped: h5py does not import on this machine (the solvers' " \
+            "checkpoints are HDF5 files)"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, out["launches"]
+
+
+def shards_resume_leg(device, tmp, n=SHARDS_RESUME_N, D=4, Dp=2):
+    """A checkpointed ``lanczos`` on chain_{n}_symm at D shards (ell),
+    stopped by a preemption at its second safe point, resumed at D′ to
+    the uninterrupted solve's E0 within 1e-10."""
+    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch.utils import preempt
+
+    cfg, _ = chain_cfg(n)
+    op = cfg.hamiltonian
+    ck = os.path.join(tmp, "lanczos_ck.h5")
+    kw = dict(k=1, tol=1e-12, check_every=8)
+    src = DistributedEngine(op, n_devices=D, mode="ell", device=device)
+    dst = DistributedEngine(op, n_devices=Dp, mode="ell", device=device)
+    full = lanczos(src.matvec, v0=src.random_hashed(42), **kw)
+    agreed, calls = preempt.agreed, [0]
+
+    def second(group):
+        calls[0] += 1
+        return calls[0] == 2
+
+    preempt.agreed = second
+    try:
+        lanczos(src.matvec, v0=src.random_hashed(42), checkpoint_path=ck,
+                checkpoint_every=100, **kw)
+        raise AssertionError("the checkpointed solve was not preempted")
+    except preempt.Preempted as e:
+        stopped = e.iters
+    finally:
+        preempt.agreed = agreed
+    t0 = time.perf_counter()
+    res = lanczos(dst.matvec, v0=dst.random_hashed(42), checkpoint_path=ck,
+                  **kw)
+    secs = time.perf_counter() - t0
+    e0, want = float(res.eigenvalues[0]), float(full.eigenvalues[0])
+    if res.resumed_from != stopped or abs(e0 - want) > 1e-10:
+        raise AssertionError(f"resumed from {res.resumed_from} of {stopped} "
+                             f"iterations at D = {Dp}: E0 {e0}, {want} "
+                             "uninterrupted")
+    return {"chain": n, "d_from": D, "d_to": Dp, "stopped_at": stopped,
+            "resumed_from": res.resumed_from, "e0": e0,
+            "e0_minus_uninterrupted": e0 - want, "resumed_solve_s": secs}
+
 
 
 # -- phase 10: pipeline --------------------------------------------------------
@@ -2798,28 +3103,25 @@ def rank_worker(rank, backend, world, tmp, n, batch, remote_buffer,
     info.update(applies=eng.n_applies, launches=launches,
                 exchange_ms_per_apply=exchange_ms(
                     device, g, (world, spec["cap_eff"], 1), eng.nchunks))
-    # depth 2: bit-equal to depth 0 (not counted), then counted and timed
+    # depth 2: one apply bit-equal to depth 0, its launches counted (the
+    # timed depth-2 applies are cut to fit the time limit)
     y0 = deterministic(lambda: eng.matvec(xh))
     eng.pipeline_depth = 2
+    PC.fused_decode_gather_scatter.launches = 0
+    eng.n_applies = 0
     y2 = deterministic(lambda: eng.matvec(xh))
+    launches2 = PC.fused_decode_gather_scatter.launches
     if not torch.equal(y0, y2):
         raise AssertionError(f"rank {rank}: the depth-2 streamed apply "
                              "differs from depth 0")
     del y0, y2
-    PC.fused_decode_gather_scatter.launches = 0
-    eng.n_applies = 0
-    pipe = rank_apply_times(device, eng, xh)
-    launches2 = PC.fused_decode_gather_scatter.launches
     if device.type == "cuda" and launches2 != eng.nchunks * eng.n_applies:
         raise AssertionError(f"rank {rank}: {launches2} decode launches for "
                              f"{eng.n_applies} depth-2 applies of "
                              f"{eng.nchunks} chunks")
-    pipe.update(applies=eng.n_applies, launches=launches2,
-                bit_equal_to_depth_0=True,
-                exchange_ms_per_apply=exchange_ms(
-                    device, g, (world, spec["cap_eff"], 1), eng.nchunks,
-                    staged=True))
-    info["depth2"] = pipe
+    info["depth2"] = {"depth": eng.pipeline_depth,
+                      "applies": eng.n_applies, "launches": launches2,
+                      "bit_equal_to_depth_0": True}
     info["launches"] = launches + launches2
     if rank == 0:
         np.save(os.path.join(tmp, f"y_streamed_{backend}.npy"), y)
@@ -3118,8 +3420,13 @@ def nccl_one_rank_leg(device, full_eng, tmp):
             eng.pipeline_depth = 2
             y2 = eng.matvec(xh)
             eng.pipeline_depth = 0
+            launches_d2 = PC.fused_decode_gather_scatter.launches
         finally:
             torch.use_deterministic_algorithms(False)
+        if launches_d2 != 2 * eng.nchunks:
+            raise AssertionError(f"{launches_d2} decode launches for the "
+                                 f"depth-0 and depth-2 applies of "
+                                 f"{eng.nchunks} chunks")
         for depth, got in ((0, y), (2, y2)):
             if not torch.equal(got, y_full):
                 raise AssertionError(
@@ -3130,10 +3437,9 @@ def nccl_one_rank_leg(device, full_eng, tmp):
                 "build_peak_bytes": peak, "nchunks": eng.nchunks,
                 "equal_to_full_bit_for_bit": [0, 2],
                 "wire_dtypes_checked": wire}
+        # the depth-2 apply above is the leg's one at depth 2 (its timed
+        # applies are cut to fit the time limit)
         info.update(rank_apply_times(device, eng, xh))
-        eng.pipeline_depth = 2
-        info["depth2"] = rank_apply_times(device, eng, xh)
-        eng.pipeline_depth = 0
         launches = PC.fused_decode_gather_scatter.launches
         applies = eng.n_applies
         # the full leg's engine (the exchange a transpose) and this one in
@@ -3962,6 +4268,9 @@ def main() -> int:
     _, sharded = run_phase("sharded", sharded_phase, device, op, ell,
                            full["e0"])
     torch.cuda.empty_cache()
+    _, shards_launches = run_phase("shards", shards_phase, device, op, ell,
+                                   eng, sharded["engines"]["streamed"])
+    torch.cuda.empty_cache()
     pipe, pipe_launches = run_phase("pipeline", pipeline_phase, device, eng,
                                     sharded.pop("engines"))
     torch.cuda.empty_cache()
@@ -3990,7 +4299,8 @@ def main() -> int:
         "replaces": "distributed_matvec_tpu/ops/plan_codec.py:651",
         "launches": launches + solver_launches + sharded["launches"]
         + pipe_launches + tier_launches + ranks["launches"]
-        + serve_launches + cost_launches + resil_launches + apps_launches,
+        + serve_launches + cost_launches + resil_launches + apps_launches
+        + shards_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            tiers["kernel_max_abs_err"],
@@ -4021,6 +4331,9 @@ def main() -> int:
         # the apps leg: the diagonalize solve function's streamed solve at
         # chain_32_symm and the dynamics KPM run (D = 1)
         "launches_apps": apps_launches,
+        # the shards leg: the shard-native D = 4 engine's applies and
+        # probe, and the full leg's probe apply (D = 1)
+        "launches_shards": shards_launches,
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],

@@ -9,23 +9,29 @@ The command-line app of the port (the reference's ``bin/Diagonalize``,
 
   1. load the YAML config (basis + hamiltonian [+ observables]),
   2. build or *restore* the representative set from the output file
-     (checkpoint semantics of ``makeBasisStates``, Diagonalize.chpl:227-246),
+     (checkpoint semantics of ``makeBasisStates``, Diagonalize.chpl:227-246)
+     — or, with ``--shards``, build the engine straight from a
+     sharded-enumeration file (``DistributedEngine.from_shards``, mode
+     ``fused`` by default): the global representative array never exists,
   3. run the eigensolver (:func:`solve`: Lanczos, block Lanczos on a
      streamed or hybrid engine, or LOBPCG with ``--block``) on the card
      (``--device``, default ``cuda``: it raises without one unless
      ``--device cpu`` is given) — one engine, D hash shards on the one
      device (``--devices``), or one shard per process rank
-     (``--num-processes``),
+     (``--num-processes``); ``--solver-checkpoint`` checkpoints the
+     Lanczos or LOBPCG solve, and a relaunch with the same argv (after a
+     preemption, exit 75) resumes it, on the same D or another,
   4. save eigenvalues/eigenvectors/residuals into the output HDF5
-     (Diagonalize.chpl:248-256) and print a summary (+ observable
+     (Diagonalize.chpl:248-256; with ``--shards`` the eigenvectors stay
+     hashed and are written per shard under
+     ``vector_shards/eigenvector_<i>``) and print a summary (+ observable
      expectation values when requested).
 
 The flags, the file layout, the start vectors (seed 42 on distributed
 engines) and the exit codes are the JAX app's, so the two apps' files
 compare dataset by dataset.  Reading the YAML needs ``yaml`` and the file
 needs ``h5py``; where either is missing the app fails before any
-enumeration, naming it.  Not here yet: ``--shards`` (sharded enumeration)
-and ``--solver-checkpoint`` (the solvers' checkpoints) exit 2.
+enumeration, naming it.
 """
 
 from __future__ import annotations
@@ -41,16 +47,6 @@ import numpy as np
 
 __all__ = ["Diagonalization", "build_parser", "solve", "observable_values",
            "main"]
-
-_NOT_YET = {
-    "shards": "--shards is not in the port yet (ROADMAP.md, Queue 1: "
-              "enumeration/sharded.py, io/sharded_io.py and "
-              "DistributedEngine.from_shards)",
-    "solver_checkpoint": "--solver-checkpoint is not in the port yet "
-                         "(ROADMAP.md, Queue 1: the solvers' checkpoint "
-                         "and resume)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -101,16 +97,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="multi-process: this process's rank")
     ap.add_argument("--shards", default=None, metavar="SHARDS_H5",
                     help="construct the engine from a sharded-enumeration "
-                         "file (not in the port yet: exits 2)")
+                         "file (enumeration.sharded.enumerate_to_shards) "
+                         "— the global representative array is never "
+                         "built; the solve stays in hashed space and "
+                         "eigenvectors are saved per shard "
+                         "(vector_shards/eigenvector_<i>)")
     ap.add_argument("--mode", choices=("ell", "compact", "streamed",
                                        "fused", "hybrid"),
-                    default="ell",
+                    default=None,
                     help="engine mode: precomputed structure (ell, the "
                          "default), 4 B/entry for isotropic real sectors "
                          "(compact), the structure resolved once into a "
                          "host-RAM plan streamed per apply (streamed; "
                          "solved via the block Lanczos), "
-                         "recompute-on-the-fly (fused), or the per-term "
+                         "recompute-on-the-fly (fused — the default with "
+                         "--shards), or the per-term "
                          "recompute-vs-stream split priced by the "
                          "calibrated cost model (hybrid — the DMT_HYBRID "
                          "knob picks the split policy; solved like "
@@ -118,13 +119,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block", action="store_true",
                     help="use LOBPCG (blocked) instead of Lanczos")
     ap.add_argument("--solver-checkpoint", default=None, metavar="CKPT_H5",
-                    help="mid-solve Lanczos/LOBPCG checkpoint/resume file "
-                         "(not in the port yet: exits 2; with --mode "
-                         "streamed/hybrid it is ignored with a warning, as "
-                         "in the JAX app)")
+                    help="mid-solve Lanczos/LOBPCG checkpoint/resume file; "
+                         "a rerun with the same config resumes where it "
+                         "stopped — including after a preemption exit "
+                         "(code 75), on the same --devices or another "
+                         "(with --mode streamed/hybrid it is ignored with "
+                         "a warning, as in the JAX app)")
     ap.add_argument("--checkpoint-every", type=int, default=4,
                     help="solver-checkpoint cadence in convergence-check "
-                         "blocks (with --solver-checkpoint)")
+                         "blocks (each block is check_every=16 "
+                         "iterations)")
     ap.add_argument("--no-eigenvectors", action="store_true",
                     help="skip eigenvector computation/saving")
     ap.add_argument("--observables", action="store_true",
@@ -164,22 +168,33 @@ class Diagonalization:
 
     eigenvalues: np.ndarray               # [k] ascending
     residuals: np.ndarray                 # [k]
-    #: [k, N] block order on the host (None with ``eigenvectors=False``)
+    #: [k, N] block order on the host (None with ``eigenvectors=False``,
+    #: and for a shard-native solve)
     eigenvectors: Optional[np.ndarray]
     iterations: int
     converged: bool
     engine_s: float                       # engine construction
     solve_s: float                        # the solver call
     engine: object = field(repr=False)
+    #: a shard-native solve's eigenvectors, hashed (``[L, M]`` tensors)
+    hashed_eigenvectors: Optional[list] = field(default=None, repr=False)
+    #: iterations restored from the solver checkpoint
+    resumed_from: int = 0
 
 
-def _engine(op, mode: str, devices: int, device, group):
-    """The JAX app's engine choice: a rank engine over ``group``; a
-    ``DistributedEngine`` for D > 1 or the streamed/hybrid modes (their
-    single-device form at D = 1); else a ``LocalEngine``."""
+def _engine(op, mode: str, devices: int, device, group, shards=None):
+    """The JAX app's engine choice: an engine from the shard file
+    ``shards`` (``from_shards``, D from the file unless ``devices``); a
+    rank engine over ``group``; a ``DistributedEngine`` for D > 1 or the
+    streamed/hybrid modes (their single-device form at D = 1); else a
+    ``LocalEngine``."""
     from ..parallel.distributed import DistributedEngine
     from ..parallel.engine import LocalEngine
 
+    if shards:
+        return DistributedEngine.from_shards(
+            op, shards, n_devices=None if group is not None
+            else devices or None, mode=mode, device=device, group=group)
     if group is not None:
         return DistributedEngine(op, group=group, mode=mode)
     if devices > 1 or mode in ("streamed", "hybrid"):
@@ -197,10 +212,13 @@ def solve(cfg, *, k: int = 1, tol: float = 1e-10, max_iters: int = 1000,
           max_basis_size: Optional[int] = None,
           min_restart_size: Optional[int] = None, devices: int = 0,
           mode: str = "ell", block: bool = False, eigenvectors: bool = True,
-          device="cuda", group=None, timer=None) -> Diagonalization:
-    """The app's solve on a built ``cfg.basis``: the engine for ``mode``
-    (``devices`` shards on ``device``, or one shard per rank of
-    ``group``), then
+          device="cuda", group=None, timer=None, shards=None,
+          checkpoint_path: Optional[str] = None,
+          checkpoint_every: int = 4) -> Diagonalization:
+    """The app's solve on a built ``cfg.basis`` (or, with ``shards``, on
+    the engine ``DistributedEngine.from_shards`` builds from that file):
+    the engine for ``mode`` (``devices`` shards on ``device``, or one
+    shard per rank of ``group``), then
 
     * ``block``: LOBPCG, residuals ``‖Hv − λv‖`` through the block-order
       apply;
@@ -209,8 +227,13 @@ def solve(cfg, *, k: int = 1, tol: float = 1e-10, max_iters: int = 1000,
     * else ``lanczos`` (from ``random_hashed(seed=42)`` on a distributed
       engine).
 
-    Eigenvectors come back in block order on the host.  A latched
-    preemption raises ``utils.preempt.Preempted``."""
+    ``checkpoint_path`` checkpoints the Lanczos solve every
+    ``checkpoint_every`` convergence-check blocks and the LOBPCG solve
+    every 16·``checkpoint_every`` iterations (a streamed or hybrid block
+    solve is not checkpointed), and resumes from it.  Eigenvectors come
+    back in block order on the host — or, for a shard-native solve,
+    hashed (``hashed_eigenvectors``).  A latched preemption raises
+    ``utils.preempt.Preempted`` (the checkpoint written first)."""
     from contextlib import nullcontext
 
     from ..solve import lanczos, lanczos_block, lobpcg
@@ -219,19 +242,32 @@ def solve(cfg, *, k: int = 1, tol: float = 1e-10, max_iters: int = 1000,
     def scope(name):
         return timer.scope(name) if timer is not None else nullcontext()
 
-    n = cfg.basis.number_states
     t0 = time.perf_counter()
     with scope("engine"):
-        eng = _engine(cfg.hamiltonian, mode, devices, device, group)
+        eng = _engine(cfg.hamiltonian, mode, devices, device, group, shards)
         v0 = eng.random_hashed(seed=42) if hasattr(eng, "from_hashed") \
             else None
+    n = eng.n_states if shards else cfg.basis.number_states
     engine_s = time.perf_counter() - t0
+    resumed_from = 0
     with scope("solve"), maybe_profile():
         t0 = time.perf_counter()
         if block:
-            evals, cols, niter = lobpcg(eng.matvec, n, k=k, tol=tol,
-                                        max_iters=max_iters,
-                                        device=eng.device)
+            from .. import obs
+
+            evals, cols, niter = lobpcg(
+                eng.matvec, n, k=k, tol=tol, max_iters=max_iters,
+                checkpoint_path=checkpoint_path,
+                # the cadence counts Lanczos check blocks of 16
+                # iterations; LOBPCG segments count iterations
+                checkpoint_every=max(checkpoint_every, 1) * 16,
+                device=eng.device)
+            # LOBPCG's 3-tuple carries no resume count: its
+            # solver_resume event does
+            resumed = [e for e in obs.events("solver_resume")
+                       if e.get("solver") == "lobpcg"]
+            if checkpoint_path and resumed:
+                resumed_from = int(resumed[-1]["iters"])
             cols = _host(cols)
             vecs = [cols[:, i] for i in range(cols.shape[1])]
             mv_block = getattr(eng, "matvec_global", None) \
@@ -251,19 +287,27 @@ def solve(cfg, *, k: int = 1, tol: float = 1e-10, max_iters: int = 1000,
                               max_basis_size=max_basis_size,
                               min_restart_size=min_restart_size,
                               compute_eigenvectors=eigenvectors,
+                              checkpoint_path=checkpoint_path,
+                              checkpoint_every=checkpoint_every,
                               device=eng.device)
+                resumed_from = res.resumed_from
             evals, residuals, niter = (res.eigenvalues, res.residual_norms,
                                        res.num_iters)
             converged = res.converged
             vecs = res.eigenvectors
         solve_s = time.perf_counter() - t0
-    rows = None
-    if vecs is not None and eigenvectors:
+    rows = hashed = None
+    if shards and vecs is not None and eigenvectors \
+            and all(v.ndim == 2 for v in vecs[:k]):
+        # shard-native: the eigenvectors stay hashed and are written per
+        # shard — no global [N] array is ever materialized
+        hashed = list(vecs[:k])
+    elif vecs is not None and eigenvectors:
         out = []
         for v in vecs[:k]:
             # hashed → block order; on a rank engine from_hashed
             # all-gathers, so every rank makes the call
-            if hasattr(eng, "from_hashed") and v.dim() == 2:
+            if hasattr(eng, "from_hashed") and v.ndim == 2:
                 out.append(eng.from_hashed(v))
             else:
                 out.append(_host(v))
@@ -271,7 +315,8 @@ def solve(cfg, *, k: int = 1, tol: float = 1e-10, max_iters: int = 1000,
     return Diagonalization(
         eigenvalues=np.asarray(evals), residuals=np.asarray(residuals),
         eigenvectors=rows, iterations=int(niter), converged=converged,
-        engine_s=engine_s, solve_s=solve_s, engine=eng)
+        engine_s=engine_s, solve_s=solve_s, engine=eng,
+        hashed_eigenvectors=hashed, resumed_from=resumed_from)
 
 
 def observable_values(observables, eng, psi: np.ndarray
@@ -303,16 +348,6 @@ def main(argv=None) -> int:
         return _main(argv)
 
 
-def _refused(args) -> Optional[str]:
-    """The one-line refusal for a flag that waits for a later slice."""
-    if args.shards:
-        return _NOT_YET["shards"]
-    if args.solver_checkpoint and (
-            args.block or args.mode not in ("streamed", "hybrid")):
-        return _NOT_YET["solver_checkpoint"]
-    return None
-
-
 def _submit(args) -> int:
     """Enqueue-and-exit: no engine, no solve, no device touch — the job
     spec carries everything the service needs to rebuild the model."""
@@ -331,7 +366,7 @@ def _submit(args) -> int:
     job_id = args.job_id or f"cli-{uuid.uuid4().hex[:10]}"
     spec = JobSpec(job_id=job_id, yaml=os.path.abspath(args.input),
                    k=args.num_evals, tol=args.tol, max_iters=args.max_iters,
-                   mode=args.mode, n_devices=args.devices)
+                   mode=args.mode or "ell", n_devices=args.devices)
     path = submit_to_spool(args.serve_dir, spec)
     print(f"submitted job {job_id} -> {path}")
     print(f"result will land at "
@@ -375,10 +410,6 @@ def _restore_basis(cfg, out: str, group) -> bool:
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refusal = _refused(args)
-    if refusal:
-        print(refusal, file=sys.stderr)
-        return 2
     if args.submit:
         return _submit(args)
 
@@ -429,13 +460,15 @@ def _main(argv=None) -> int:
         watchdog = HeartbeatWatchdog(
             hb_dir, interval_s=cfg_rt.heartbeat_s,
             timeout_s=cfg_rt.heartbeat_timeout_s).start()
-    if args.solver_checkpoint:
+    mode = args.mode or ("fused" if args.shards else "ell")
+    if args.solver_checkpoint and not args.block \
+            and mode in ("streamed", "hybrid"):
         print("warning: --solver-checkpoint applies to the single-vector "
               "Lanczos and LOBPCG; streamed-mode block solves exit cleanly "
               "on preemption but are not checkpointed", file=sys.stderr)
     timer = TreeTimer("diagonalize")
     obs.emit("run_start", app="diagonalize", input=args.input, output=out,
-             k=args.num_evals, devices=args.devices, mode=args.mode,
+             k=args.num_evals, devices=args.devices, mode=mode,
              block=bool(args.block))
 
     with timer.scope("load_config"):
@@ -444,19 +477,32 @@ def _main(argv=None) -> int:
     if cfg.hamiltonian is None:
         print("config has no hamiltonian section", file=sys.stderr)
         return 2
-    with timer.scope("basis"):
-        restored = _restore_basis(cfg, out, group)
-    print(f"basis: N={cfg.basis.number_states} states "
-          f"({'restored from' if restored else 'checkpointed to'} {out})")
+    if args.shards:
+        from ..enumeration.sharded import shard_manifest
+
+        man = shard_manifest(args.shards)     # no h5py: raises here
+        if man is None:
+            print(f"no shard manifest at {args.shards}", file=sys.stderr)
+            return 2
+        print(f"basis: N={man['total']} states (shard-native from "
+              f"{args.shards})")
+    else:
+        with timer.scope("basis"):
+            restored = _restore_basis(cfg, out, group)
+        print(f"basis: N={cfg.basis.number_states} states "
+              f"({'restored from' if restored else 'checkpointed to'} "
+              f"{out})")
 
     try:
         res = solve(cfg, k=args.num_evals, tol=args.tol,
                     max_iters=args.max_iters,
                     max_basis_size=args.max_basis_size,
                     min_restart_size=args.min_restart_size,
-                    devices=args.devices, mode=args.mode, block=args.block,
+                    devices=args.devices, mode=mode, block=args.block,
                     eigenvectors=not args.no_eigenvectors, device=device,
-                    group=group, timer=timer)
+                    group=group, timer=timer, shards=args.shards,
+                    checkpoint_path=args.solver_checkpoint,
+                    checkpoint_every=args.checkpoint_every)
     except Preempted as e:
         # close the run's telemetry and hand the supervisor the distinct
         # exit code — a relaunch with the SAME argv runs again
@@ -473,6 +519,9 @@ def _main(argv=None) -> int:
     if not res.converged:
         print("warning: solver did not converge", file=sys.stderr)
     dt, niter = res.solve_s, res.iterations
+    if res.resumed_from:
+        print(f"solver: resumed from {res.resumed_from} checkpointed "
+              "iterations")
     print(f"solver: {niter} iterations in {dt:.2f}s "
           f"({niter / max(dt, 1e-9):.2f} iters/s)")
     obs.emit("diagonalize_result",
@@ -484,10 +533,35 @@ def _main(argv=None) -> int:
         if rank0:
             save_eigen(out, res.eigenvalues, res.eigenvectors,
                        res.residuals)
+        if res.hashed_eigenvectors is not None:
+            # every rank writes its shards (out.r<rank> in a multi-process
+            # run), one file pass for all k
+            from ..io.sharded_io import save_hashed_vectors
+
+            shards = res.engine._shards
+            save_hashed_vectors(
+                out, {f"eigenvector_{i}": {d: v[l] for l, d
+                                           in enumerate(shards)}
+                      for i, v in enumerate(res.hashed_eigenvectors)},
+                res.engine.counts)
     for i, (w, r) in enumerate(zip(res.eigenvalues, res.residuals)):
         print(f"  E[{i}] = {w:.12f}   residual {r:.2e}")
 
     if args.observables and cfg.observables \
+            and res.hashed_eigenvectors is not None:
+        # shard-native observables: psi never leaves the hashed space; each
+        # observable engine comes from the same shard file
+        from ..io.hdf5 import save_observables
+        from ..models.observables import expectations
+
+        with timer.scope("observables"):
+            values = expectations(cfg.observables, res.engine,
+                                  res.hashed_eigenvectors[0],
+                                  shards_path=args.shards)
+        if rank0:
+            for name, val in save_observables(out, values).items():
+                print(f"  <{name}> = {val:.12f}")
+    elif args.observables and cfg.observables \
             and res.eigenvectors is not None:
         # ⟨ψ₀|O|ψ₀⟩ per observable, printed and saved under /observables —
         # the output group the reference's Diagonalize creates

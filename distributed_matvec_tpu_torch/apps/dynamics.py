@@ -16,8 +16,10 @@ telemetry and optional per-step observable trajectories (``--solver
 evolve``).  The output group (``/kpm`` or ``/evolve``) and the seeds are
 the JAX app's.  Reading the YAML needs ``yaml`` and the file needs
 ``h5py``; where either is missing the app fails before the engine is
-built, naming it.  ``--checkpoint`` (the solvers' checkpoints) is not in
-the port yet and exits 2.
+built, naming it.  ``--checkpoint`` checkpoints the KPM recurrence or the
+evolve trajectory every ``--checkpoint-every`` steps and at a preemption
+(exit 75); a relaunch with the same argv resumes it (an evolve trajectory
+bit for bit).
 """
 
 from __future__ import annotations
@@ -31,10 +33,6 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["build_parser", "run", "main"]
-
-_NO_CHECKPOINT = ("--checkpoint is not in the port yet (ROADMAP.md, Queue "
-                  "1: the solvers' checkpoint and resume)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -98,11 +96,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=42,
                     help="start-state / random-vector seed")
     ap.add_argument("--checkpoint", default=None, metavar="CKPT_H5",
-                    help="mid-run checkpoint/resume file (not in the port "
-                         "yet: exits 2)")
+                    help="mid-run checkpoint/resume file: the solver "
+                         "state is written every --checkpoint-every steps "
+                         "and at a preemption; a relaunch with the same "
+                         "argv resumes")
     ap.add_argument("--checkpoint-every", type=int, default=16,
-                    help="checkpoint cadence in solver steps (with "
-                         "--checkpoint)")
+                    help="checkpoint cadence in solver steps")
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
                     help="telemetry run directory (DMT_OBS_DIR)")
     ap.add_argument("--job-id", default=None, metavar="ID",
@@ -115,11 +114,13 @@ def run(cfg, *, solver: str = "kpm", mode: str = "streamed",
         vectors: int = 4, kernel: str = "jackson", points: int = 512,
         bounds_iters: int = 64, t_final: float = 1.0, dt0=None,
         krylov_dim: int = 24, tol: float = 1e-12, observables: bool = False,
-        seed: int = 42) -> Tuple[dict, object, object, float]:
+        seed: int = 42, checkpoint_path=None,
+        checkpoint_every: int = 16) -> Tuple[dict, object, object, float]:
     """The app's solve: ``DistributedEngine(cfg.hamiltonian, n_devices=
     devices or 1, mode=mode)`` on ``device``, then ``kpm_moments`` +
     ``reconstruct_dos`` or ``krylov_evolve`` (with ``cfg.observables``
-    bound when ``observables``).  Returns ``(payload, result, engine,
+    bound when ``observables``), checkpointed to ``checkpoint_path`` every
+    ``checkpoint_every`` steps when given.  Returns ``(payload, result, engine,
     seconds)``: ``payload`` the output group's datasets by name, the
     solver's result, the engine and the solve's seconds.  A latched
     preemption raises ``utils.preempt.Preempted``."""
@@ -132,7 +133,9 @@ def run(cfg, *, solver: str = "kpm", mode: str = "streamed",
         from ..solve import kpm_moments, reconstruct_dos
 
         res = kpm_moments(eng.matvec, n_moments=moments, n_vectors=vectors,
-                          seed=seed, bounds_iters=bounds_iters)
+                          seed=seed, bounds_iters=bounds_iters,
+                          checkpoint_path=checkpoint_path,
+                          checkpoint_every=checkpoint_every)
         energies, rho = reconstruct_dos(res.moments, res.scale,
                                         npoints=points, kernel=kernel)
         payload = {"moments": res.moments,
@@ -149,7 +152,9 @@ def run(cfg, *, solver: str = "kpm", mode: str = "streamed",
             bound = bind_observables(cfg.observables, eng)
         res = krylov_evolve(eng.matvec, t_final=t_final, dt0=dt0,
                             krylov_dim=krylov_dim, tol=tol, seed=seed,
-                            observables=bound)
+                            observables=bound,
+                            checkpoint_path=checkpoint_path,
+                            checkpoint_every=checkpoint_every)
         payload = {"times": res.times, "energies": res.energies,
                    "norm_drift": np.float64(res.norm_drift),
                    "energy_drift": np.float64(res.energy_drift)}
@@ -170,9 +175,6 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.checkpoint:
-        print(_NO_CHECKPOINT, file=sys.stderr)
-        return 2
 
     from .. import obs
     from ..io.hdf5 import _h5py
@@ -212,7 +214,9 @@ def _main(argv=None) -> int:
             kernel=args.kernel, points=args.points,
             bounds_iters=args.bounds_iters, t_final=args.t_final,
             dt0=args.dt0, krylov_dim=args.krylov_dim, tol=args.tol,
-            observables=args.observables, seed=args.seed)
+            observables=args.observables, seed=args.seed,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every)
     except Preempted as e:
         print(f"preempted: {e}", file=sys.stderr)
         obs.emit("run_preempted", app="dynamics", solver=e.solver,
@@ -229,6 +233,9 @@ def _main(argv=None) -> int:
         print(f"  spectral bracket [{res.bounds[0]:.6f}, "
               f"{res.bounds[1]:.6f}]")
     else:
+        if res.resumed_from:
+            print(f"solver: resumed from {res.resumed_from} checkpointed "
+                  "steps")
         print(f"evolve: t={res.times[-1]:.6f} in {res.num_steps} steps / "
               f"{res.num_applies} applies in {dt:.2f}s "
               f"({res.steady_steps_per_s:.2f} steps/s steady)")

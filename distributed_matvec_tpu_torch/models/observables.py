@@ -27,7 +27,7 @@ State forms handled:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,24 +88,36 @@ class BoundObservable:
         return self.engine.matvec(x)
 
 
-def bind_observables(operators: Sequence, engine,
-                     mode: str = "fused") -> List[BoundObservable]:
+def bind_observables(operators: Sequence, engine, mode: str = "fused",
+                     shards_path: Optional[str] = None
+                     ) -> List[BoundObservable]:
     """One bound engine per observable operator, on ``engine``'s basis,
     device and (for a ``DistributedEngine``) shards, rank group and hashed
     layout, in ``mode`` (default ``"fused"``).  Observables must commute
-    with the basis symmetry group."""
+    with the basis symmetry group.
+
+    ``shards_path`` builds a shard-native solve's observables from the
+    SAME sharded-enumeration file (``DistributedEngine.from_shards``, on
+    the solve engine's device and D): the basis is still never built
+    globally, and the solve engine's layout is shared only if it was
+    already materialized."""
     out = []
     for i, op in enumerate(operators):
         name = getattr(op, "name", None) or f"observable_{i}"
         if _is_distributed(engine):
             from ..parallel.distributed import DistributedEngine
-            oeng = DistributedEngine(
-                op, n_devices=engine.n_devices,
-                batch_size=engine.batch_size, mode=mode,
-                device=engine.device,
+            kw = dict(
+                n_devices=engine.n_devices, batch_size=engine.batch_size,
+                mode=mode, device=engine.device,
                 all_to_all_capacity_factor=engine.all_to_all_capacity_factor,
                 remote_buffer_size=engine.remote_buffer_size,
-                layout=engine.layout, group=engine.group)
+                group=engine.group)
+            if shards_path:
+                oeng = DistributedEngine.from_shards(op, shards_path, **kw)
+                if engine.layout is not None:
+                    oeng.layout = engine.layout
+            else:
+                oeng = DistributedEngine(op, layout=engine.layout, **kw)
         else:
             from ..parallel.engine import LocalEngine
             oeng = LocalEngine(op, mode=mode, device=engine.device)
@@ -113,9 +125,11 @@ def bind_observables(operators: Sequence, engine,
     return out
 
 
-def expectations(operators: Sequence, engine, psi,
-                 mode: str = "fused") -> List[Tuple[str, float]]:
+def expectations(operators: Sequence, engine, psi, mode: str = "fused",
+                 shards_path: Optional[str] = None
+                 ) -> List[Tuple[str, float]]:
     """``[(name, <psi|O|psi>), ...]`` for every operator — bind + apply
-    in one call."""
+    in one call (``shards_path``: see :func:`bind_observables`)."""
     return [(b.name, b.expectation(psi))
-            for b in bind_observables(operators, engine, mode=mode)]
+            for b in bind_observables(operators, engine, mode=mode,
+                                      shards_path=shards_path)]

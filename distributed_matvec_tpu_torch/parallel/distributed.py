@@ -150,8 +150,20 @@ head of every apply, before any device work, and ``plan_upload`` on each
 plan chunk's host fetch for the H2D ring, retried with backoff
 (``io_retries``, ``io_retry_base_s``).
 
-The threaded plan prefetch and the disk tier, ``from_shards`` and the
-structure and plan caches are not in the port.
+Shard-native construction (:meth:`DistributedEngine.from_shards`, or
+``shards_path=``): the manifest of a sharded-enumeration file gives the
+counts, the total and ``M = round_up(max count, 128)``, and each shard's
+rows are read one at a time into the ``[L, M]`` tensors; the global
+representative array never exists (a rank reads its own shard only).  From
+there every mode builds as it does from a basis, so the plan is the
+global-layout engine's bit for bit.  ``to_hashed``/``from_hashed``
+materialize the block-order layout on first use
+(:meth:`~DistributedEngine._require_layout`), and
+:meth:`~DistributedEngine.state_keyed_hashed` is a probe vector keyed by
+state value that equals itself across shard counts.
+
+The threaded plan prefetch and the disk tier, and the structure and plan
+caches (``structure_cache``), are not in the port.
 """
 
 from __future__ import annotations
@@ -167,6 +179,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..enumeration.host import hash64 as hash64_np
+from ..enumeration.host import shard_index as shard_index_np
 from ..models.operator import Operator
 from ..obs import health as obs_health
 from ..obs import memory as obs_memory
@@ -363,7 +377,25 @@ class DistributedEngine:
                  all_to_all_capacity_factor: Optional[float] = None,
                  remote_buffer_size: Optional[int] = None,
                  layout: Optional[HashedLayout] = None, group=None,
-                 pipeline_depth=None, hybrid_split=None):
+                 pipeline_depth=None, hybrid_split=None,
+                 shards_path: Optional[str] = None, _shard_source=None):
+        # shard-native construction: the manifest (and each shard's rows)
+        # come from a sharded-enumeration file or, through the private
+        # ``_shard_source=(manifest, load)``, from its in-memory sink
+        manifest = shard_load = None
+        if shards_path is not None or _shard_source is not None:
+            if shards_path is not None:
+                from ..enumeration.sharded import load_shard, shard_manifest
+                manifest = shard_manifest(shards_path)
+                if manifest is None:
+                    raise ValueError(f"no shard manifest at {shards_path}")
+
+                def shard_load(d):
+                    return load_shard(shards_path, d)
+            else:
+                manifest, shard_load = _shard_source
+            if n_devices is None and group is None:
+                n_devices = int(manifest["n_shards"])
         if group is not None:
             if n_devices is not None and int(n_devices) != group.world_size:
                 raise ValueError(
@@ -457,33 +489,64 @@ class DistributedEngine:
         #: True when the representatives came from the artifact cache
         #: (``utils/artifacts.py::make_or_restore_basis``) rather than a
         #: fresh enumeration (False when the caller handed over a built
-        #: basis)
+        #: basis, and for a shard-native engine)
         self.basis_restored = False
-        if not basis.is_built:
-            from ..utils.artifacts import make_or_restore_basis
-            self.basis_restored = make_or_restore_basis(basis)
-        reps, norms = basis.representatives, basis.norms
-        if layout is not None:
-            if layout.n_shards != D or layout.n_global != reps.size:
+        #: a shard-native engine's per-shard ``(states, norms)`` reader
+        #: (None: the engine was built from the global basis)
+        self._shard_load = shard_load
+        if manifest is not None:
+            # shard-native: each shard's rows are read one at a time into
+            # the [L, M] tensors; the global representative array never
+            # exists, and the block-order layout is materialized only if
+            # a caller insists (_require_layout)
+            if int(manifest["n_shards"]) != D:
                 raise ValueError(
-                    f"shared layout is for {layout.n_global} states on "
-                    f"{layout.n_shards} shards, engine needs "
-                    f"{reps.size} on {D}")
-            self.layout = layout
+                    f"shard file has {manifest['n_shards']} shards, "
+                    f"engine has {D}")
+            if layout is not None:
+                raise ValueError("a shard-native engine takes no layout")
+            self.layout = None
+            self.counts = np.asarray(manifest["counts"], np.int64)
+            self.n_states = int(manifest["total"])
+            M = max(_round_up(int(self.counts.max(initial=0)), 128), 128)
+            rows_a: Dict[int, np.ndarray] = {}
+            rows_n: Dict[int, np.ndarray] = {}
+            for d in self._shards:
+                s_d, w_d = shard_load(d)
+                rows_a[d] = np.full(M, _SENTINEL_U64, np.uint64)
+                rows_a[d][: s_d.size] = s_d
+                rows_n[d] = np.ones(M)
+                rows_n[d][: w_d.size] = w_d
         else:
-            self.layout = HashedLayout(reps, D)
-        self.n_states = int(reps.size)
-        self.shard_size = M = self.layout.shard_size
-        self.counts = self.layout.counts
-        alphas_np = self.layout.to_hashed(reps, fill=_SENTINEL_U64)
-        norms_np = self.layout.to_hashed(norms, fill=1.0)
+            if not basis.is_built:
+                from ..utils.artifacts import make_or_restore_basis
+                self.basis_restored = make_or_restore_basis(basis)
+            reps, norms = basis.representatives, basis.norms
+            if layout is not None:
+                if layout.n_shards != D or layout.n_global != reps.size:
+                    raise ValueError(
+                        f"shared layout is for {layout.n_global} states on "
+                        f"{layout.n_shards} shards, engine needs "
+                        f"{reps.size} on {D}")
+                self.layout = layout
+            else:
+                self.layout = HashedLayout(reps, D)
+            self.n_states = int(reps.size)
+            M = self.layout.shard_size
+            self.counts = self.layout.counts
+            alphas_np = self.layout.to_hashed(reps, fill=_SENTINEL_U64)
+            norms_np = self.layout.to_hashed(norms, fill=1.0)
+            rows_a = dict(enumerate(alphas_np))
+            rows_n = dict(enumerate(norms_np))
+        self.shard_size = M
 
         L = len(self._shards)
         with self.timer.scope("transfer"):
             self.tables = K.device_tables(operator, dev)
-            self._alphas = u64.from_numpy(alphas_np[self._shards],
-                                          dev)                 # [L, M]
-            self._norms = torch.from_numpy(norms_np[self._shards]).to(dev)
+            self._alphas = u64.from_numpy(np.stack(
+                [rows_a[d] for d in self._shards]), dev)      # [L, M]
+            self._norms = torch.from_numpy(np.stack(
+                [rows_n[d] for d in self._shards])).to(dev)
         self.num_terms = int(self.tables.off.x.shape[0])
         with self.timer.scope("diag"):
             self._diag = torch.empty((L, M), dtype=torch.float64,
@@ -542,7 +605,7 @@ class DistributedEngine:
         self._plan_stage_h = obs_memory.NULL_HANDLE
         self._plan_mem_h = None
         try:
-            self._build_plan(alphas_np)
+            self._build_plan(rows_a)
         except Exception as e:
             if not obs_memory.is_resource_exhausted(e):
                 # the staging is freed with the frame; only a genuine OOM
@@ -558,9 +621,11 @@ class DistributedEngine:
         self._register_plan_memory()
         self.timer.report()    # the tree, printed with display_timings on
 
-    def _build_plan(self, alphas_np: np.ndarray) -> None:
+    def _build_plan(self, alphas_np: Dict[int, np.ndarray]) -> None:
         """The mode's plan: the ell/compact routing plan, or the lookup and
-        (streamed, hybrid) the encoded host plan."""
+        (streamed, hybrid) the encoded host plan.  ``alphas_np`` maps a
+        shard to its padded u64 rows (every shard held here, and on a
+        rank engine built from the global basis every shard)."""
         mode, group, dev = self.mode, self.group, self.device
         t0 = time.perf_counter()
         if mode in ("ell", "compact"):
@@ -818,7 +883,8 @@ class DistributedEngine:
 
     # -- shared set-up ---------------------------------------------------------
 
-    def _init_lookup(self, alphas_np: np.ndarray, n_bits: int) -> None:
+    def _init_lookup(self, alphas_np: Dict[int, np.ndarray],
+                     n_bits: int) -> None:
         """Per-shard bucketed lookup over each shard's real prefix, with one
         directory width for all shards (from the largest) so the stacked
         tables are uniform; pad rows repeat the last real row so a probe
@@ -832,7 +898,7 @@ class DistributedEngine:
         probes, shift = 0, None
         for i, d in enumerate(self._shards):
             c = int(counts[d])
-            lk = build_sorted_lookup(alphas_np[d, :c], n_bits,
+            lk = build_sorted_lookup(alphas_np[d][:c], n_bits,
                                      dir_bits=b_global)
             shift, probes = lk[2], max(probes, lk[3])
             pairs[i, :c] = lk[0]
@@ -1456,17 +1522,18 @@ class DistributedEngine:
 
     # -- ell / compact: the static routing plan -----------------------------
 
-    def _compact_W(self, alphas_np: np.ndarray) -> float:
+    def _compact_W(self, alphas_np: Dict[int, np.ndarray]) -> float:
         """The single off-diagonal magnitude W, from a sample strided across
-        the shards' real rows (the hash partition makes every shard an
-        unbiased sample); raises when the sample shows more than one."""
+        the real rows of the shards in ``alphas_np`` (the hash partition
+        makes every shard an unbiased sample); raises when the sample
+        shows more than one."""
         from .engine import compact_magnitudes
 
         D = self.n_devices
         per = max(1, 4096 // D)
         smp = [alphas_np[d][np.linspace(
             0, int(c) - 1, min(per, int(c))).astype(np.int64)]
-            for d, c in enumerate(self.counts) if c]
+            for d, c in enumerate(self.counts) if c and d in alphas_np]
         vals = compact_magnitudes(
             self.operator, sample_states=np.concatenate(smp) if smp
             else np.zeros(0, np.uint64))
@@ -2462,6 +2529,76 @@ class DistributedEngine:
     def __call__(self, xh):
         return self.matvec(xh)
 
+    # -- shard-native construction ------------------------------------------
+
+    @classmethod
+    def from_shards(cls, operator: Operator, shards_path: str,
+                    n_devices: Optional[int] = None,
+                    batch_size: Optional[int] = None,
+                    mode: Optional[str] = None,
+                    structure_cache: Optional[str] = None,
+                    device=None, group=None, **kwargs
+                    ) -> "DistributedEngine":
+        """Engine straight from a sharded-enumeration file
+        (``enumeration/sharded.py``) — the basis is never built globally;
+        vectors are born hashed (:meth:`random_hashed`,
+        :meth:`state_keyed_hashed`) and the solvers never leave the hashed
+        space.  ``to_hashed``/``from_hashed`` still work by materializing
+        the global layout on first use (:meth:`_require_layout`).
+
+        ``n_devices`` defaults to the file's shard count (a rank engine's
+        world size must equal it); ``mode`` defaults to ``"fused"`` (no
+        build cost), as in the JAX package; every mode builds
+        shard-native.  ``device`` defaults to ``cuda``; other keywords go
+        to the constructor.  ``structure_cache`` (the JAX engine's plan
+        and table sidecars) is not in the port and raises
+        ``NotImplementedError``."""
+        if structure_cache is not None:
+            raise NotImplementedError(
+                "structure_cache on DistributedEngine (the plan and table "
+                "sidecars) is not in the port yet (ROADMAP.md, Queue 1)")
+        return cls(operator, n_devices=n_devices, batch_size=batch_size,
+                   mode=mode or "fused", device=device, group=group,
+                   shards_path=shards_path, **kwargs)
+
+    def _require_layout(self) -> HashedLayout:
+        """The global block-order layout; a shard-native engine
+        materializes it on first use from every shard's states (O(N) host
+        memory — the trade-off ``to_hashed``/``from_hashed`` ask for)."""
+        if self.layout is None:
+            states = np.concatenate([self._shard_load(d)[0]
+                                     for d in range(self.n_devices)])
+            states.sort()
+            self.layout = HashedLayout(states, self.n_devices)
+        return self.layout
+
+    def _shard_states(self, d: int) -> np.ndarray:
+        """Shard ``d``'s sorted u64 states, from the shard source or from
+        the global basis (read for this call only)."""
+        if self._shard_load is not None:
+            return np.asarray(self._shard_load(d)[0], np.uint64)
+        reps = self.operator.basis.representatives
+        return reps[shard_index_np(reps, self.n_devices) == d]
+
+    def state_keyed_hashed(self, salt: int = 0) -> torch.Tensor:
+        """A probe vector keyed by STATE VALUE, not shard slot:
+        ``x[σ] = hash64(σ XOR mix(salt))/2⁶⁴ − ½``, the JAX engine's
+        bit for bit.  Two engines over the same sector on different shard
+        counts (or a shard file and its ``reshard_shards`` copy) hold the
+        same global vector, so ⟨x, Hx⟩ and ‖Hx‖ compare across them.
+        Float64 in every sector, pads zero; ``[D, M]`` on the engine's
+        device (a rank engine: its ``[1, M]`` row).  A shard-native engine
+        reads each shard's states from its source."""
+        M = self.shard_size
+        with np.errstate(over="ignore"):         # u64 wrap is the point
+            mix = np.uint64(0x9E3779B97F4A7C15) * np.uint64(salt + 1)
+        x = np.zeros((len(self._shards), M))
+        for i, d in enumerate(self._shards):
+            reps = self._shard_states(d)
+            x[i, : reps.size] = hash64_np(reps ^ mix).astype(np.float64) \
+                / 2.0 ** 64 - 0.5
+        return torch.from_numpy(x).to(self.device)
+
     # -- layouts ---------------------------------------------------------------
 
     def to_hashed(self, x) -> torch.Tensor:
@@ -2471,7 +2608,8 @@ class DistributedEngine:
         x = np.asarray(x)
         dt = np.complex128 if (np.iscomplexobj(x) or not self.real) \
             else np.float64
-        xh = self.layout.to_hashed(x.astype(dt, copy=False), fill=0)
+        xh = self._require_layout().to_hashed(x.astype(dt, copy=False),
+                                              fill=0)
         if self.group is not None:
             xh = xh[self._shards]
         return torch.from_numpy(xh).to(self.device)
@@ -2482,7 +2620,8 @@ class DistributedEngine:
         (a collective: every rank calls it)."""
         if self.group is not None:
             xh = self.group.all_gather(xh.reshape(xh.shape[1:]))
-        return self.layout.from_hashed(xh.detach().cpu().numpy())
+        return self._require_layout().from_hashed(
+            xh.detach().cpu().numpy())
 
     def matvec_global(self, x) -> np.ndarray:
         """Block-layout in/out convenience: shuffle → matvec → unshuffle."""

@@ -152,17 +152,23 @@ def choose_ell_split(hist: np.ndarray, n_rows: int, T: int,
 
 
 # Copied from distributed_matvec_tpu/parallel/engine.py (host NumPy).
-def hash_basis_operator(h, operator) -> None:
+def hash_basis_operator(h, operator, include_arrays: bool = True) -> None:
     """Feed everything that identifies a (basis, operator) pair into a hash:
     the basis JSON, the ACTUAL representative/norm arrays (they may have been
-    restored rather than enumerated), and the nonbranching term tables."""
+    restored rather than enumerated), and the nonbranching term tables.
+
+    ``include_arrays=False`` skips the representative/norm arrays — the
+    form that keys the solvers' checkpoints by the problem alone, so a
+    shard-native engine (whose basis is never built) gets the key of a
+    global build of the same problem."""
     import json as _json
 
     basis = operator.basis
     h.update(_json.dumps(basis._json_dict(), sort_keys=True,
                          default=str).encode())
-    h.update(np.ascontiguousarray(basis.representatives).tobytes())
-    h.update(np.ascontiguousarray(basis.norms).tobytes())
+    if include_arrays:
+        h.update(np.ascontiguousarray(basis.representatives).tobytes())
+        h.update(np.ascontiguousarray(basis.norms).tobytes())
     dt, ot = operator.diag_table, operator.off_diag_table
     for a in (dt.v, dt.s, dt.m, dt.r, ot.x, ot.v, ot.s, ot.m, ot.r):
         h.update(np.ascontiguousarray(a).tobytes())

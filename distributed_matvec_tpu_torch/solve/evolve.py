@@ -26,9 +26,14 @@ Norm drift ``| ||psi|| - 1 |`` (the propagator is unitary; drift is pure
 roundoff) and energy drift ``|E(t) - E(0)|`` (the recurrence's first alpha
 is <psi|H|psi> for free) are recorded per step.  A set preemption latch
 stops the trajectory before the next accepted step
-(``Preempted("evolve", steps, None)``), as the JAX solver does without a
-checkpoint.  Checkpoint/resume and tracing of the JAX module are not in
-the port.
+(``Preempted("evolve", steps, checkpoint_path)``, the checkpoint written
+first when there is one).  ``checkpoint_path`` checkpoints the state and
+(t, dt, step, drifts, trajectories) through the Lanczos machinery
+(``solve/lanczos.py``: the JAX keys and files, restored on another shard
+count by a reshard); restores are bit-exact and step acceptance is
+deterministic in the state, so a resumed trajectory equals an
+uninterrupted one bit for bit.  Tracing of the JAX module is not in the
+port.
 """
 
 from __future__ import annotations
@@ -42,12 +47,15 @@ import torch
 
 from ..models.observables import _complex_native
 from ..obs import trace as obs_trace
+from ..obs.events import emit as obs_emit
 from ..utils import faults, preempt
 from ..utils.device import start_device
 from .kpm import _sync
-from .lanczos import (_rand_like, _vdot, engine_owner, guard_engine,
-                      rank_owner, rank_reducer, refuse_checkpoint,
-                      solve_scope, track_workspace)
+from .lanczos import (_agree_generation, _ckpt_layout, _global_shape,
+                      _np_dtype, _operator_key, _rand_like, _restore_ckpt,
+                      _soft_save_ckpt, _vdot, engine_owner, guard_engine,
+                      rank_owner, rank_reducer, solve_scope,
+                      track_workspace)
 
 __all__ = ["EvolveResult", "krylov_evolve"]
 
@@ -67,8 +75,7 @@ class EvolveResult:
     num_steps: int
     num_applies: int
     num_rejects: int = 0
-    resumed_from: int = 0           # accepted steps restored (always 0:
-    #   the port does not checkpoint yet)
+    resumed_from: int = 0           # accepted steps restored
     observables: Optional[dict] = None   # name -> [(t, value), ...]
     first_step_seconds: float = 0.0
     steady_seconds: float = 0.0
@@ -94,6 +101,7 @@ def krylov_evolve(
     seed: int = 0,
     max_steps: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 8,
     observables=None,
     obs_every: int = 1,
     device=None,
@@ -113,21 +121,25 @@ def krylov_evolve(
 
     ``observables`` is a list of ``models.observables.BoundObservable``
     (or ``(name, callable)`` pairs) evaluated every ``obs_every`` accepted
-    steps.  ``checkpoint_path`` is not supported yet and raises
-    ``NotImplementedError``.  ``device`` defaults to the device of
+    steps.  ``checkpoint_path``: the state and (t, dt, step, drifts,
+    trajectories) are written every ``checkpoint_every`` accepted steps
+    and at a preemption; the key holds the operator, the layout, the dtype
+    and the (t_final, tol, krylov_dim, seed) plan (the JAX key), and a
+    rerun with the same path resumes bit-exactly.  ``device`` defaults to
+    the device of
     ``psi0`` when it is a tensor, else to ``cuda`` (raising when there is
     none).
     """
     with solve_scope("evolve", t_final=float(t_final)):
         return _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim,
                               tol, seed, max_steps, checkpoint_path,
-                              observables, obs_every, device)
+                              checkpoint_every, observables, obs_every,
+                              device)
 
 
 def _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim, tol, seed,
-                   max_steps, checkpoint_path, observables, obs_every,
-                   device) -> EvolveResult:
-    refuse_checkpoint(checkpoint_path)
+                   max_steps, checkpoint_path, checkpoint_every,
+                   observables, obs_every, device) -> EvolveResult:
     owner = engine_owner(matvec)
     red = rank_reducer(matvec)
     t_final = float(t_final)
@@ -200,6 +212,61 @@ def _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim, tol, seed,
         for name, fn in obs_list:
             obs_vals.setdefault(name, []).append((t, fn(psi)))
 
+    shape = tuple(psi.shape)
+    hashed, sharded_ckpt, checkpoint_path = _ckpt_layout(
+        owner, shape, "evolve", checkpoint_path)
+    base = (f"hashed{tuple(shape[2:])}" if hashed
+            else f"{_global_shape(owner, shape, hashed)}")
+    # the seed is part of the trajectory's identity (an explicit psi0 is
+    # keyed by it too: its content is not hashed)
+    ckpt_fp = (f"{base}|{_np_dtype(cdtype).str}|{_operator_key(owner)}"
+               f"|evolve-v1|t{t_final!r}|tol{float(tol)!r}|m{m_cap}"
+               f"|s{int(seed)}")
+    resumed_from = 0
+    if checkpoint_path:
+        got = _restore_ckpt(checkpoint_path, ckpt_fp, owner, shape,
+                            sharded=sharded_ckpt, solver="evolve",
+                            dtype=_np_dtype(cdtype))
+        if sharded_ckpt:
+            got = _agree_generation(owner, got)
+        if got is not None:
+            psi = torch.as_tensor(got["V_rows"][0]).to(psi.device, cdtype)
+            t = float(got["t"])
+            dt = float(got["dt"])
+            step = resumed_from = int(got["total_iters"])
+            norm_drift = float(got["norm_drift"])
+            energy_drift = float(got["energy_drift"])
+            # NaN marks "no step accepted yet"
+            e0 = float(got["e0_ref"])
+            e0_ref = None if np.isnan(e0) else e0
+            times = [float(x) for x in np.asarray(got["times"])]
+            energies = [float(x) for x in np.asarray(got["energies"])]
+            # observable trajectories resume too (stored in obs_list
+            # order); a changed observable count starts them fresh
+            ser = got.get("obs_series")
+            if ser is not None and obs_list \
+                    and np.asarray(ser).shape[0] == len(obs_list):
+                for (name, _), row in zip(obs_list, np.asarray(ser)):
+                    obs_vals[name] = [(float(tt), float(vv))
+                                      for tt, vv in row]
+            obs_emit("solver_resume", solver="evolve", iters=int(step),
+                     t=float(t))
+
+    def save_ckpt(reason):
+        meta = {
+            "t": float(t), "dt": float(dt), "m": 0,
+            "total_iters": int(step), "norm_drift": float(norm_drift),
+            "energy_drift": float(energy_drift),
+            "e0_ref": float(e0_ref) if e0_ref is not None else np.nan,
+            "times": np.asarray(times), "energies": np.asarray(energies)}
+        if obs_list and obs_vals:
+            # [n_obs, K, 2] (t, value) series in obs_list order
+            meta["obs_series"] = np.asarray(
+                [[[tt, vv] for tt, vv in obs_vals.get(name, [])]
+                 for name, _ in obs_list])
+        _soft_save_ckpt(checkpoint_path, ckpt_fp, owner, psi[None], meta,
+                        0, sharded_ckpt, solver="evolve", reason=reason)
+
     ranks = rank_owner(matvec)
     # the Krylov basis in the memory ledger for the solve's duration
     mem_h = track_workspace("evolve", "krylov_basis",
@@ -209,14 +276,16 @@ def _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim, tol, seed,
     first_s = 0.0
     steady_s = 0.0
     while t < t_final * (1.0 - 1e-15):
-        if max_steps is not None and step >= int(max_steps):
+        if max_steps is not None and step - resumed_from >= int(max_steps):
             break
         # chaos site and safe point per accepted step (ranks agree on the
         # latch first)
         faults.check("solver_block", exc=RuntimeError, solver="evolve",
                      iter=int(step))
-        preempt.safe_point("evolve", step,
-                           ranks.group if ranks is not None else None)
+        if preempt.agreed(ranks.group if ranks is not None else None):
+            if checkpoint_path:
+                save_ckpt("preempt")
+            preempt.exit_preempted("evolve", step, checkpoint_path)
         with obs_trace.span("iteration", kind="iteration",
                             solver="evolve", iter=int(step)):
             t_wall = time.perf_counter()
@@ -290,10 +359,13 @@ def _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim, tol, seed,
                 dt = dt_try
             _sync(psi)
             dwall = time.perf_counter() - t_wall
-        if step == 1:
+        if step - resumed_from == 1:
             first_s = dwall
         else:
             steady_s += dwall
+        if checkpoint_path and \
+                (step - resumed_from) % max(int(checkpoint_every), 1) == 0:
+            save_ckpt("cadence")
     mem_h.release()
 
     # close the energy trajectory at the final state (one extra apply) so
@@ -314,5 +386,6 @@ def _krylov_evolve(matvec, psi0, t_final, n, dt0, krylov_dim, tol, seed,
         psi=psi, times=np.asarray(times), energies=np.asarray(energies),
         norm_drift=float(norm_drift), energy_drift=float(energy_drift),
         num_steps=step, num_applies=napply, num_rejects=rejects,
+        resumed_from=resumed_from,
         observables=obs_vals if obs_list else None,
         first_step_seconds=first_s, steady_seconds=steady_s)

@@ -29,9 +29,13 @@ operator.
 On a rank engine (one shard per process) every dot is summed over the
 ranks through the engine's all-reduce, so each rank holds the same moments.
 A set preemption latch stops :func:`kpm_moments` at the next moment block
-(``Preempted("kpm", j, None)``), as the JAX solver does without a
-checkpoint.  Checkpoint/resume and tracing of the JAX module are not in
-the port; complex sectors run natively in complex128.
+(``Preempted("kpm", j, checkpoint_path)``, the checkpoint written first
+when there is one).  ``checkpoint_path`` checkpoints the two live
+recurrence vectors and the moment table through the Lanczos machinery
+(``solve/lanczos.py``: the JAX keys and files, restored on another shard
+count by a reshard); a resume reuses the stored scale and continues the
+recurrence bit for bit.  Tracing of the JAX module is not in the port;
+complex sectors run natively in complex128.
 """
 
 from __future__ import annotations
@@ -44,11 +48,14 @@ import numpy as np
 import torch
 
 from ..obs import trace as obs_trace
+from ..obs.events import emit as obs_emit
 from ..utils import faults, preempt
 from ..utils.device import start_device
-from .lanczos import (_rand_like, _vdot, engine_owner, guard_engine,
-                      rank_owner, rank_reducer, refuse_checkpoint,
-                      solve_scope, track_workspace)
+from .lanczos import (_agree_generation, _ckpt_layout, _global_shape,
+                      _np_dtype, _operator_key, _rand_like, _restore_ckpt,
+                      _soft_save_ckpt, _vdot, engine_owner, guard_engine,
+                      rank_owner, rank_reducer, solve_scope,
+                      track_workspace)
 
 __all__ = ["KPMResult", "spectral_bounds", "kpm_moments", "kpm_dos",
            "kpm_spectral_function", "jackson_kernel", "lorentz_kernel",
@@ -157,8 +164,7 @@ class KPMResult:
     scale: Tuple[float, float]     # (a, b): H~ = (H - b)/a
     n_vectors: int
     num_applies: int               # engine applies (bounds pass included)
-    resumed_from: int = 0          # moment steps restored (always 0: the
-    #   port does not checkpoint yet)
+    resumed_from: int = 0          # moment STEPS restored from a checkpoint
     # rate bookkeeping: the first recurrence apply pays the first plan
     # stream (and, on the card, the kernels' first launches)
     first_block_seconds: float = 0.0
@@ -179,6 +185,7 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
                 bounds: Optional[Tuple[float, float]] = None,
                 bounds_iters: int = 64, margin: float = 0.05,
                 checkpoint_path: Optional[str] = None,
+                checkpoint_every: int = 64,
                 device=None) -> KPMResult:
     """Stochastic-trace Chebyshev moments of the operator behind
     ``matvec``.
@@ -187,9 +194,14 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
     overrides the seeded random block — the streamed engine's
     ``random_hashed(seed, cols=n_vectors)``, else ``n_vectors`` seeded
     normalized columns of length ``n``; the spectral-function path passes
-    ``O|psi>/||O|psi>||``.  ``bounds`` skips the Lanczos bracket.
-    ``checkpoint_path`` is not supported yet and raises
-    ``NotImplementedError``.  ``device`` defaults to the device of the
+    ``O|psi>/||O|psi>||``.  ``bounds`` skips the Lanczos bracket (it is
+    stored in the checkpoint: a resume reuses the original scale).
+
+    ``checkpoint_path``: every ``checkpoint_every``-th step, and at a
+    preemption, the two live recurrence vectors and the moment table are
+    written atomically; the key holds the operator, the layout, the dtype
+    and the (n_moments, R, seed) plan (the JAX key).  ``device`` defaults
+    to the device of the
     start block when it is a tensor, else to ``cuda`` (raising when there
     is none).
     """
@@ -197,15 +209,16 @@ def kpm_moments(matvec: Callable, n_moments: int = 256,
         raise ValueError(f"n_moments must be >= 2, got {n_moments}")
     if V0 is None and int(n_vectors) < 1:
         raise ValueError(f"n_vectors must be >= 1, got {n_vectors}")
-    refuse_checkpoint(checkpoint_path)
     n_moments = int(n_moments)
     with solve_scope("kpm", n_moments=n_moments):
         return _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0,
-                            bounds, bounds_iters, margin, device)
+                            bounds, bounds_iters, margin, checkpoint_path,
+                            checkpoint_every, device)
 
 
 def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
-                 bounds_iters, margin, device) -> KPMResult:
+                 bounds_iters, margin, checkpoint_path, checkpoint_every,
+                 device) -> KPMResult:
     mv = _mv_fn(matvec, "kpm")
     red = rank_reducer(matvec)
     owner = engine_owner(matvec)
@@ -232,30 +245,70 @@ def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
     _sync(t0)
     first_s = time.perf_counter() - t_wall
 
-    if bounds is None:
-        # an explicit start block also seeds the bounds pass (its first
-        # column), so reruns are deterministic
-        bv0 = V0[..., 0] if v0_given else None
-        emin, emax, nb = spectral_bounds(
-            matvec, n=n, v0=bv0, iters=bounds_iters, seed=seed + 1,
-            margin=margin, device=dev)
-        napply += nb
-    else:
-        emin, emax = float(bounds[0]), float(bounds[1])
-    if not emax > emin:
-        raise ValueError(f"degenerate spectral bounds ({emin}, {emax})")
-    a = (emax - emin) / 2.0
-    b = (emax + emin) / 2.0
-    # per-column moment table on the host; mu_0 = <r|r> = 1 exactly for
-    # normalized columns, mu_1 = <r|H~|r>
+    shape = tuple(V0.shape)
+    hashed, sharded_ckpt, checkpoint_path = _ckpt_layout(
+        owner, shape, "kpm", checkpoint_path)
+    base = (f"hashed{tuple(shape[2:])}" if hashed
+            else f"{_global_shape(owner, shape, hashed)}")
+    ckpt_fp = (f"{base}|{_np_dtype(dtype).str}|{_operator_key(owner)}"
+               f"|kpm-v1|m{n_moments}|r{R}|s{int(seed)}")
+    # the restore comes before any bounds pass: a resume reuses the
+    # STORED scale (the recurrence continues in the rescaling it began in)
+    resumed_from = 0
+    got = None
+    if checkpoint_path:
+        got = _restore_ckpt(checkpoint_path, ckpt_fp, owner, shape,
+                            sharded=sharded_ckpt, solver="kpm",
+                            dtype=_np_dtype(dtype))
+        if sharded_ckpt:
+            got = _agree_generation(owner, got)
     mu_cols = np.zeros((n_moments, R))
-    t_lo, t_hi = t0, ((y0.to(dtype) - b * t0) / a)
-    mu_cols[0] = _col_dots(t_lo, t_lo, red)
-    mu_cols[1] = _col_dots(t_lo, t_hi, red)
-    # j: highest recurrence index for which t_j is live in `t_hi`
-    j = 1
-    filled = 2
+    if got is not None:
+        t_lo, t_hi = (torch.as_tensor(r).to(dev, dtype)
+                      for r in got["V_rows"][:2])
+        mu_saved = np.asarray(got["mu_cols"])
+        mu_cols[: mu_saved.shape[0]] = mu_saved
+        j = int(got["j"])
+        filled = int(got["filled"])
+        resumed_from = j
+        a, b = float(got["scale_a"]), float(got["scale_b"])
+        emin, emax = b - a, b + a
+        obs_emit("solver_resume", solver="kpm", iters=int(j),
+                 moments_filled=int(filled))
+    else:
+        if bounds is None:
+            # an explicit start block also seeds the bounds pass (its
+            # first column), so reruns are deterministic
+            bv0 = V0[..., 0] if v0_given else None
+            emin, emax, nb = spectral_bounds(
+                matvec, n=n, v0=bv0, iters=bounds_iters, seed=seed + 1,
+                margin=margin, device=dev)
+            napply += nb
+        else:
+            emin, emax = float(bounds[0]), float(bounds[1])
+        if not emax > emin:
+            raise ValueError(
+                f"degenerate spectral bounds ({emin}, {emax})")
+        a = (emax - emin) / 2.0
+        b = (emax + emin) / 2.0
+        # per-column moment table on the host; mu_0 = <r|r> = 1 exactly
+        # for normalized columns, mu_1 = <r|H~|r>
+        t_lo, t_hi = t0, ((y0.to(dtype) - b * t0) / a)
+        mu_cols[0] = _col_dots(t_lo, t_lo, red)
+        mu_cols[1] = _col_dots(t_lo, t_hi, red)
+        # j: highest recurrence index for which t_j is live in `t_hi`
+        j = 1
+        filled = 2
     del y0
+
+    def save_ckpt(reason):
+        _soft_save_ckpt(checkpoint_path, ckpt_fp, owner,
+                        torch.stack([t_lo, t_hi]), {
+                            "mu_cols": mu_cols[:filled].copy(),
+                            "j": int(j), "filled": int(filled),
+                            "scale_a": float(a), "scale_b": float(b),
+                            "m": 1, "total_iters": int(j)},
+                        1, sharded_ckpt, solver="kpm", reason=reason)
 
     ranks = rank_owner(matvec)
     # the Chebyshev pair in the memory ledger for the solve's duration
@@ -265,7 +318,8 @@ def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
     preempt.ensure_installed()
     steady_s = 0.0
     # the probe apply is the first block; every pass after it is steady
-    first_moments = 2
+    # (a resume's restored moments cost this run nothing)
+    first_moments = 2 if resumed_from == 0 else filled
     # each pass: harvest the doubling pair for the current t_j, then
     # advance the recurrence by one apply
     while filled < n_moments:
@@ -273,8 +327,10 @@ def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
         # latch first)
         faults.check("solver_block", exc=RuntimeError, solver="kpm",
                      iter=int(j))
-        preempt.safe_point("kpm", j,
-                           ranks.group if ranks is not None else None)
+        if preempt.agreed(ranks.group if ranks is not None else None):
+            if checkpoint_path:
+                save_ckpt("preempt")
+            preempt.exit_preempted("kpm", j, checkpoint_path)
         t_step = time.perf_counter()
         # doubling identities at index j (t_lo = t_{j-1}, t_hi = t_j)
         if 2 * j - 1 < n_moments and 2 * j - 1 >= filled:
@@ -293,6 +349,8 @@ def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
             _sync(t_hi)
             j += 1
         steady_s += time.perf_counter() - t_step
+        if checkpoint_path and j % max(int(checkpoint_every), 1) == 0:
+            save_ckpt("cadence")
 
     mem_h.release()
     mu = mu_cols.mean(axis=1)
@@ -300,6 +358,7 @@ def _kpm_moments(matvec, n_moments, n, n_vectors, seed, V0, bounds,
               if R > 1 else np.zeros(n_moments))
     return KPMResult(moments=mu, moment_stderr=stderr, bounds=(emin, emax),
                      scale=(a, b), n_vectors=R, num_applies=napply,
+                     resumed_from=resumed_from,
                      first_block_seconds=first_s,
                      first_block_moments=first_moments,
                      steady_seconds=steady_s)
@@ -392,7 +451,8 @@ def kpm_dos(matvec: Callable, n_moments: int = 256,
             npoints: int = 512, kernel: str = "jackson", lam: float = 4.0,
             bounds: Optional[Tuple[float, float]] = None,
             bounds_iters: int = 64, margin: float = 0.05,
-            checkpoint_path: Optional[str] = None, device=None):
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 64, device=None):
     """Density of states in one call: moments + reconstruction.
     Returns ``(energies, rho, KPMResult)`` — ``rho`` integrates to 1
     (per-state density; multiply by ``n_states`` for a count density).
@@ -400,7 +460,7 @@ def kpm_dos(matvec: Callable, n_moments: int = 256,
     res = kpm_moments(matvec, n_moments, n=n, n_vectors=n_vectors,
                       seed=seed, bounds=bounds, bounds_iters=bounds_iters,
                       margin=margin, checkpoint_path=checkpoint_path,
-                      device=device)
+                      checkpoint_every=checkpoint_every, device=device)
     energies, rho = reconstruct_dos(res.moments, res.scale,
                                     npoints=npoints, kernel=kernel,
                                     lam=lam)

@@ -35,8 +35,18 @@ the memory ledger, and runs the JAX package's watchdog (:class:`_Watchdog`:
 orthogonality loss from the ω estimate, a nonfinite residual, Ritz
 stagnation, an unconverged β breakdown) as ``solver_health`` events through
 ``obs/health.py``.  Every block boundary is the ``solver_block`` fault site
-(``utils/faults.py``) beside the preemption safe point.  Checkpointing and
-the (re, im) pair form of the JAX solvers are not in the port.
+(``utils/faults.py``) beside the preemption safe point.  The (re, im) pair
+form of the JAX solvers is not in the port.
+
+Checkpoint and resume (``checkpoint_path``) is the JAX package's
+machinery, shared by ``lanczos``, ``lobpcg``, KPM and ``krylov_evolve``:
+the same keys, the same files (``io/hdf5.py::save_engine_structure`` in
+one process, ``io/sharded_io.py::save_hashed_vectors`` per rank), the v2
+topology stanza and its D → D′ reshard on restore
+(``parallel/reshard.py``), the v1 (fixed-D) restore, and saves that fail
+soft.  A checkpoint holds the solver's own state — the Krylov rows and the
+recurrence — so one written by either package resumes in the other under
+the same key.
 
 The solvers find the engine behind ``matvec`` through
 :func:`engine_owner` (the bound method's ``__self__``), which gives them a
@@ -95,11 +105,6 @@ _GS_BLOCK = 8
 # semiorthogonality bound (the JAX package's ``OMEGA_WARN``)
 _W_ROWS = 4
 _OMEGA_SQRT_EPS = 1e-8
-
-_NO_CHECKPOINT = ("checkpoint_path: solver checkpoint/resume writes HDF5 and "
-                  "is not in the port yet (it comes with the CLI slice: "
-                  "apps and io/hdf5.py)")
-
 
 def engine_owner(matvec: Callable):
     """The object ``matvec`` is a bound method of (the engine, for
@@ -246,11 +251,391 @@ def _tsqr(X: torch.Tensor, group) -> tuple:
     return Q, torch.from_numpy(R).to(X.device, X.dtype)
 
 
-def refuse_checkpoint(checkpoint_path) -> None:
-    """Raise ``NotImplementedError`` for a checkpoint path: the port's
-    solvers do not checkpoint yet."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(_NO_CHECKPOINT)
+# -- checkpoint and resume -----------------------------------------------------
+# The JAX package's machinery (solve/lanczos.py), shared by every solver:
+# the key, the atomic save, the v1/v2 restores and the D → D′ reshard.
+
+
+def _np_dtype(dtype) -> np.dtype:
+    """The NumPy dtype of a torch or NumPy dtype (the checkpoint keys
+    carry its ``.str``, as the JAX keys do)."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype({torch.float64: np.float64,
+                         torch.complex128: np.complex128}[dtype])
+    return np.dtype(dtype)
+
+
+def _operator_key(owner) -> str:
+    """Hash of the (basis, operator) pair behind an engine's matvec, used to
+    key mid-solve checkpoints: the basis JSON and the term tables, not the
+    representative arrays (``hash_basis_operator(include_arrays=False)``),
+    so a shard-native engine gets the key of a global build of the same
+    problem — and the JAX package's key.  ``"bare"`` for non-engine
+    callables."""
+    op = getattr(owner, "operator", None)
+    if op is None:
+        return "bare"
+    import hashlib
+
+    from ..parallel.engine import hash_basis_operator
+
+    h = hashlib.sha256()
+    hash_basis_operator(h, op, include_arrays=False)
+    return h.hexdigest()[:16]
+
+
+def _sharded_ckpt_engine(owner, shape) -> bool:
+    """True when the matvec's owner is a ``DistributedEngine`` whose hashed
+    ``[L, M, …]`` layout matches ``shape`` (``L`` the shards held here) —
+    the case whose checkpoints carry the topology stanza and restore on
+    another D.  The predicate is ``reshard.hashed_ckpt_engine``, the one
+    that decides the stanza."""
+    from ..parallel.reshard import hashed_ckpt_engine
+    return (hashed_ckpt_engine(owner)
+            and len(shape) >= 2
+            and shape[0] == len(owner._shards)
+            and shape[1] == owner.shard_size)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _save_ckpt(path, fp, owner, V, meta, m, sharded) -> None:
+    """One checkpoint write of rows ``V[0..m]`` (a ``[rows, *shape]``
+    tensor) and the recurrence metadata.  One process: the rows in one
+    structure file (``io/hdf5.py::save_engine_structure``).  A rank
+    engine: each rank writes its shard of every row plus the metadata in
+    ONE atomic per-rank file ``path.r<rank>``
+    (``io/sharded_io.py::save_hashed_vectors``) — metadata and rows never
+    of mixed generations.  Engine-backed saves add the v2 topology stanza
+    (``parallel/reshard.py``), so a restore on another D reshards."""
+    from ..parallel.reshard import topology_stanza
+    meta = dict(meta, **topology_stanza(owner))
+    if not sharded:
+        from ..io.hdf5 import save_engine_structure
+        save_engine_structure(path, fp, "lanczos",
+                              dict(meta, V=_host(V[: m + 1])))
+        return
+    from ..io.sharded_io import save_hashed_vectors
+
+    # one row on the host at a time; this rank's shards only
+    rows = {f"krylov_{i}": {d: _host(V[i][l])
+                            for l, d in enumerate(owner._shards)}
+            for i in range(m + 1)}
+    save_hashed_vectors(path, rows, owner.counts,
+                        meta=dict(meta, fingerprint=fp))
+
+
+def _soft_save_ckpt(path, fp, owner, V, meta, m, sharded,
+                    solver: str = "lanczos", reason: str = "cadence") -> bool:
+    """A checkpoint write that cannot kill the solve it protects: an
+    ``OSError`` (full disk, read-only checkout, injected
+    ``ckpt_write``/``ckpt_rename`` faults) degrades to one warning and a
+    ``solver_checkpoint{status=failed}`` event; success emits
+    ``solver_checkpoint{status=written}``."""
+    try:
+        _save_ckpt(path, fp, owner, V, meta, m, sharded)
+    except OSError as e:
+        from ..utils.logging import log_warn
+        log_warn(f"{solver} checkpoint save failed ({e!r}); "
+                 "solve continues without this generation")
+        obs_emit("solver_checkpoint", solver=solver, status="failed",
+                 reason=reason, path=str(path), error=repr(e),
+                 iters=int(meta.get("total_iters", 0)))
+        return False
+    obs_emit("solver_checkpoint", solver=solver, status="written",
+             reason=reason, path=str(path),
+             iters=int(meta.get("total_iters", 0)))
+    return True
+
+
+def _partition_ok(meta, solver, path) -> bool:
+    """Refusal-with-pointer when the checkpoint's partition fingerprint
+    differs from this build's: the shard snapshots are not a permutation
+    of this partition, so the restore is refused (a fresh solve)."""
+    from ..parallel.reshard import partition_fingerprint
+    want = partition_fingerprint()
+    got = str(meta.get("partition_fp", "") or "")
+    if not got or got == want:
+        return True
+    from ..utils.logging import log_warn
+    log_warn(
+        f"{solver} checkpoint at {path} was partitioned under {got}; this "
+        f"build partitions under {want} — the shard snapshots cannot be "
+        "resharded onto a different partition.  Starting fresh (delete "
+        "the checkpoint, or resume it on a build with the original "
+        "shard hash)")
+    obs_emit("solver_checkpoint", solver=solver, status="refused_partition",
+             path=str(path), checkpoint_partition=got,
+             build_partition=want)
+    return False
+
+
+def _reshard_degrade(solver, path, e) -> None:
+    """A torn or partial reshard degrades to a FRESH solve, never to a
+    half-redistributed basis: one warning and one event."""
+    from ..utils.logging import log_warn
+    log_warn(f"{solver} checkpoint reshard failed ({e!r}); the restore "
+             "degrades to a fresh solve")
+    obs_emit("solver_checkpoint", solver=solver, status="reshard_failed",
+             path=str(path), error=repr(e))
+
+
+def _sharded_ckpt_meta(path, fp, legacy_fp):
+    """``(meta, fp_used)`` of a sharded checkpoint: the topology-free
+    fingerprint first, then the legacy fixed-D one."""
+    from ..io.sharded_io import load_hashed_meta
+    meta = load_hashed_meta(path, expected_fingerprint=fp)
+    if meta is not None or legacy_fp is None:
+        return meta, fp
+    return load_hashed_meta(path, expected_fingerprint=legacy_fp), legacy_fp
+
+
+def _needs_reshard(meta, owner) -> bool:
+    """Whether the checkpoint's topology stanza names a layout other than
+    the live engine's (stanza-free v1 metadata reads as matching)."""
+    src_d = int(meta.get("topology_d", owner.n_devices))
+    src_counts = np.asarray(meta.get("topology_counts", owner.counts),
+                            np.int64)
+    return (src_d != int(owner.n_devices)
+            or not np.array_equal(src_counts,
+                                  np.asarray(owner.counts, np.int64)))
+
+
+def _stage_reshard(path, fp, owner, meta, tail, n_rows, dtype):
+    """Collective-free half of a D → D′ restore: the routing plan and this
+    rank's staged source slices, or the error (``(plan, staged, dt,
+    err)``)."""
+    from ..io.sharded_io import hashed_shard_reader
+    from ..parallel import reshard as _rs
+
+    try:
+        plan = _rs.Resharder(owner, int(meta["topology_d"]),
+                             np.asarray(meta["topology_counts"], np.int64),
+                             tail=tail)
+        with hashed_shard_reader(path, expected_fingerprint=fp,
+                                 match_meta=meta) as fetch:
+            staged, dt = plan.stage_rows(
+                lambda i, s: fetch(s, name=f"krylov_{i}"),
+                n_rows, dtype=dtype)
+        return plan, staged, dt, None
+    except (_rs.PartitionMismatch, OSError, KeyError, ValueError) as e:
+        return None, None, None, e
+
+
+def _read_direct_rows(path, fp, owner, meta, n_rows, tail):
+    """Collective-free fixed-D read: this rank's shards of every
+    checkpointed row as ``[L, M, *tail]`` tensors on the engine's device,
+    or the error (``(rows, err)``)."""
+    from ..io.sharded_io import hashed_shard_reader
+
+    M = owner.shard_size
+    rows_out = []
+    try:
+        with hashed_shard_reader(path, expected_fingerprint=fp,
+                                 match_meta=meta) as fetch:
+            for i in range(n_rows):
+                pieces = []
+                for d in owner._shards:
+                    r = fetch(d, name=f"krylov_{i}")
+                    full = np.zeros((M,) + tail, dtype=r.dtype)
+                    full[: r.shape[0]] = r
+                    pieces.append(full)
+                rows_out.append(torch.from_numpy(np.stack(pieces)).to(
+                    owner.device))
+        return rows_out, None
+    except (OSError, KeyError, ValueError) as e:
+        return None, e
+
+
+def _restore_sharded_rows(path, fp, legacy_fp, owner, shape, solver,
+                          dtype=None, expect_m=None):
+    """Sharded-format restore: select the metadata (primary then legacy
+    fingerprint), read direct or stage a D → D′ reshard, agree over the
+    ranks, exchange.  Returns ``(meta, rows)`` with ``rows`` in the
+    ``[L, M, *tail]`` layout, or ``(None, None)`` for a fresh start.
+
+    On a rank engine every rank makes ONE readiness all-gather at this
+    fixed point, whatever it found — the token (ok, reshard?, rows,
+    total_iters, topology_d) must be unanimous before the exchange runs,
+    so ranks that prepared different restores all start fresh together
+    instead of meeting in different collectives.  ``expect_m`` rejects a
+    generation whose basis size is not the caller's."""
+    import time as _time
+
+    meta, fp_used = _sharded_ckpt_meta(path, fp, legacy_fp)
+    if meta is not None and expect_m is not None \
+            and int(meta["m"]) != int(expect_m):
+        meta = None
+    if meta is not None and _needs_reshard(meta, owner) \
+            and not _partition_ok(meta, solver, path):
+        meta = None
+    group = getattr(owner, "group", None)
+    if meta is None and group is None:
+        return None, None
+    tail = tuple(shape[2:])
+    reshard = meta is not None and _needs_reshard(meta, owner)
+    n_rows = int(meta["m"]) + 1 if meta is not None else 0
+    plan = staged = dt = rows = err = None
+    t0 = _time.perf_counter()
+    if reshard:
+        plan, staged, dt, err = _stage_reshard(path, fp_used, owner, meta,
+                                               tail, n_rows, dtype)
+    elif meta is not None:
+        rows, err = _read_direct_rows(path, fp_used, owner, meta, n_rows,
+                                      tail)
+    ok = meta is not None and err is None
+    if group is not None:
+        tok = torch.tensor(
+            [int(ok), int(reshard), n_rows,
+             int(meta["total_iters"]) if meta is not None else -1,
+             int(meta.get("topology_d", owner.n_devices))
+             if meta is not None else -1], dtype=torch.int64,
+            device=group.device)
+        all_tok = group.all_gather(tok).cpu().numpy()
+        ok = bool((all_tok[:, 0] == 1).all()
+                  and (all_tok == all_tok[0]).all())
+    if not ok:
+        if err is not None and reshard:
+            _reshard_degrade(solver, path, err)
+        elif err is not None:
+            from ..utils.logging import log_debug
+            log_debug(f"{solver} sharded checkpoint incomplete ({err!r}); "
+                      "starting fresh")
+        elif group is not None and meta is not None:
+            from ..utils.logging import log_debug
+            log_debug(f"{solver} checkpoint restore readiness disagrees "
+                      "across ranks; starting fresh")
+        return None, None
+    if reshard:
+        rows = plan.exchange_rows(staged, dt)
+        obs_emit("solver_checkpoint", solver=solver, status="resharded",
+                 path=str(path), d_from=int(meta["topology_d"]),
+                 d_to=int(owner.n_devices), rows=int(n_rows),
+                 reshard_s=round(_time.perf_counter() - t0, 6))
+    return meta, rows
+
+
+def _global_rows_for_layout(got, owner, shape, solver, legacy_shape=None):
+    """The rows of a one-process checkpoint payload ``got`` in the
+    caller's layout ``shape``: direct when the stored topology matches,
+    resharded on a D → D′ mismatch, None (a fresh start) when they fit
+    neither.  ``legacy_shape`` also accepts stanza-free rows of that shape
+    verbatim (the fixed-D v1 format)."""
+    import time as _time
+
+    V = got["V"]
+    src_d = got.get("topology_d")
+    if src_d is None or not hasattr(owner, "counts"):
+        for want in (tuple(shape),) + ((tuple(legacy_shape),)
+                                       if legacy_shape is not None else ()):
+            if tuple(V.shape[1:]) == want:
+                return list(V)
+        return None
+    src_d = int(src_d)
+    counts = np.asarray(got["topology_counts"], np.int64)
+    if not _needs_reshard(got, owner) and tuple(V.shape[1:]) == tuple(shape):
+        return list(V)
+    if not _partition_ok(got, solver, path="<engine_structure>"):
+        return None
+    t0 = _time.perf_counter()
+    try:
+        from ..parallel import reshard as _rs
+        plan = _rs.Resharder(owner, src_d, counts, tail=tuple(shape[2:]))
+        rows = plan.reshard_rows(
+            lambda i, s: V[i, s, : counts[s]], V.shape[0], dtype=V.dtype)
+    except (OSError, KeyError, ValueError) as e:      # PartitionMismatch
+        _reshard_degrade(solver, "<engine_structure>", e)   # ⊂ ValueError
+        return None
+    obs_emit("solver_checkpoint", solver=solver, status="resharded",
+             d_from=src_d, d_to=int(owner.n_devices), rows=int(V.shape[0]),
+             reshard_s=round(_time.perf_counter() - t0, 6))
+    return rows
+
+
+def _restore_ckpt(path, fp, owner, shape, sharded, legacy_fp=None,
+                  solver="lanczos", legacy_shape=None, dtype=None):
+    """Inverse of :func:`_save_ckpt`: a dict with ``V_rows`` (the rows in
+    the vector layout, NumPy arrays or tensors) plus the recurrence
+    metadata, or None when no matching checkpoint exists.
+
+    ``legacy_fp`` also probes the fixed-D (v1) fingerprint, whose rows
+    (of ``legacy_shape`` when given) restore on a matching shard count.
+    A checkpoint whose topology stanza names another D is resharded onto
+    the live engine (``parallel/reshard.py``); a reshard that cannot
+    proceed (foreign partition fingerprint, torn source files, the
+    injected ``ckpt_reshard`` fault) degrades to a fresh solve with one
+    warning and a ``solver_checkpoint`` event.  A one-process restore
+    whose structure-file probe misses falls through to the sharded
+    format, so per-rank ``.r*`` files of a multi-process run resume in
+    one process."""
+    if not sharded:
+        from ..io.hdf5 import load_engine_structure
+        got = load_engine_structure(path, fp)
+        legacy = None
+        if got is None and legacy_fp is not None:
+            got = load_engine_structure(path, legacy_fp)
+            legacy = legacy_shape if legacy_shape is not None else shape
+        if got is not None:
+            rows = _global_rows_for_layout(got, owner, shape, solver,
+                                           legacy_shape=legacy)
+            if rows is None:
+                return None
+            return dict(got, V_rows=rows)
+        if not _sharded_ckpt_engine(owner, shape):
+            return None
+    meta, rows_out = _restore_sharded_rows(path, fp, legacy_fp, owner,
+                                           shape, solver, dtype=dtype)
+    if meta is None:
+        return None
+    return dict(meta, V_rows=rows_out)
+
+
+def _agree_generation(owner, got):
+    """On a rank engine the restored generation must be the same on every
+    rank (per-rank files are written without a barrier): one all-gather
+    of (m, total_iters), and a fresh start everywhere unless every rank
+    restored the same state.  Returns ``got`` or None."""
+    group = getattr(owner, "group", None)
+    if group is None:
+        return got
+    tok = torch.tensor([int(got["m"]), int(got["total_iters"])]
+                       if got is not None else [-1, -1],
+                       dtype=torch.int64, device=group.device)
+    all_tok = group.all_gather(tok).cpu().numpy()
+    if not (all_tok >= 0).all() or not (all_tok == all_tok[0]).all():
+        if got is not None:
+            from ..utils.logging import log_debug
+            log_debug("checkpoint generations disagree across ranks; "
+                      "starting fresh")
+        return None
+    return got
+
+
+def _ckpt_layout(owner, shape, solver: str, checkpoint_path):
+    """``(hashed, sharded, checkpoint_path)`` for a solve: whether the
+    rows are an engine's hashed layout, whether they are written per
+    rank (a rank engine), and the path — None for a rank solve over a
+    matvec with no hashed layout, which cannot checkpoint per shard."""
+    hashed = _sharded_ckpt_engine(owner, shape)
+    ranks = getattr(owner, "group", None) is not None
+    sharded = ranks and hashed
+    if checkpoint_path and ranks and not sharded:
+        from ..utils.logging import log_debug
+        log_debug(f"{solver} checkpointing disabled: a rank solve whose "
+                  "vectors are not the engine's hashed layout")
+        checkpoint_path = None
+    return hashed, sharded, checkpoint_path
+
+
+def _global_shape(owner, shape, hashed: bool) -> tuple:
+    """The vector shape the JAX package keys by: ``[D, M, …]`` for an
+    engine's hashed rows (a rank holds ``[1, M, …]`` of it)."""
+    if hashed:
+        return (int(owner.n_devices),) + tuple(shape[1:])
+    return tuple(shape)
 
 
 class _Watchdog:
@@ -388,6 +773,7 @@ class LanczosResult:
     residual_norms: np.ndarray       # [k] |β_m · s_last| bound
     num_iters: int
     converged: bool
+    resumed_from: int = 0            # iterations restored from a checkpoint
     #: thick (memory-bounding) restarts taken by a ``max_basis_size``-
     #: capped ``lanczos_block`` solve (narrowing restarts not counted)
     restarts: int = 0
@@ -523,6 +909,7 @@ def lanczos(
     check_every: int = 16,
     reorth: Optional[str] = None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 4,
     device=None,
     dtype: Optional[torch.dtype] = None,
 ) -> LanczosResult:
@@ -538,10 +925,18 @@ def lanczos(
     restart and remainders shorter than half a block are always full) or
     ``"full"`` (two full passes every step); None takes the config's
     ``lanczos_reorth`` (``DMT_LANCZOS_REORTH``, default selective).
-    ``checkpoint_path`` is not supported yet and raises
-    ``NotImplementedError``.  A set preemption latch stops the solve after
-    the next convergence-check block with ``Preempted("lanczos", iters,
-    None)``.
+    ``checkpoint_path`` enables checkpoint/resume: every
+    ``checkpoint_every``-th block boundary, and at a preemption, the live
+    Krylov basis and the recurrence state are written atomically, and a
+    rerun with the same path resumes where it stopped
+    (``LanczosResult.resumed_from``).  The key is the JAX package's: the
+    vector space (for an engine's hashed rows, topology-free — a
+    checkpoint written at D shards restores at D′ through
+    ``parallel/reshard.py``), the dtype and the operator itself; the
+    fixed-D (v1) key is still probed.  A rank engine writes its shard of
+    every row to ``path.r<rank>``.  A set preemption latch stops the solve
+    after the next convergence-check block with ``Preempted("lanczos",
+    iters, checkpoint_path)``, the checkpoint written first.
 
     ``device`` defaults to the device of ``v0`` when that is a tensor, else
     to ``cuda``, raising when there is none.  The vectors are ``dtype``
@@ -551,7 +946,6 @@ def lanczos(
     rank's row as ``v0`` (``eng.random_hashed(seed)``) and call on every
     rank together.
     """
-    refuse_checkpoint(checkpoint_path)
     red = rank_reducer(matvec)
     ranks = rank_owner(matvec)
     owner = engine_owner(matvec)
@@ -627,6 +1021,62 @@ def lanczos(
     # arrowhead coupling row must be projected out against every locked row
     pending_full = False
     full_sweeps = 0
+
+    # the JAX keys: the vector space (an engine's hashed rows keyed
+    # topology-free, so a checkpoint written at D is found at D′ and
+    # resharded), the dtype and the operator; the fixed-D key is probed too
+    hashed, sharded_ckpt, checkpoint_path = _ckpt_layout(
+        owner, shape, "lanczos", checkpoint_path)
+    npdt = _np_dtype(dtype).str
+    key = _operator_key(owner)
+    gshape = _global_shape(owner, shape, hashed)
+    if hashed:
+        ckpt_fp = f"hashed{tuple(shape[2:])}|{npdt}|{key}|lanczos-v3"
+        legacy_fp = f"{gshape}|{npdt}|{key}|lanczos-v2"
+    else:
+        ckpt_fp = f"{gshape}|{npdt}|{key}|lanczos-v2"
+        legacy_fp = None
+    resumed_from = 0
+    if checkpoint_path:
+        got = _restore_ckpt(checkpoint_path, ckpt_fp, owner, shape,
+                            sharded=sharded_ckpt, legacy_fp=legacy_fp,
+                            dtype=_np_dtype(dtype))
+        if sharded_ckpt:
+            got = _agree_generation(owner, got)
+        if got is not None:
+            if int(got["m"]) > mcap:
+                from ..utils.logging import log_debug
+                log_debug("lanczos checkpoint basis exceeds "
+                          "max_basis_size; starting fresh")
+            else:
+                for i, row in enumerate(got["V_rows"]):
+                    V[i] = torch.as_tensor(row).to(device, dtype).reshape(
+                        nflat)
+                na = min(int(got["m"]), mcap)
+                alph_d[:na] = torch.from_numpy(
+                    np.asarray(got["alph"][:na], np.float64)).to(device)
+                bet_d[:na] = torch.from_numpy(
+                    np.asarray(got["bet"][:na], np.float64)).to(device)
+                lock_theta = np.asarray(got["lock_theta"], np.float64)
+                lock_sigma = np.asarray(got["lock_sigma"], np.float64)
+                m = int(got["m"])
+                total_iters = resumed_from = int(got["total_iters"])
+    if m:
+        # Rayleigh-Ritz on the restored state up front: a resume whose
+        # budget is already spent still returns the checkpointed
+        # estimates (and may exit converged at once)
+        alph = alph_d.cpu().numpy()
+        bet = bet_d.cpu().numpy()
+        kk = min(k, m)
+        T = _projected_matrix(alph, bet, lock_theta, lock_sigma, m)
+        theta, S = eigh(T, subset_by_index=(0, kk - 1))
+        res = np.abs(bet[m - 1] * S[m - 1, :])
+        if m >= k and np.all(res < tol * np.maximum(1.0, np.abs(theta))):
+            converged = True
+        # the restored basis's ω history is unknown: the first block runs
+        # the full sweep
+        pending_full = True
+    blocks_done = 0
     preempt.ensure_installed()
 
     while total_iters < max_iters and not converged:
@@ -714,14 +1164,31 @@ def lanczos(
                                converged=False)
             break
         watchdog.check_stagnation(res, total_iters)
+        blocks_done += 1
         # chaos site at the block boundary (inert unless DMT_FAULT arms
         # it; delay= stretches a solve so a kill lands mid-iteration)
         faults.check("solver_block", exc=RuntimeError, solver="lanczos",
                      iter=int(total_iters))
         # safe point: the recurrence state is host-consistent and no
-        # collective is in flight; ranks agree on the latch first
-        preempt.safe_point("lanczos", total_iters,
-                           ranks.group if ranks is not None else None)
+        # collective is in flight; ranks agree on the latch first, so
+        # every rank checkpoints the same generation and exits together
+        cadence_due = bool(checkpoint_path) \
+            and blocks_done % max(checkpoint_every, 1) == 0
+        preempted = preempt.agreed(ranks.group if ranks is not None
+                                   else None)
+        if cadence_due or (preempted and checkpoint_path):
+            _soft_save_ckpt(
+                checkpoint_path, ckpt_fp, owner,
+                V[: m + 1].reshape((m + 1,) + tuple(shape)), {
+                    "alph": alph_d.cpu().numpy(),
+                    "bet": bet_d.cpu().numpy(),
+                    "lock_theta": np.asarray(lock_theta),
+                    "lock_sigma": np.asarray(lock_sigma),
+                    "m": int(m), "total_iters": int(total_iters)},
+                m, sharded_ckpt,
+                reason="cadence" if cadence_due else "preempt")
+        if preempted:
+            preempt.exit_preempted("lanczos", total_iters, checkpoint_path)
 
     kk = min(k, m)
     evecs = None
@@ -739,6 +1206,7 @@ def lanczos(
         else np.zeros(0),
         num_iters=total_iters,
         converged=converged,
+        resumed_from=resumed_from,
         full_sweeps=full_sweeps,
     )
 

@@ -43,10 +43,16 @@ same bits on every rank; the start block and the norm estimate's vector
 are drawn whole on every rank, which keeps its rows; and the basis
 extension gathers the few leading rows of the global space it reads.
 
-Real sectors only (the JAX solver's (re, im) pair form is not ported);
-checkpoint/resume is not in the port.  The JAX solver checks the
-preemption latch only between the segments it checkpoints; without a
-checkpoint it runs one-shot with no safe point, and so does this one.
+Real sectors only (the JAX solver's (re, im) pair form is not ported).
+With ``checkpoint_path`` the iteration runs in *segments* of
+``checkpoint_every`` iterations and the block is checkpointed after each
+(the Lanczos machinery of ``solve/lanczos.py``: the JAX keys, the block
+as hashed rows ``[cols, D, M]`` for a ``DistributedEngine`` — restored on
+another shard count by a reshard — or flat ``[cols, n]`` rows for a local
+solve, per rank on a rank engine); a rerun warm-starts from the last saved
+block with the cumulative iteration count.  The preemption latch is
+checked between those segments, as in the JAX solver; without a
+checkpoint the solve runs one-shot with no safe point, as JAX's does.
 The solve is one ``solve`` span with an ``iteration`` span per LOBPCG
 iteration; its block workspace is in the memory ledger (the JAX
 estimate), and a nonfinite eigenvalue is a critical ``solver_health``
@@ -64,9 +70,11 @@ from ..models.observables import _complex_native
 from ..obs import health as obs_health
 from ..obs import trace as obs_trace
 from ..obs.events import emit as obs_emit
+from ..utils import preempt
 from ..utils.device import start_device
-from .lanczos import (engine_owner, guard_engine, rank_owner,
-                      refuse_checkpoint, solve_span, track_workspace)
+from .lanczos import (_operator_key, _restore_ckpt, _restore_sharded_rows,
+                      _soft_save_ckpt, engine_owner, guard_engine,
+                      rank_owner, solve_span, track_workspace)
 
 __all__ = ["lobpcg"]
 
@@ -355,7 +363,8 @@ def _finish(mem_h, evals, iters: int) -> None:
 @solve_span("lobpcg")
 def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
            tol: float = 1e-9, seed: int = 0, X0=None,
-           checkpoint_path: Optional[str] = None, device=None
+           checkpoint_path: Optional[str] = None,
+           checkpoint_every: int = 50, device=None
            ) -> Tuple[np.ndarray, torch.Tensor, int]:
     """Lowest-``k`` eigenpairs via spectrum-flipped LOBPCG.
 
@@ -370,12 +379,14 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
 
     ``tol`` is ``lobpcg_standard``'s: relative to ``10·n·(λ + |Av|)``, so
     large sectors need a smaller one for the same eigenvalue accuracy.
-    ``checkpoint_path`` is not supported yet and raises
-    ``NotImplementedError``.  ``device`` defaults to the engine's device
+    ``checkpoint_path`` segments the solve (``checkpoint_every``
+    iterations each), checkpoints the block after each segment, resumes
+    from it on a rerun, and checks the preemption latch between segments
+    (``Preempted("lobpcg", iters, checkpoint_path)``).  ``device``
+    defaults to the engine's device
     for a ``DistributedEngine``, else to the device of a tensor ``X0``,
     else to ``cuda`` (raising when there is none).
     """
-    refuse_checkpoint(checkpoint_path)
     owner = engine_owner(matvec)
     if owner is not None and _complex_native(owner):
         raise ValueError(
@@ -395,32 +406,105 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
         y = guarded(x)
         return y[0] if isinstance(y, tuple) else y
 
-    def run_flipped(mv, X, rows):
+    ranks = rank_owner(matvec) if dist else None
+
+    def ckpt_fp(dim_, cols):
+        """The JAX keys: a ``DistributedEngine`` solve keys topology-free
+        (n_states, not the padded D·M), so a block written at D restores
+        at D′; a local solve keys by its dimension (v1, also the legacy
+        key a distributed restore probes)."""
+        legacy = f"lobpcg|{dim_}|{cols}|0|{_operator_key(owner)}|v1"
+        if dist:
+            return (f"lobpcg|nst{int(owner.n_states)}|{cols}|0"
+                    f"|{_operator_key(owner)}|v2"), legacy
+        return legacy, None
+
+    def restore(fp, legacy, row_shape, dim_, cols):
+        """``(block rows, iterations)`` of a matching checkpoint, or
+        None."""
+        if ranks is not None:
+            meta, rows_ = _restore_sharded_rows(
+                checkpoint_path, fp, legacy, owner, row_shape, "lobpcg",
+                expect_m=cols - 1)
+            return None if meta is None else (rows_,
+                                               int(meta["total_iters"]))
+        got = _restore_ckpt(
+            checkpoint_path, fp, owner if dist else None, row_shape,
+            sharded=False, solver="lobpcg", legacy_fp=legacy,
+            # the v1 distributed format stored FLAT padded columns
+            legacy_shape=(dim_,) if dist else None)
+        if got is None or len(got["V_rows"]) != cols:
+            return None
+        return got["V_rows"], int(got["total_iters"])
+
+    def run_flipped(mv, X, rows, row_shape=None):
         """σ estimate, spectrum-flipped LOBPCG from the orthonormal start
         ``X`` (this process's rows), ascending (evals, columns,
-        iterations)."""
+        iterations).  With ``checkpoint_path`` the solve runs in segments
+        with a checkpoint of the block (as rows of ``row_shape``) after
+        each."""
         sigma = _norm_estimate(mv, rows, dev)
 
         def flip(X):
             return sigma * X - mv(X)
 
-        theta, U, it = _lobpcg_standard(flip, X, m=max_iters, tol=tol,
-                                        rows=rows)
+        cols = int(X.shape[1])
+        dim_ = rows.n
+        done = 0
+        if checkpoint_path:
+            fp, legacy = ckpt_fp(dim_, cols)
+            got = restore(fp, legacy, row_shape, dim_, cols)
+            if got is not None:
+                rows_, done = got
+                X = torch.stack([torch.as_tensor(r).to(dev, X.dtype)
+                                 .reshape(-1) for r in rows_], dim=1)
+                obs_emit("solver_resume", solver="lobpcg",
+                         iters=int(done), path=checkpoint_path)
+        theta = U = None
+        if done >= max_iters:
+            # a resume whose budget is spent: the restored block's
+            # Rayleigh-Ritz estimates, no further iterations
+            G = rows.dot(X, flip(X)).cpu().numpy()
+            th, W = np.linalg.eigh((G + G.T) / 2)
+            theta = torch.from_numpy(th)
+            U = X @ torch.from_numpy(W).to(dev, X.dtype)
+        while done < max_iters:
+            seg = (max_iters - done) if not checkpoint_path else \
+                min(max(int(checkpoint_every), 1), max_iters - done)
+            theta, U, it = _lobpcg_standard(flip, X, m=seg, tol=tol,
+                                            rows=rows)
+            done += int(it)
+            X = U
+            if not checkpoint_path:
+                break
+            # the block as rows: [cols, L, M] hashed, or [cols, n] flat
+            V_save = U.T.reshape((cols,) + tuple(row_shape))
+            _soft_save_ckpt(checkpoint_path, fp, owner if dist else None,
+                            V_save, {"m": cols - 1,
+                                     "total_iters": int(done)},
+                            cols - 1, ranks is not None, solver="lobpcg")
+            # _lobpcg_standard stops early on convergence, so a full
+            # segment means "not converged yet"
+            if int(it) < seg:
+                break
+            if preempt.agreed(ranks.group if ranks is not None else None):
+                preempt.exit_preempted("lobpcg", done, checkpoint_path)
         evals = sigma - theta.cpu().numpy()
         order = np.argsort(evals)
-        return evals[order], U[:, torch.from_numpy(order).to(dev)], int(it)
+        return evals[order], U[:, torch.from_numpy(order).to(dev)], \
+            int(done)
 
     if not dist:
         if X0 is None:
             X0 = np.random.default_rng(seed).standard_normal((n, k))
         U0q, _ = np.linalg.qr(_host(X0))
-        out = run_flipped(raw_mv, torch.from_numpy(U0q).to(dev), _Rows(n))
+        out = run_flipped(raw_mv, torch.from_numpy(U0q).to(dev), _Rows(n),
+                          row_shape=(n,))
         _finish(mem_h, out[0], out[2])
         return out
 
     # -- hashed flat space adapters ------------------------------------
     D, M = owner.n_devices, owner.shard_size
-    ranks = rank_owner(matvec)
     lead = 1 if ranks is not None else D         # hashed rows held here
     rows = _Rows(D * M) if ranks is None else _Rows(
         D * M, M, red=ranks.reduce_sum, gather=ranks.group.all_gather,
@@ -443,10 +527,11 @@ def lobpcg(matvec: Callable, n: int, k: int = 1, max_iters: int = 200,
     # the whole hashed start block on every rank: a hashed layout is a row
     # permutation plus zero pad, so its QR is the block's, and each rank
     # keeps its rows of Q
-    U0q, _ = np.linalg.qr(owner.layout.to_hashed(Xb, fill=0).reshape(
-        D * M, k))
+    U0q, _ = np.linalg.qr(owner._require_layout().to_hashed(
+        Xb, fill=0).reshape(D * M, k))
     evals, U, iters = run_flipped(
-        mv_flat, torch.from_numpy(rows.local_rows(U0q)).to(dev), rows)
+        mv_flat, torch.from_numpy(rows.local_rows(U0q)).to(dev), rows,
+        row_shape=(lead, M))
     V = owner.from_hashed(U.reshape(lead, M, k))       # [n, k] block order
     _finish(mem_h, evals, iters)
     return evals, torch.from_numpy(V).to(dev), iters

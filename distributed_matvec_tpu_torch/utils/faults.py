@@ -33,17 +33,20 @@ The sites of the port:
 * ``solver_block`` — each solver's block boundary, beside its preemption
   safe point (``lanczos``, ``lanczos_block``, ``kpm``, ``evolve``);
 * ``ckpt_write`` / ``ckpt_rename`` — before an engine structure sidecar's
-  temp file is written and before it is renamed into place
-  (``io/hdf5.py``, ``OSError``);
+  or a solver checkpoint's temp file is written and before it is renamed
+  into place (``io/hdf5.py``, ``io/sharded_io.py``, ``OSError``; a solver
+  checkpoint's save fails soft and the solve goes on);
+* ``ckpt_reshard`` — the head of a D → D′ checkpoint restore's staging
+  (``parallel/reshard.py``, ``OSError``): the restore degrades to a fresh
+  solve;
 * ``artifact_read`` — each read of a basis checkpoint or a structure
   sidecar, retried through :func:`with_retries` and then degrading to a
   rebuild and the quarantine tally (``utils/artifacts.py``);
 * ``artifact_save`` — before the basis artifact's atomic save, which
   then fails soft.
 
-The JAX package's other I/O sites (``ckpt_*`` of the solvers' checkpoints,
-``plan_chunk_read``, ``ckpt_reshard``) sit on its solver checkpoints and
-the streamed plan's disk tier, which later slices port.
+The JAX package's other I/O site, ``plan_chunk_read``, sits on the
+streamed plan's disk tier, which a later slice ports.
 
 Examples::
 

@@ -17,9 +17,9 @@ code, not a torn process.  The contract:
   where the recurrence state is host-consistent and no collective is in
   flight — agrees on the verdict across ranks (:func:`agreed`: one
   max-``all_reduce`` over the rank group), flushes the obs sinks, and
-  raises :class:`Preempted`.  The port's solvers write no checkpoint yet,
-  so ``Preempted.checkpoint_path`` is None, as in the JAX solvers run
-  without one.
+  raises :class:`Preempted`.  A solve given a checkpoint path writes its
+  checkpoint first and names it in ``Preempted.checkpoint_path`` (None
+  without one, as in the JAX solvers).
 * The solve service catches :class:`Preempted` and exits
   :data:`EXIT_PREEMPTED` (75, ``EX_TEMPFAIL``: "transient, retry") with
   every in-flight job still spooled, so a supervisor can relaunch the SAME
@@ -38,7 +38,8 @@ import threading
 from typing import Optional
 
 __all__ = ["EXIT_PREEMPTED", "Preempted", "ensure_installed", "requested",
-           "agreed", "trigger", "reset", "set_flight_hook", "safe_point"]
+           "agreed", "trigger", "reset", "set_flight_hook", "safe_point",
+           "exit_preempted"]
 
 #: Distinct exit code for a preemption (EX_TEMPFAIL: transient failure,
 #: relaunch with the same argv to resume).
@@ -55,7 +56,7 @@ class Preempted(Exception):
     """A solve stopped at a safe point in response to a preemption signal
     (or a programmatic :func:`trigger`).  ``checkpoint_path`` is the
     checkpoint the resume should restore from (None when the solve ran
-    without one — always, in the port, until the solvers checkpoint)."""
+    without one)."""
 
     def __init__(self, solver: str, iters: int,
                  checkpoint_path: Optional[str] = None):
@@ -159,19 +160,26 @@ def agreed(multi) -> bool:
     return bool(int(multi.all_reduce(flag, op="max").item()))
 
 
-def safe_point(solver: str, iters: int, group=None) -> None:
-    """The solvers' safe point: when the latch is agreed set, emit
-    ``solver_preempted``, flush the obs sinks and raise
-    :class:`Preempted` ``(solver, iters, None)`` — what the JAX solvers do
-    at the same places when they run without a checkpoint."""
-    if not agreed(group):
-        return
+def exit_preempted(solver: str, iters: int,
+                   checkpoint_path: Optional[str] = None) -> None:
+    """Emit ``solver_preempted``, flush the obs sinks and raise
+    :class:`Preempted` ``(solver, iters, checkpoint_path)`` — a solver's
+    exit once the latch is agreed set (and its checkpoint, if any, is
+    written)."""
     from .. import obs
 
     obs.emit("solver_preempted", solver=solver, iters=int(iters),
-             checkpoint="")
+             checkpoint=checkpoint_path or "")
     obs.flush()
-    raise Preempted(solver, iters, None)
+    raise Preempted(solver, iters, checkpoint_path)
+
+
+def safe_point(solver: str, iters: int, group=None) -> None:
+    """The safe point of a solve without a checkpoint: when the latch is
+    agreed set, :func:`exit_preempted` with no checkpoint — what the JAX
+    solvers do at the same places when they run without one."""
+    if agreed(group):
+        exit_preempted(solver, iters)
 
 
 def trigger() -> None:

@@ -7,7 +7,8 @@ module-scoped fixture.  The files must hold the same datasets with the
 same dtypes and shapes, the same basis bits, eigenvalues within 1e-10,
 eigenvectors with ``|⟨v_jax|v_port⟩| ≥ 1 − 1e-10`` and observables and
 dynamics outputs within 1e-10.  Then: the rerun restores its basis from
-the file; two gloo ranks write the one-process file; the refusals exit 2;
+the file; two gloo ranks write the one-process file; ``--submit`` without
+a spool exits 2; ``--shards`` and the solver checkpoints run;
 SIGTERM exits 75; ``--submit`` is drained by the port's service.
 """
 
@@ -257,11 +258,7 @@ def test_two_gloo_ranks_write_the_one_process_file(runs):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--submit"], "--serve-dir"),
-    (["--shards", "s.h5"], "ROADMAP.md"),
-    (["--solver-checkpoint", "ck.h5"], "ROADMAP.md"),
-    (["--solver-checkpoint", "ck.h5", "--block", "--mode", "streamed"],
-     "ROADMAP.md")])
+    (["--submit"], "--serve-dir")])
 def test_diagonalize_refusals_exit_2(tmp_path, capsys, argv, needle):
     assert diagonalize.main([str(tmp_path / "m.yaml"), "--device", "cpu",
                              *argv]) == 2
@@ -270,10 +267,83 @@ def test_diagonalize_refusals_exit_2(tmp_path, capsys, argv, needle):
     assert not os.listdir(tmp_path)
 
 
+def _lowest(ypath: str) -> float:
+    """E0 of the YAML model's sector, from the port's one-device engine."""
+    from distributed_matvec_tpu_torch.models.yaml_io import (
+        load_config_from_yaml)
+    from distributed_matvec_tpu_torch.parallel.engine import LocalEngine
+    from distributed_matvec_tpu_torch.solve import lanczos
+
+    cfg = load_config_from_yaml(ypath)
+    eng = LocalEngine(cfg.hamiltonian, device="cpu")
+    return float(lanczos(eng.matvec, n=cfg.basis.number_states, tol=1e-12,
+                         device="cpu").eigenvalues[0])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--shards", "s.h5"],
+    ["--solver-checkpoint", "ck.h5"],
+    ["--solver-checkpoint", "ck.h5", "--block", "--mode", "streamed"]],
+    ids=["shards", "solver_checkpoint", "checkpoint_block_streamed"])
+def test_diagonalize_shard_and_checkpoint_flags(tmp_path, capsys, argv):
+    """The flags that exited 2 until the sharded enumeration and the
+    solvers' checkpoints were ported now solve: ``--shards`` from a shard
+    file (eigenvectors per shard under ``vector_shards``), and
+    ``--solver-checkpoint`` for Lanczos and for LOBPCG on a streamed engine
+    (a rerun resumes from the file).  tests/test_torch_checkpoint.py holds
+    the files against the JAX apps'."""
+    from distributed_matvec_tpu_torch.enumeration.sharded import (
+        enumerate_to_shards)
+    from distributed_matvec_tpu_torch.io.sharded_io import load_hashed_shard
+    from distributed_matvec_tpu_torch.models.yaml_io import (
+        load_config_from_yaml)
+
+    ypath, out = str(tmp_path / "m.yaml"), str(tmp_path / "out.h5")
+    with open(ypath, "w", encoding="utf-8") as f:
+        # the 10-ring sector's Krylov space closes within one block, too
+        # soon for a checkpoint: the checkpointed solves run the 16-ring
+        f.write(RING_YAML if "--shards" in argv else _ring16_yaml())
+    argv = [str(tmp_path / a) if a.endswith(".h5") else a for a in argv]
+    if "--solver-checkpoint" in argv:
+        argv += ["--checkpoint-every", "1"]
+    if "--shards" in argv:
+        b = load_config_from_yaml(ypath).basis
+        enumerate_to_shards(b.number_spins, b.hamming_weight, b.group, 2,
+                            argv[1])
+    e0 = _lowest(ypath)
+    run = [ypath, "-o", out, "--device", "cpu", "--tol", "1e-12", *argv]
+    assert diagonalize.main(run) == 0
+    np.testing.assert_allclose(_read(out, "hamiltonian/eigenvalues")[0],
+                               e0, rtol=0, atol=1e-8)
+    if "--shards" in argv:
+        rows = [load_hashed_shard(out, d, "eigenvector_0") for d in (0, 1)]
+        assert sum(r.size for r in rows) == 13          # the sector's N
+        assert "basis" not in h5py.File(out, "r")
+    else:
+        assert os.path.exists(argv[1])
+        capsys.readouterr()
+        assert diagonalize.main(run) == 0
+        np.testing.assert_allclose(
+            _read(out, "hamiltonian/eigenvalues")[0], e0, rtol=0,
+            atol=1e-8)
+
+
 def test_dynamics_checkpoint_exits_2(tmp_path, capsys):
-    assert dynamics.main([str(tmp_path / "m.yaml"), "--checkpoint", "c.h5",
-                          "--device", "cpu"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    """``dynamics --checkpoint`` exited 2 until the solvers' checkpoints
+    were ported; now the trajectory is checkpointed, and a rerun with the
+    same argv resumes it and writes the same trajectory."""
+    ypath, out = str(tmp_path / "m.yaml"), str(tmp_path / "d.h5")
+    with open(ypath, "w", encoding="utf-8") as f:
+        f.write(PLAIN_YAML)
+    run = [ypath, "-o", out, "--solver", "evolve", "--t-final", "0.5",
+           "--checkpoint", str(tmp_path / "c.h5"), "--checkpoint-every",
+           "1", "--device", "cpu"]
+    assert dynamics.main(run) == 0
+    times = _read(out, "evolve/times")
+    assert "resumed" not in capsys.readouterr().out
+    assert dynamics.main(run) == 0
+    assert "solver: resumed from" in capsys.readouterr().out
+    np.testing.assert_array_equal(_read(out, "evolve/times"), times)
 
 
 @pytest.mark.parametrize("cmd", [PORT_DIAG, PORT_DYN],

@@ -23,6 +23,8 @@ Tolerances:
   ``krylov_evolve``'s observable series within 1e-10, LOBPCG within 1e-8.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -438,7 +440,7 @@ def test_bound_observables_complex_sector_sharded(ring8_k1, D, mode):
 
 # -- refusals ----------------------------------------------------------------------
 
-def test_dynamics_refusals(chain12):
+def test_dynamics_refusals(chain12, tmp_path):
     c = chain12
     with pytest.raises(ValueError, match="n_moments must be >= 2"):
         kpm_moments(c.tl.matvec, 1, n=c.n, device="cpu")
@@ -452,14 +454,23 @@ def test_dynamics_refusals(chain12):
         spectral_bounds(lambda x: x, device="cpu")
     with pytest.raises(ValueError, match="pass psi0 or n"):
         krylov_evolve(lambda x: x, device="cpu")
-    for call in (lambda: kpm_moments(c.tl.matvec, 8, n=c.n, device="cpu",
-                                     checkpoint_path="k.h5"),
-                 lambda: kpm_dos(c.tl.matvec, 8, n=c.n, device="cpu",
-                                 checkpoint_path="k.h5"),
-                 lambda: krylov_evolve(c.tl.matvec, n=c.n, device="cpu",
-                                       checkpoint_path="e.h5")):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            call()
+    # checkpoint_path, refused before the solvers' checkpoints were
+    # ported, now checkpoints: a rerun on the same path restores the
+    # finished run's state and returns the same results
+    k_ck, e_ck = str(tmp_path / "k.h5"), str(tmp_path / "e.h5")
+    res = kpm_moments(c.tl.matvec, 8, n=c.n, device="cpu",
+                      checkpoint_path=k_ck, checkpoint_every=1)
+    assert res.resumed_from == 0 and os.path.exists(k_ck)
+    again = kpm_dos(c.tl.matvec, 8, n=c.n, device="cpu",
+                    checkpoint_path=k_ck, checkpoint_every=1)[2]
+    assert again.resumed_from > 0
+    np.testing.assert_array_equal(again.moments, res.moments)
+    first = krylov_evolve(c.tl.matvec, n=c.n, device="cpu",
+                          checkpoint_path=e_ck, checkpoint_every=1)
+    again = krylov_evolve(c.tl.matvec, n=c.n, device="cpu",
+                          checkpoint_path=e_ck, checkpoint_every=1)
+    assert again.resumed_from == first.num_steps
+    assert torch.equal(again.psi, first.psi)
 
 
 def test_dynamics_need_a_card_unless_asked(monkeypatch, chain12):

@@ -41,8 +41,13 @@ SLICE_12 = {"models.yaml_io": "distributed_matvec_tpu/models/yaml_io.py",
             "utils.artifacts": "distributed_matvec_tpu/utils/artifacts.py",
             "apps.diagonalize": "apps/diagonalize.py",
             "apps.dynamics": "apps/dynamics.py"}
+#: the sharded enumeration, its vector files and the Resharder
+SLICE_13 = {"enumeration.sharded":
+            "distributed_matvec_tpu/enumeration/sharded.py",
+            "io.sharded_io": "distributed_matvec_tpu/io/sharded_io.py",
+            "parallel.reshard": "distributed_matvec_tpu/parallel/reshard.py"}
 SOURCES = {**{k: "distributed_matvec_tpu/" + v for k, v in SLICE_11.items()},
-           **SLICE_12}
+           **SLICE_12, **SLICE_13}
 
 
 @pytest.mark.parametrize("sub", sorted(SOURCES))
@@ -68,7 +73,7 @@ def test_import_pulls_in_no_jax():
                 "obs.export", "obs.flight", "utils.config",
                 "utils.preempt", "utils.logging", "apps.solve_service",
                 *SLICE_11, "models.yaml_io", "io", "io.hdf5",
-                "apps.diagonalize", "apps.dynamics"):
+                "apps.diagonalize", "apps.dynamics", *SLICE_13):
         assert f"distributed_matvec_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
@@ -183,10 +188,10 @@ def test_service_refuses_cpu_without_request(monkeypatch, tmp_path):
 
 
 def test_out_of_scope_raises_not_implemented(monkeypatch):
-    """What the port does not have raises NotImplementedError: a solver
-    checkpoint (the HDF5 slice) and a tuned config that asks for the disk
-    plan tier (the persistence slice) — never a quiet build of something
-    else.  What earlier slices refused builds now: the two "auto" policies
+    """What the port does not have raises NotImplementedError: the
+    engine's plan and table sidecars (``from_shards(structure_cache=)``)
+    and a tuned config that asks for the disk plan tier (the persistence
+    slice) — never a quiet build of something else.  What earlier slices refused builds now: the two "auto" policies
     (the hybrid split, also the JAX default, and the pipeline depth),
     resolved by the cost model as ``obs/roofline.py`` prices them under the
     CPU calibration; every codec tier, complex sectors in the streamed
@@ -206,8 +211,9 @@ def test_out_of_scope_raises_not_implemented(monkeypatch):
         if kw["mode"] == "hybrid":
             assert eng._hybrid_mask is not None
             assert eng.hybrid_split.startswith("stream:")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        port.lanczos(lambda v: v, n=4, device="cpu", checkpoint_path="x")
+    with pytest.raises(NotImplementedError, match="structure_cache"):
+        port.DistributedEngine.from_shards(op, "s.h5", device="cpu",
+                                           structure_cache="c.h5")
     disk = tune.TunedConfig(batch_size=64, plan_tier="disk")
     monkeypatch.setattr(tune, "load_tuned", lambda fp: disk)
     update_config(tune="static")

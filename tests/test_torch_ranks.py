@@ -53,7 +53,8 @@ from distributed_matvec_tpu.solve import lanczos as jax_lanczos
 from distributed_matvec_tpu.solve import lanczos_block as jax_lanczos_block
 from distributed_matvec_tpu.solve import lobpcg as jax_lobpcg
 from distributed_matvec_tpu_torch import (DistributedEngine, krylov_evolve,
-                                          kpm_moments, lanczos_block, lobpcg)
+                                          kpm_moments, lanczos,
+                                          lanczos_block, lobpcg)
 from distributed_matvec_tpu_torch.convert import (operator_arrays,
                                                   operator_from_reference)
 from distributed_matvec_tpu_torch.models.observables import \
@@ -579,6 +580,54 @@ def test_rank_preempt_agreed(ranks, W):
         # 3; evolve after its first accepted step (8 Krylov applies)
         want = {"lanczos": 16, "lanczos_block": 6, "kpm": 3, "evolve": 1}
         assert iters == want[name], (name, iters)
+
+
+# -- the solvers' checkpoints on ranks ------------------------------------------
+
+@pytest.mark.parametrize("W", sorted(RW.CASES))
+def test_rank_checkpoint_resume(spawned, ranks, refs, W):
+    """Each solver on a rank engine with a checkpoint path, preempted on
+    every rank at the same safe point (rank 0 latched), writes one file
+    per rank and resumes from them with the same arguments: the same bits
+    on every rank, Lanczos within 1e-10 of the JAX E0 and LOBPCG of the
+    JAX solver, KPM and evolve within 1e-12 of an uninterrupted
+    one-process run.  The Lanczos files then resume in one process at
+    another D (read across the per-rank files, resharded)."""
+    out_dir = spawned[W][0]
+    ref = refs[(W, "chain_12_symm")]
+    outs = [o["checkpoint"] for o in ranks[W]]
+    for name in ("lanczos", "lobpcg", "kpm", "evolve"):
+        stops = {o[name][0] for o in outs}
+        assert len(stops) == 1, (name, stops)
+        (iters, path), = stops
+        assert path == str(out_dir / f"ck_{name}.h5")
+        for r in range(W):
+            assert os.path.exists(f"{path}.r{r}")
+        assert all(o[name][2] == iters for o in outs), name
+    lz = [o["lanczos"][1] for o in outs]
+    assert len(set(lz)) == 1 and abs(lz[0] - ref.e0) < 1e-10
+    lob = [o["lobpcg"][1] for o in outs]
+    assert all(v == lob[0] for v in lob)
+    np.testing.assert_allclose(lob[0], ref.lobpcg, rtol=0, atol=1e-8)
+    eng = ref.eng["ell"]
+    kpm = kpm_moments(eng.matvec, n_moments=16, n_vectors=2,
+                      bounds=RW.KPM_BOUNDS, seed=1)
+    for o in outs:
+        np.testing.assert_array_equal(o["kpm"][1], outs[0]["kpm"][1])
+        np.testing.assert_allclose(o["kpm"][1], kpm.moments, rtol=0,
+                                   atol=1e-12)
+    psi = krylov_evolve(eng.matvec, **RW.EVOLVE_CKPT_KW).psi.numpy()
+    for r, o in enumerate(outs):
+        np.testing.assert_allclose(o["evolve"][1][0], psi[r], rtol=0,
+                                   atol=1e-12)
+    Dp = 3
+    one = DistributedEngine(ref.op_t, n_devices=Dp, mode="ell",
+                            device="cpu")
+    res = lanczos(one.matvec, v0=one.random_hashed(1), tol=1e-12,
+                  check_every=8,
+                  checkpoint_path=str(out_dir / "ck_lanczos.h5"))
+    assert res.resumed_from == outs[0]["lanczos"][0][0]
+    assert abs(res.eigenvalues[0] - ref.e0) < 1e-10
 
 
 # -- the self-tuning runtime on ranks --------------------------------------------

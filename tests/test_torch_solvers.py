@@ -22,6 +22,7 @@ Tolerances:
 
 import functools
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -351,12 +352,30 @@ def test_lobpcg_refuses_complex_sector():
 
 # -- refusals ----------------------------------------------------------------------
 
-def test_checkpoint_path_not_implemented(chain12):
+def test_checkpoint_path_not_implemented(chain12, tmp_path):
+    """``checkpoint_path`` was refused before the solvers' checkpoints were
+    ported; it now writes a checkpoint, and a rerun on the same path
+    resumes from it to the same eigenvalues (tests/test_torch_checkpoint.py
+    holds the resumes against the JAX solvers)."""
     c = chain12
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        lanczos(c.tl.matvec, c.n, device="cpu", checkpoint_path="ck.h5")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        lobpcg(c.tl.matvec, c.n, device="cpu", checkpoint_path="ck.h5")
+    ck = str(tmp_path / "ck.h5")
+    ref = lanczos(c.tl.matvec, c.n, device="cpu", check_every=4)
+    first = lanczos(c.tl.matvec, c.n, device="cpu", check_every=4,
+                    checkpoint_path=ck, checkpoint_every=1)
+    assert os.path.exists(ck) and first.resumed_from == 0
+    again = lanczos(c.tl.matvec, c.n, device="cpu", check_every=4,
+                    checkpoint_path=ck, checkpoint_every=1)
+    assert again.resumed_from > 0
+    np.testing.assert_allclose(again.eigenvalues, ref.eigenvalues,
+                               rtol=0, atol=1e-10)
+    ck2 = str(tmp_path / "lobpcg.h5")
+    w0, _, it0 = lobpcg(c.tl.matvec, c.n, device="cpu",
+                        checkpoint_path=ck2, checkpoint_every=2)
+    assert os.path.exists(ck2)
+    w1, _, it1 = lobpcg(c.tl.matvec, c.n, device="cpu",
+                        checkpoint_path=ck2, checkpoint_every=2)
+    assert it1 >= it0
+    np.testing.assert_allclose(w1, w0, rtol=0, atol=1e-8)
 
 
 def test_unknown_reorth_policy(chain12):

@@ -351,6 +351,15 @@ def test_live_rekey_lands_bit_equal_to_hand_set(chain12, tune_off,
     update_config(tune="live")
     eng = _build(op_t, D=2)
     first = eng._tuned
+    # every apply reaches the tuner with the same measured wall (and no
+    # directly measured phase): the ratio's fall then follows from the
+    # posterior update alone, not from the CPU's load during the test
+    measure = eng._tuner.observe
+
+    def fixed_wall(counts, wall_ms, measured=None):
+        return measure(counts, 5.0, None)
+
+    monkeypatch.setattr(eng._tuner, "observe", fixed_wall)
     x = np.random.default_rng(2).random(op_t.basis.number_states) - 0.5
     xh = eng.to_hashed(x)
     ratios = []

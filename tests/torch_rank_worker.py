@@ -9,7 +9,9 @@ plan and tables, matvec (sequential and pipelined), Lanczos, the block
 solvers, KPM, Krylov evolution, bound observables and the fused-capacity
 overflow — then, at W = 2, the streamed engine's other forms (``FORMS``)
 a codec mismatch, the self-tuning runtime (``run_tune``) and a wrapped
-matvec (``run_wrapped``) — and saves what it saw to
+matvec (``run_wrapped``), and at every W the preemption latch and the
+solvers' per-rank checkpoints (``run_checkpoint``) — and saves what it
+saw to
 ``OUT_DIR/rank{RANK}.pt``.  With ``serve`` it runs only the solve service
 over the group (``run_serve``, the JAX ``tests/multihost_worker.py``
 serve leg).
@@ -361,6 +363,77 @@ def run_preempt(g):
     return out
 
 
+#: the checkpointed trajectory (six accepted steps)
+EVOLVE_CKPT_KW = {"t_final": 0.5, "seed": 1, "krylov_dim": 16, "tol": 1e-10}
+
+
+def run_checkpoint(g, out_dir):
+    """The solvers' checkpoints on ranks (chain_12_symm, ell): each solver
+    runs with a checkpoint path until rank 0 latches after its third
+    apply (every rank stops at the same safe point with ``Preempted``
+    naming the path; each rank writes ``path.r<rank>``), then again with
+    the same arguments, resuming from the per-rank files (record: solver
+    → (stopped at, resumed from, result)).  The Lanczos files stay in
+    ``out_dir`` for the parent to resume in one process."""
+    from distributed_matvec_tpu_torch import (DistributedEngine,
+                                              kpm_moments, krylov_evolve,
+                                              lanczos, lobpcg)
+    from distributed_matvec_tpu_torch.utils import preempt
+
+    op = build_op(12, 6, 1, SYMS_12_K0)
+    eng = DistributedEngine(op, mode="ell", batch_size=32, group=g,
+                            device="cpu")
+    ck = os.path.join(out_dir, "ck_{}.h5")
+    from distributed_matvec_tpu_torch import obs
+
+    def lobpcg_run(p):
+        w = lobpcg(eng.matvec, eng.n_states, k=2, max_iters=60, tol=1e-12,
+                   seed=1, checkpoint_path=p, checkpoint_every=2)[0]
+        ev = [e for e in obs.events("solver_resume")
+              if e.get("solver") == "lobpcg"]
+        return w.tolist(), ev[-1]["iters"] if ev else 0
+
+    def res_of(r, value):
+        return value, r.resumed_from
+
+    # each solve → (result, iterations it resumed from)
+    solves = {
+        "lanczos": lambda p: (lambda r: res_of(r, float(
+            r.eigenvalues[0])))(lanczos(
+                eng.matvec, v0=eng.random_hashed(1), tol=1e-12,
+                check_every=8, checkpoint_path=p, checkpoint_every=100)),
+        "lobpcg": lobpcg_run,
+        "kpm": lambda p: (lambda r: res_of(r, r.moments))(kpm_moments(
+            eng.matvec, n_moments=16, n_vectors=2, bounds=KPM_BOUNDS,
+            seed=1, checkpoint_path=p, checkpoint_every=2)),
+        "evolve": lambda p: (lambda r: res_of(r, r.psi.numpy()))(
+            krylov_evolve(eng.matvec, **EVOLVE_CKPT_KW,
+                          checkpoint_path=p, checkpoint_every=1)),
+    }
+    out = {}
+    inner = eng.matvec
+    for name, solve in solves.items():
+        calls = {"n": 0}
+
+        def counting(self, x, calls=calls):
+            calls["n"] += 1
+            if g.rank == 0 and calls["n"] == 3:
+                preempt.trigger()
+            return inner(x)
+
+        eng.matvec = types.MethodType(counting, eng)
+        try:
+            solve(ck.format(name))
+            stopped = None
+        except preempt.Preempted as e:
+            stopped = (e.iters, e.checkpoint_path)
+        finally:
+            del eng.matvec
+            preempt.reset()
+        out[name] = (stopped, *solve(ck.format(name)))
+    return out
+
+
 def run_tune(g, out_dir):
     """The self-tuning runtime on ranks (W = 2): each rank keeps its own
     artifact cache and only rank 0 saves to its own, so at a second build
@@ -531,6 +604,7 @@ def main(argv):
             warnings.simplefilter("ignore", RuntimeWarning)
             out["overflow"] = run_overflow(g)
         out["preempt"] = run_preempt(g)
+        out["checkpoint"] = run_checkpoint(g, out_dir)
     except _Done:
         pass
     except Exception:
