@@ -1619,6 +1619,207 @@ def resilience_phase(device, full_eng, ell_eng):
     return out, launches
 
 
+# -- caches (after resilience) ---------------------------------------------------
+
+#: the disk tier's RAM budget in the caches leg: below the chain_32_symm
+#: plan's ≈ 0.86 GB, so a restore stays in its sidecar
+CACHES_RAM_GB = 0.25
+
+
+def cache_store(tmp):
+    """Where the plan sidecars go: HDF5 files under ``tmp`` where ``h5py``
+    imports, else the module-private in-memory store.  Returns (store or
+    None, base path, route)."""
+    from distributed_matvec_tpu_torch.parallel import plan_cache
+
+    base = os.path.join(tmp, "plan")
+    if importable("h5py"):
+        return None, base, "file"
+    return plan_cache._MemorySidecarStore(), base, "memory"
+
+
+def flip_record_byte(store, sidecar, name, eng=None):
+    """Flip the first byte of dataset ``name`` of a stream sidecar, in the
+    memory store or (closing ``eng``'s cached handles first) the file."""
+    import numpy as np
+
+    if store is not None:
+        store.files[sidecar].data[name].reshape(-1).view(np.uint8)[0] ^= 0xFF
+        return
+    import h5py
+
+    from distributed_matvec_tpu_torch.parallel import plan_cache
+
+    if eng is not None:
+        plan_cache.close_plan_files(eng._plan_files)
+    with h5py.File(sidecar, "r+") as f:
+        ds = f["engine_structure"][name]
+        a = ds[...]
+        a.reshape(-1).view(np.uint8)[0] ^= 0xFF
+        ds[...] = a
+
+
+def caches_phase(device, full_eng):
+    """The plan caches on the full leg's chain_32_symm streamed ``lossless``
+    engine (D = 1, B = 65 536, 72 chunks); see the module docstring.
+    Returns (info, launches, kernel error)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_matvec_tpu_torch import DistributedEngine, obs
+    from distributed_matvec_tpu_torch.ops import plan_codec as PC
+    from distributed_matvec_tpu_torch.parallel import plan_cache
+    from distributed_matvec_tpu_torch.utils.config import (get_config,
+                                                           update_config)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_caches_")
+    store, cache, route = cache_store(tmp)
+    out = {"route": route, "h5py": importable("h5py"),
+           "plan_bytes": int(full_eng.plan_bytes),
+           "nchunks": full_eng.nchunks,
+           "full_build_s": full_eng.timings["plan_build_s"]
+           + full_eng.timings["plan_encode_s"]}
+    op = full_eng.operator
+    old_store, old_ram = full_eng._store, get_config().stream_plan_ram_gb
+    kw = dict(device=device, mode="streamed", stream_compress="lossless",
+              batch_size=full_eng.batch_size, structure_cache=cache,
+              _sidecar_store=store)
+    try:
+        # 1. save the full engine's plan
+        if store is not None:
+            full_eng._store = store
+        t0 = time.perf_counter()
+        full_eng._save_stream_plan(cache)
+        out["save_s"] = time.perf_counter() - t0
+        sidecar = cache + f".dist{full_eng.n_devices}.stream.h5"
+        out["sidecar_bytes"] = (
+            sum(a.nbytes for a in store.files[sidecar].data.values())
+            if store is not None else os.path.getsize(sidecar))
+        x = full_eng.random_hashed(61)
+        y_ref = full_eng.matvec(x)
+        ram_ms = apply_walls(device, full_eng, x, 3)
+
+        # 2. restore onto the disk tier: no build
+        update_config(stream_plan_ram_gb=CACHES_RAM_GB)
+        eng, restore_s, peak = build_timed(
+            device, lambda: DistributedEngine(op, **kw))
+        if not (eng.structure_restored and eng._plan_host is None
+                and eng._plan_disk and "plan_build_s" not in eng.timings):
+            raise AssertionError("the disk-tier engine did not restore "
+                                 f"without a build: {eng.timings}")
+        out["disk_restore"] = {"engine_s": restore_s,
+                               "plan_restore_s": eng.timings[
+                                   "plan_restore_s"],
+                               "build_peak_bytes": peak}
+
+        # 3. disk-tier applies, counted from 0: two at depth 0, one at 4
+        PC.fused_decode_gather_scatter.launches = 0
+        walls, errs = [], []
+        for depth in (0, 0, 4):
+            eng.pipeline_depth = depth
+            _sync(device)
+            t0 = time.perf_counter()
+            y = eng.matvec(x)
+            _sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            errs.append(assert_close(y, y_ref, f"disk tier at depth {depth}"
+                                     " vs the full engine"))
+        launches = PC.fused_decode_gather_scatter.launches
+        if device.type == "cuda" and launches != 3 * eng.nchunks:
+            raise AssertionError(f"{launches} decode launches in 3 disk-tier "
+                                 f"applies of {eng.nchunks} chunks")
+        out["disk_apply_ms"] = walls
+        out["ram_apply_ms"] = ram_ms
+        out["disk_vs_full_max_abs_err"] = max(errs)
+        out["depth4_fetch_wait_ms"] = eng.last_pipeline["fetch_wait_ms"]
+        # the disk fetch's parts: read + checksum + pack, and the checksum
+        # alone, over every record
+        eng.pipeline_depth = 0
+        t0 = time.perf_counter()
+        for ci in range(eng.nchunks):
+            eng._plan_chunk_host(ci)
+        fetch_s = time.perf_counter() - t0
+        g = (store.open(sidecar) if store is not None
+             else plan_cache.Hdf5SidecarStore.open(sidecar))
+        recs = [{k: g["engine_structure"][f"{k}_0_{ci}"][...]
+                 for k in plan_cache.STREAM_ARRAYS + ("fill",)}
+                for ci in range(eng.nchunks)]
+        t0 = time.perf_counter()
+        for pc in recs:
+            plan_cache.plan_chunk_crc(pc)
+            plan_cache.plan_chunk_crc(pc, ("fill",))
+        crc_s = time.perf_counter() - t0
+        g.close()
+        del recs
+        out["disk_fetch_s"] = fetch_s
+        out["crc_s"] = crc_s
+        out["crc_share_of_fetch"] = crc_s / fetch_s
+        out["crc_share_of_apply"] = crc_s * 1e3 / statistics.median(walls[:2])
+
+        # 4. one corrupt record: the next apply rebuilds it on the card
+        ci = eng.nchunks // 2
+        flip_record_byte(store, sidecar, f"dest_0_{ci}", eng)
+        obs.reset_all()
+        _sync(device)
+        t0 = time.perf_counter()
+        y = eng.matvec(x)
+        _sync(device)
+        rebuild_apply_ms = (time.perf_counter() - t0) * 1e3
+        launches = PC.fused_decode_gather_scatter.launches
+        rebuilt = eng._plan_repaired.get(ci)
+        if rebuilt is None or not torch.equal(rebuilt,
+                                              full_eng._plan_host[ci]):
+            raise AssertionError(f"chunk {ci} was not rebuilt byte-equal "
+                                 "to the full engine's record")
+        if [e["chunk"] for e in obs.events("plan_chunk_rebuilt")] != [ci]:
+            raise AssertionError("no plan_chunk_rebuilt event")
+        out["rebuild"] = {
+            "chunk": ci, "apply_ms": rebuild_apply_ms,
+            "vs_full_max_abs_err": assert_close(y, y_ref, "the apply with "
+                                                "a rebuilt chunk")}
+        t0 = time.perf_counter()
+        eng._rebuild_plan_chunk(ci)
+        _sync(device)
+        out["rebuild"]["chunk_s"] = time.perf_counter() - t0
+        if device.type == "cuda" and launches != 4 * eng.nchunks:
+            raise AssertionError(f"{launches} decode launches in 4 "
+                                 f"disk-tier applies of {eng.nchunks}")
+        # the decode kernel on the rebuilt record, against its plain version
+        views = eng._chunk_views(rebuilt[0].to(device))
+        xc = x[0, ci * eng.batch_size:(ci + 1) * eng.batch_size]
+        kernel_err = check_kernel((eng._codec.spec, views[0], views[1],
+                                   views[4], eng._cdict[0],
+                                   xc.contiguous()))
+        flip_record_byte(store, sidecar, f"dest_0_{ci}", eng)   # undo
+        del eng, y
+
+        # 5. restore into pinned RAM, byte-equal to the built plan
+        update_config(stream_plan_ram_gb=old_ram)
+        eng, ram_restore_s, _ = build_timed(
+            device, lambda: DistributedEngine(op, **kw))
+        if not (eng.structure_restored and eng._plan_host is not None
+                and torch.equal(eng._plan_host, full_eng._plan_host)):
+            raise AssertionError("the RAM restore is not byte-equal to the "
+                                 "built plan")
+        out["ram_restore"] = {"engine_s": ram_restore_s,
+                              "plan_restore_s": eng.timings[
+                                  "plan_restore_s"]}
+        del eng
+    finally:
+        full_eng._store = old_store
+        update_config(stream_plan_ram_gb=old_ram)
+        if store is not None:
+            store.files.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["kernel_max_abs_err"] = kernel_err
+    return out, launches, kernel_err
+
+
 SERVE_POOL_GB = 4.0
 
 
@@ -2012,14 +2213,17 @@ SHARDS = 4
 SHARDED_BATCH = 16384
 
 
-def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
-                  D=SHARDS, B=SHARDED_BATCH, applies=7):
+def sharded_phase(device, op, ell_ref, D=SHARDS, B=SHARDED_BATCH,
+                  applies=7):
     """``DistributedEngine(op, n_devices=D, mode=m)`` in every ported mode
     on the one card; see the module docstring for the checks."""
+    import shutil
+    import tempfile
+
     import numpy as np
     import torch
 
-    from distributed_matvec_tpu_torch import DistributedEngine, lanczos
+    from distributed_matvec_tpu_torch import DistributedEngine
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
     n = op.basis.number_states
@@ -2029,11 +2233,21 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
     x_np = x.cpu().numpy()
     out = {"n_states": n, "n_shards": D, "batch_size": B}
     kernel = {"engines": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    store, cache, route = cache_store(tmp)
+    out["cache_route"] = route
+
+    def make(mode):
+        # the ell engine saves its routing plan (and a second restores it)
+        cached = dict(structure_cache=cache, _sidecar_store=store) \
+            if mode == "ell" else {}
+        return DistributedEngine(op, n_devices=D, mode=mode, batch_size=B,
+                                 device=device, stream_compress="lossless",
+                                 **cached)
+
     # compact runs on chain_{COMPACT_N}_symm below (cut to fit the limit)
     for mode in ("streamed", "ell", "fused"):
-        eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
-            op, n_devices=D, mode=mode, batch_size=B, device=device,
-            stream_compress="lossless"))
+        eng, build_s, peak = build_timed(device, lambda: make(mode))
         info = {"build_s": build_s, "build_peak_bytes": peak,
                 "timings": eng.timings, "shard_size": eng.shard_size,
                 "counts": [int(c) for c in eng.counts]}
@@ -2063,21 +2277,11 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
         if mode in ("streamed", "ell") and device.type == "cuda":
             info["profile"] = profile_apply(lambda: eng.matvec(xh))
         if mode == "ell":
-            # the streamed engine's Lanczos is cut (time limit): its apply
-            # is held to the LocalEngine ell apply above
-            t0 = time.perf_counter()
-            res = lanczos(eng.matvec, v0=eng.random_hashed(0), k=1,
-                          tol=1e-10, device=device)
-            _sync(device)
-            e0 = float(res.eigenvalues[0])
-            info.update(lanczos_s=time.perf_counter() - t0,
-                        lanczos_iters=int(res.num_iters), e0=e0,
-                        e0_minus_full=e0 - e0_full)
-            if not (res.converged and abs(e0 - e0_full) < 1e-10
-                    and (expect_e0 is None or abs(e0 - expect_e0)
-                         <= 1e-8 * abs(expect_e0))):
-                raise AssertionError(f"D = {D} {mode} E0 {e0}: full leg "
-                                     f"{e0_full}, recorded {expect_e0}")
+            # the Lanczos solves here are cut (time limit): the applies are
+            # held to the LocalEngine ell apply above, whose E0 is the
+            # full leg's; the saved routing plan restores with no build
+            info["cache"] = structure_roundtrip(device, eng,
+                                                lambda: make(mode), y)
         if mode == "streamed":
             launches = PC.fused_decode_gather_scatter.launches
             per_apply = D * eng.nchunks
@@ -2095,8 +2299,36 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
         del eng
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    out["compact"] = sharded_compact_leg(device, D, B, applies)
+    if store is not None:
+        store.files.clear()
+    out["compact"] = sharded_compact_leg(device, D, B, applies, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
     return out, kernel
+
+
+def structure_roundtrip(device, eng, make, y):
+    """A second engine from ``make()`` must restore ``eng``'s saved routing
+    plan with no build, its ``structure_arrays()`` equal and one apply
+    within atol 1e-13 / rtol 1e-12 of ``y`` (``eng``'s apply, block
+    order).  Returns the build's and the restore's seconds."""
+    import numpy as np
+    import torch
+
+    again, restore_s, peak = build_timed(device, make)
+    if not again.structure_restored or "plan_build_s" in again.timings:
+        raise AssertionError(f"the {eng.mode} engine did not restore its "
+                             "routing plan without a build")
+    want = eng.structure_arrays()
+    got = again.structure_arrays()
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k])
+                                        for k in want):
+        raise AssertionError(f"the restored {eng.mode} tables differ")
+    x_np = np.random.default_rng(13).standard_normal(eng.n_states)
+    err = assert_close(torch.from_numpy(again.matvec_global(x_np)).to(
+        device), y, f"restored {eng.mode} apply")
+    return {"built_s": eng.timings["plan_build_s"],
+            "restore_engine_s": restore_s, "restore_peak_bytes": peak,
+            "restored": True, "vs_built_max_abs_err": err}
 
 
 #: the sharded leg's compact engine runs on this ring's symmetric sector
@@ -2104,11 +2336,12 @@ def sharded_phase(device, op, ell_ref, e0_full, expect_e0=CHAIN32_E0,
 COMPACT_N = 24
 
 
-def sharded_compact_leg(device, D, B, applies):
+def sharded_compact_leg(device, D, B, applies, tmp):
     """``DistributedEngine(op, n_devices=D, mode="compact")`` on
     chain_{COMPACT_N}_symm: build seconds, peak memory and table bytes,
     its apply against a ``LocalEngine`` ell apply of the same operator
-    (atol 1e-13 / rtol 1e-12), timed applies."""
+    (atol 1e-13 / rtol 1e-12), timed applies; its routing plan saved under
+    ``tmp`` and restored by a second engine (:func:`structure_roundtrip`)."""
     import numpy as np
     import torch
 
@@ -2121,8 +2354,14 @@ def sharded_compact_leg(device, D, B, applies):
     ell = LocalEngine(op, mode="ell", device=device)
     y_ref = ell.matvec(torch.from_numpy(x_np).to(device))
     del ell
-    eng, build_s, peak = build_timed(device, lambda: DistributedEngine(
-        op, n_devices=D, mode="compact", batch_size=B, device=device))
+    store, cache, route = cache_store(tmp)
+
+    def make():
+        return DistributedEngine(op, n_devices=D, mode="compact",
+                                 batch_size=B, device=device,
+                                 structure_cache=cache, _sidecar_store=store)
+
+    eng, build_s, peak = build_timed(device, make)
     info = {"chain": COMPACT_N, "n_states": n, "enumerate_s": enum_s,
             "build_s": build_s, "build_peak_bytes": peak,
             "timings": eng.timings, "shard_size": eng.shard_size,
@@ -2135,6 +2374,7 @@ def sharded_compact_leg(device, D, B, applies):
         f"(chain_{COMPACT_N}_symm)")
     info.update(apply_times(device, eng, eng.to_hashed(x_np),
                             applies=applies))
+    info["cache"] = structure_roundtrip(device, eng, make, y)
     del eng
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2560,13 +2800,12 @@ def pipeline_phase(device, full_eng, sharded_engs):
     out["r6_equals_column_groups_at_depth"] = full_eng.pipeline_depth
     del X6, y6, parts
 
-    # timing: depth 0 first (not counted), then the pipelined applies with
+    # timing: depth 0 first (not counted; D = 4 is cut, the sharded leg
+    # times the same engine at depth 0), then the pipelined applies with
     # the counts set to 0 just before them
     timing = {"d1_streamed": {}, "d4_streamed": {}, "d4_fused": {}}
-    for name, eng, xh in (("d1_streamed", full_eng, x1),
-                          ("d4_streamed", s4, x4)):
-        eng.pipeline_depth = 0
-        timing[name][0] = pipeline_timing(device, eng, xh)
+    full_eng.pipeline_depth = 0
+    timing["d1_streamed"][0] = pipeline_timing(device, full_eng, x1)
     PC.fused_decode_gather_scatter.launches = 0
     expect = 0
     for name, eng, xh, depths in (("d1_streamed", full_eng, x1, PIPE_DEPTHS),
@@ -4261,12 +4500,13 @@ def main() -> int:
                                          eng, ell, full["e0"])
     _, resil_launches = run_phase("resilience", resilience_phase, device,
                                   eng, ell)
+    _, cache_launches, cache_err = run_phase("caches", caches_phase, device,
+                                             eng)
     _, serve_launches, serve_err = run_phase("serve", serve_phase, device,
                                              full["e0"])
     op = eng.operator
     torch.cuda.empty_cache()
-    _, sharded = run_phase("sharded", sharded_phase, device, op, ell,
-                           full["e0"])
+    _, sharded = run_phase("sharded", sharded_phase, device, op, ell)
     torch.cuda.empty_cache()
     _, shards_launches = run_phase("shards", shards_phase, device, op, ell,
                                    eng, sharded["engines"]["streamed"])
@@ -4300,11 +4540,12 @@ def main() -> int:
         "launches": launches + solver_launches + sharded["launches"]
         + pipe_launches + tier_launches + ranks["launches"]
         + serve_launches + cost_launches + resil_launches + apps_launches
-        + shards_launches,
+        + shards_launches + cache_launches,
         "max_abs_err": max(synth_err, chunk_err, split["plan_max_abs_err"],
                            sharded["max_abs_err"], pipe["kernel_max_abs_err"],
                            tiers["kernel_max_abs_err"],
-                           ranks["kernel_max_abs_err"], serve_err, cost_err),
+                           ranks["kernel_max_abs_err"], serve_err, cost_err,
+                           cache_err),
         "ms": split["kernel_ms_per_launch"],
         "plain_ms": split["plain_ms_per_launch"],
         "bound_ms": split["bound_ms_per_launch"],
@@ -4334,6 +4575,9 @@ def main() -> int:
         # the shards leg: the shard-native D = 4 engine's applies and
         # probe, and the full leg's probe apply (D = 1)
         "launches_shards": shards_launches,
+        # the caches leg: the disk-tier engine's applies restored from the
+        # full engine's saved plan (depth 0, 4, and a rebuilt chunk; D = 1)
+        "launches_caches": cache_launches,
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],

@@ -1,5 +1,4 @@
-# Copied from distributed_matvec_tpu/enumeration/native.py (without the
-# owner lookup, which nothing in either package calls).
+# Copied from distributed_matvec_tpu/enumeration/native.py.
 """ctypes loader + runner for the C++ enumeration kernel (``_native.cpp``).
 
 The reference's enumeration is native (Haskell/C kernels called in 10240-state
@@ -37,7 +36,7 @@ from ..utils.build import build_dir
 log_debug = logging.getLogger(__name__).debug
 
 __all__ = ["native_available", "enumerate_representatives_native",
-           "full_state_range", "rank_state_ranges"]
+           "lookup_owners", "full_state_range", "rank_state_ranges"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "_native.cpp")
@@ -105,6 +104,14 @@ def _load():
         lib.dmt_fill_fixed_hamming.argtypes = [
             ctypes.c_uint64, ctypes.c_uint64,
             ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+        ]
+        lib.dmt_lookup_owners.restype = ctypes.c_int64
+        lib.dmt_lookup_owners.argtypes = [
+            ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
         ]
         _lib = lib
         return _lib
@@ -308,3 +315,34 @@ def enumerate_representatives_native(
     if not parts_s:
         return (np.empty(0, np.uint64), np.empty(0, np.float64))
     return np.concatenate(parts_s), np.concatenate(parts_n)
+
+
+def lookup_owners(betas: np.ndarray, alphas: np.ndarray,
+                  counts: np.ndarray,
+                  n_threads: Optional[int] = None):
+    """(owner, idx, found) for each state in ``betas`` against the per-shard
+    sorted representative prefixes ``alphas[d][:counts[d]]`` — the routing
+    plan's host loop in one threaded native pass.  Returns None when the
+    kernel is unavailable (callers fall back to NumPy)."""
+    lib = _load()
+    if lib is None:
+        return None
+    betas = np.ascontiguousarray(betas, np.uint64)
+    alphas = np.ascontiguousarray(alphas, np.uint64)
+    counts = np.ascontiguousarray(counts, np.int64)
+    D, M = alphas.shape
+    n = betas.size
+    owner = np.empty(n, np.int32)
+    idx = np.empty(n, np.int32)
+    found = np.empty(n, np.uint8)
+    lib.dmt_lookup_owners(
+        betas.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), n,
+        alphas.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        D, M,
+        owner.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        found.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        int(n_threads or os.cpu_count() or 1),
+    )
+    return owner, idx, found.astype(bool)

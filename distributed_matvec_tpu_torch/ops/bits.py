@@ -14,7 +14,8 @@ import torch
 from ..utils import u64
 
 __all__ = ["popcount64", "sign_from_parity", "hash64", "shard_index",
-           "choose_dir_bits", "build_sorted_lookup", "state_index_bucketed"]
+           "state_index_sorted", "choose_dir_bits", "build_sorted_lookup",
+           "state_index_bucketed"]
 
 _SPLITMIX_1 = u64.as_signed(0xBF58476D1CE4E5B9)
 _SPLITMIX_2 = u64.as_signed(0x94D049BB133111EB)
@@ -43,6 +44,17 @@ def shard_index(states: torch.Tensor, n_shards: int) -> torch.Tensor:
         return torch.zeros(states.shape, dtype=torch.int32,
                            device=states.device)
     return u64.umod(hash64(states), n_shards).to(torch.int32)
+
+
+def state_index_sorted(sorted_reps: torch.Tensor, states: torch.Tensor):
+    """(index, found) of each state in a sorted representative array (JAX
+    ``state_index_sorted``): int64 bit patterns in unsigned order, searched
+    as ``σ ^ 2⁶³`` (whose signed order is the unsigned one); ``index`` is
+    clipped into range and ``found`` marks exact hits."""
+    flip = -(1 << 63)
+    idx = torch.searchsorted(sorted_reps ^ flip, states ^ flip)
+    idx = idx.clamp(0, max(sorted_reps.shape[0] - 1, 0))
+    return idx.to(torch.int64), sorted_reps[idx] == states
 
 
 # Copied from distributed_matvec_tpu/ops/bits.py (host NumPy).

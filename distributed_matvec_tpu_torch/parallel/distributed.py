@@ -146,9 +146,10 @@ plan and the H2D ring in the memory ledger; a device out-of-memory
 failure in the build or an apply raises ``obs.memory.OomError``.
 
 Fault sites (``utils/faults.py``, ``DMT_FAULT``): ``exchange`` at the
-head of every apply, before any device work, and ``plan_upload`` on each
-plan chunk's host fetch for the H2D ring, retried with backoff
-(``io_retries``, ``io_retry_base_s``).
+head of every apply, before any device work; ``plan_upload`` on each
+plan chunk's host fetch for the H2D ring, and ``plan_chunk_read`` on each
+disk-tier record read, both retried with backoff (``io_retries``,
+``io_retry_base_s``).
 
 Shard-native construction (:meth:`DistributedEngine.from_shards`, or
 ``shards_path=``): the manifest of a sharded-enumeration file gives the
@@ -162,12 +163,34 @@ materialize the block-order layout on first use
 :meth:`~DistributedEngine.state_keyed_hashed` is a probe vector keyed by
 state value that equals itself across shard counts.
 
-The threaded plan prefetch and the disk tier, and the structure and plan
-caches (``structure_cache``), are not in the port.
+The plan caches (``structure_cache=``, JAX's): the ell/compact routing
+plan is restored from, or saved to, a per-shard structure sidecar and the
+streamed (or hybrid) plan a stream sidecar, next to the given base path
+or the artifact cache's content-addressed default (``parallel/
+plan_cache.py`` names them; one file per rank, ``.r<rank>``, when a group
+of more than one rank is up).  The fingerprint is the JAX engine's digest
+with a port tag, so neither package restores the other's sidecars, which
+hold the JAX datasets and attributes (the stream records in the JAX form,
+with JAX's per-record CRC32) and, beside them, each record's fill counts
+under a checksum of their own.  A restore is all or nothing across ranks.
+A miss builds and saves, and when a plan sits next to sidecars of another
+shard count a ``plan_reshard`` event records the rebuild.  A streamed plan
+larger than ``stream_plan_ram_gb`` (or a tuned ``plan_tier="disk"``) is
+read back per apply from its sidecar — the *disk tier*: each record's
+checksum is checked on every read and the record is packed into a ring of
+pinned staging slots before the H2D copy; a record that fails its reads
+is rebuilt on the device with the engine's codec (byte-equal to what the
+sidecar held), and a sidecar that fails twice is quarantined and the
+whole plan rebuilt into pinned RAM (a rank engine raises ``OSError``
+instead: a rank-local rebuild would desynchronize the collectives).  At
+``pipeline_depth >= 2`` a :class:`~.plan_cache.PlanPrefetcher` fetches the
+disk tier's records (or the RAM tier's, while a fault site is armed) on
+worker threads ahead of the copies.
 """
 
 from __future__ import annotations
 
+import glob
 import math
 import os
 import time
@@ -198,7 +221,10 @@ from ..utils.config import get_config
 from ..utils.device import resolve_device
 from ..utils.timers import TreeTimer
 from .engine_obs import (emit_engine_init, note_applying, oom_reraise,
-                         register_engine_memory)
+                         record_structure_cache, register_engine_memory)
+from .plan_cache import (SIDECAR_RE, STREAM_ARRAYS, Hdf5SidecarStore,
+                         PlanPrefetcher, close_plan_files, plan_chunk_crc,
+                         process_rank, sidecar_name)
 from .shuffle import HashedLayout
 
 __all__ = ["DistributedEngine", "SENTINEL_STATE", "all_to_all"]
@@ -256,6 +282,20 @@ def _mul(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return c * x
     cr, ci, xr, xi = c.real, c.imag, x.real, x.imag
     return torch.complex(cr * xr - ci * xi, cr * xi + ci * xr)
+
+
+def _checked_record(g, d: int, ci: int) -> dict:
+    """Shard d's chunk ci from a stream sidecar group: the four JAX arrays
+    and the fill counts, each checksum verified (``ValueError`` on a
+    mismatch; a sidecar without a checksum is trusted)."""
+    pc = {k: g[f"{k}_{d}_{ci}"][...] for k in STREAM_ARRAYS + ("fill",)}
+    for name, keys in ((f"crc_{d}_{ci}", STREAM_ARRAYS),
+                       (f"fill_crc_{d}_{ci}", ("fill",))):
+        crc = g.attrs.get(name)
+        if crc is not None and plan_chunk_crc(pc, keys) != int(crc):
+            raise ValueError(f"stream plan chunk {ci} shard {d} failed its "
+                             f"checksum ({name})")
+    return pc
 
 
 def _check_stream_kernel() -> None:
@@ -368,6 +408,12 @@ class DistributedEngine:
         eng = DistributedEngine(op, mode="ell", group=g, device="cpu")
         xh = eng.to_hashed(x)                 # block [N] → this rank's [1, M]
         y = eng.from_hashed(eng.matvec(xh))   # all-gathers the rows
+
+    ``structure_cache`` (ell, compact, streamed, hybrid): the base path of
+    the plan sidecars (see the module docstring; ``h5py`` is needed to read
+    or write them); None takes the artifact cache's default where the
+    layer is on.  ``structure_restored`` says whether the plan came from
+    a sidecar.
     """
 
     def __init__(self, operator: Operator, n_devices: Optional[int] = None,
@@ -378,7 +424,9 @@ class DistributedEngine:
                  remote_buffer_size: Optional[int] = None,
                  layout: Optional[HashedLayout] = None, group=None,
                  pipeline_depth=None, hybrid_split=None,
-                 shards_path: Optional[str] = None, _shard_source=None):
+                 shards_path: Optional[str] = None,
+                 structure_cache: Optional[str] = None,
+                 _shard_source=None, _sidecar_store=None):
         # shard-native construction: the manifest (and each shard's rows)
         # come from a sharded-enumeration file or, through the private
         # ``_shard_source=(manifest, load)``, from its in-memory sink
@@ -494,6 +542,9 @@ class DistributedEngine:
         #: a shard-native engine's per-shard ``(states, norms)`` reader
         #: (None: the engine was built from the global basis)
         self._shard_load = shard_load
+        #: a shard-native engine's manifest (its fingerprint keys the plan
+        #: sidecars in place of the global representatives)
+        self._manifest = manifest
         if manifest is not None:
             # shard-native: each shard's rows are read one at a time into
             # the [L, M] tensors; the global representative array never
@@ -583,6 +634,22 @@ class DistributedEngine:
         self._retune_pending = None
         self._tune_cal: Optional[dict] = None
         self._hybrid_cal: Optional[dict] = None
+        #: the tuned prefetch worker count and plan tier (None: not tuned)
+        self._tune_workers: Optional[int] = None
+        self._tune_plan_tier: Optional[str] = None
+        # -- plan caches: the sidecar store, the memoized fingerprint, and
+        #    the streamed plan's disk tier (shard → sidecar path, None on
+        #    the RAM tier), its cached handles, the records rebuilt after a
+        #    failed read, and the pinned staging slots of its reads
+        self._store = _sidecar_store if _sidecar_store is not None \
+            else Hdf5SidecarStore()
+        self._fp_cache: Optional[str] = None
+        self._plan_disk: Optional[Dict[int, str]] = None
+        self._plan_files: dict = {}
+        self._plan_repaired: Dict[int, torch.Tensor] = {}
+        self._stage = None
+        #: True when the plan came from a ``structure_cache`` sidecar
+        self.structure_restored = False
         self._hybrid_split_arg = hybrid_split
         tuned_split = None
         if self._tune_mode != "off":
@@ -596,6 +663,7 @@ class DistributedEngine:
                 else cfg.hybrid).strip().lower() or "auto"
             self._hybrid_mask = _static_hybrid_mask(self._hybrid_split,
                                                     self.num_terms)
+            self._init_hybrid_cal()
         req = cfg.pipeline if self._pipeline_req is None \
             else self._pipeline_req
         if str(req).strip().lower() != "auto":
@@ -605,7 +673,7 @@ class DistributedEngine:
         self._plan_stage_h = obs_memory.NULL_HANDLE
         self._plan_mem_h = None
         try:
-            self._build_plan(rows_a)
+            self._build_plan(rows_a, structure_cache)
         except Exception as e:
             if not obs_memory.is_resource_exhausted(e):
                 # the staging is freed with the frame; only a genuine OOM
@@ -621,14 +689,25 @@ class DistributedEngine:
         self._register_plan_memory()
         self.timer.report()    # the tree, printed with display_timings on
 
-    def _build_plan(self, alphas_np: Dict[int, np.ndarray]) -> None:
+    def _build_plan(self, alphas_np: Dict[int, np.ndarray],
+                    structure_cache: Optional[str] = None) -> None:
         """The mode's plan: the ell/compact routing plan, or the lookup and
-        (streamed, hybrid) the encoded host plan.  ``alphas_np`` maps a
-        shard to its padded u64 rows (every shard held here, and on a
-        rank engine built from the global basis every shard)."""
+        (streamed, hybrid) the encoded host plan — restored from its
+        sidecar when ``structure_cache`` (or the artifact cache's default)
+        holds one, else built and saved there (JAX ``__init__``'s order).
+        ``alphas_np`` maps a shard to its padded u64 rows (every shard held
+        here, and on a rank engine built from the global basis every
+        shard)."""
         mode, group, dev = self.mode, self.group, self.device
-        t0 = time.perf_counter()
         if mode in ("ell", "compact"):
+            cache = self._resolve_structure_cache(structure_cache)
+            self.structure_restored = self._agree_restored(
+                self._try_load_structure(cache))
+            record_structure_cache(self.structure_restored,
+                                   cache is not None)
+            if self.structure_restored:
+                return
+            t0 = time.perf_counter()
             if mode == "compact":
                 self._c_W = self._compact_W(alphas_np)
                 if group is not None:
@@ -648,11 +727,15 @@ class DistributedEngine:
                 self._plan_stream(compact=mode == "compact")
                 stage_h.release()
             self.timings["plan_build_s"] = time.perf_counter() - t0
+            self._save_structure(cache, soft=structure_cache is None)
+            self._emit_plan_reshard(structure_cache,
+                                    time.perf_counter() - t0)
         else:
             self._init_lookup(alphas_np, self.operator.basis.number_bits)
             self._capacity = self._fused_capacity()
             if mode != "fused":
-                self._build_streamed()
+                weakref.finalize(self, close_plan_files, self._plan_files)
+                self._build_streamed(structure_cache)
 
     def _track_staging(self, kind: str, nbytes: int, nchunks: int):
         """A plan build's staged buffers in the memory ledger for the
@@ -666,18 +749,22 @@ class DistributedEngine:
 
     def _register_plan_memory(self) -> None:
         """The streamed plan's host bytes (``plan/stream_plan:<i>/host``,
-        device ``host``) and, on the card, the pinned H2D ring's device
-        slots (``…/ring``) in the memory ledger for the engine's lifetime,
-        plus the ``stream_plan_bytes`` gauge; re-registered after a
-        re-tune rebuilds the plan."""
+        device ``host``; 0 on the disk tier) and, on the card, the pinned
+        H2D ring's device slots (``…/ring``) in the memory ledger for the
+        engine's lifetime, the ``stream_plan_bytes`` gauge and one
+        ``plan_stream`` event with the tier (JAX
+        ``_register_stream_plan``); re-registered after a re-key or a
+        rebuild into RAM."""
         if self._plan_mem_h is not None:
             self._plan_mem_h.release()
             self._plan_mem_h = None
         if not obs_enabled() or self.mode not in ("streamed", "hybrid"):
             return
+        tier = "ram" if self._plan_host is not None else "disk"
         base = f"plan/{obs_memory.next_instance('stream_plan')}"
-        h = obs_memory.track(f"{base}/host", int(self.plan_bytes),
-                             device="host", kind="stream_plan", tier="ram",
+        h = obs_memory.track(f"{base}/host",
+                             int(self.plan_bytes) if tier == "ram" else 0,
+                             device="host", kind="stream_plan", tier=tier,
                              chunks=int(self.nchunks))
         if getattr(self, "_dev_bufs", None) is not None:
             obs_memory.track(f"{base}/ring",
@@ -687,15 +774,57 @@ class DistributedEngine:
         self._plan_mem_h = h
         weakref.finalize(self, h.release)
         gauge("stream_plan_bytes").set(int(self.plan_bytes))
+        raw = int(self.plan_bytes_raw or self.plan_bytes)
+        hyb = {}
+        if self.mode == "hybrid":
+            hyb = {"hybrid_split": str(self._hybrid_split),
+                   "stream_terms": int(self._hybrid_mask.sum()),
+                   "num_terms": int(self.num_terms),
+                   "stream_term_fraction":
+                   round(float(self.hybrid_stream_fraction), 4)}
+        emit("plan_stream", engine="distributed", tier=tier, mode=self.mode,
+             plan_bytes=int(self.plan_bytes), plan_bytes_raw=raw,
+             compress=str(self._codec_tier),
+             compress_ratio=round(raw / max(int(self.plan_bytes), 1), 4),
+             chunks=int(self.nchunks), capacity=int(self._capacity),
+             batch=int(self.batch_size), overflow=0, invalid=0,
+             restored=bool(self.structure_restored),
+             host_rss_bytes=obs_memory.host_rss_bytes(), **hyb)
 
-    def _build_streamed(self) -> None:
-        """Build, encode and stage the streamed (or hybrid) plan at the
-        engine's current knobs (row chunk, tier, split): the constructor's
-        streamed branch, and a re-tune's rebuild at a safe boundary.  A
-        hybrid ``"auto"`` split is resolved here from the build census."""
-        dev = self.device
+    def _build_streamed(self, structure_cache: Optional[str] = None
+                        ) -> None:
+        """Restore or build, encode and stage the streamed (or hybrid) plan
+        at the engine's current knobs (row chunk, tier, split): the
+        constructor's streamed branch, and a re-tune's re-key at a safe
+        boundary (JAX ``_rebuild_stream_plan``: the default cache, never
+        an explicit path).  A restore reads the stream sidecar (RAM or
+        disk tier); a miss builds, encodes and saves it — demoting the
+        plan to the disk tier when it is larger than
+        ``stream_plan_ram_gb`` or the tuner chose that tier — and records
+        a ``plan_reshard`` when the miss was a change of shard count.  A
+        hybrid ``"auto"`` split is resolved from the build census."""
         self._phase_count_cache = {}
+        self._fp_cache = None
         self._capacity = self._fused_capacity()
+        self._plan_repaired = {}
+        self._plan_disk = None
+        close_plan_files(self._plan_files)
+        cache = self._resolve_structure_cache(structure_cache)
+        self.structure_restored = self._agree_restored(
+            self._try_load_stream_plan(cache))
+        record_structure_cache(self.structure_restored, cache is not None)
+        if not self.structure_restored:
+            t_build = time.perf_counter()
+            self._encode_built_plan()
+            self._save_stream_plan(cache, soft=structure_cache is None)
+            self._emit_plan_reshard(structure_cache,
+                                    time.perf_counter() - t_build)
+        self._finish_streamed()
+        obs_memory.sample_watermark("plan_upload/distributed")
+
+    def _encode_built_plan(self) -> None:
+        """Build the raw plan on the device and encode it into the pinned
+        host buffer (``plan_build_s``, ``plan_encode_s``)."""
         cfb = 8 if self.real else 16
         stage_h = self._track_staging(
             "stream_build", 2 * (self.batch_size * self.num_terms
@@ -710,6 +839,13 @@ class DistributedEngine:
         t0 = time.perf_counter()
         self._encode_stream_plan(raw)
         self.timings["plan_encode_s"] = time.perf_counter() - t0
+        stage_h.release()           # staging gone; the plan is resident
+
+    def _finish_streamed(self) -> None:
+        """What every streamed plan needs past its records, built or
+        restored: the dictionaries on the device, the decode path, the
+        hybrid recompute tables, the copy stream and the H2D ring."""
+        dev = self.device
         self._cdict = torch.from_numpy(np.stack(
             [self._codec.dict_device_row(d) for d in self._shards])).to(dev)
         spec = self._codec.spec
@@ -719,14 +855,583 @@ class DistributedEngine:
         self._hyb_tables = None
         if self.mode == "hybrid":
             self._setup_hybrid_recompute()
+        self._stage = None
         if dev.type == "cuda":
             if getattr(self, "_copy_stream", None) is None:
                 self._copy_stream = torch.cuda.Stream(dev)
             self._dev_bufs = None
             self._grow_ring(2)
         self._drift_state = None
-        stage_h.release()           # staging gone; the plan is resident
-        obs_memory.sample_watermark("plan_upload/distributed")
+
+    # -- plan caches: the structure and stream sidecars ------------------------
+
+    def _agree_restored(self, restored: bool) -> bool:
+        """All-or-nothing restore across the ranks (JAX ``agree_restored``):
+        each rank reads its own sidecar, so one may restore while another
+        must build, and a half-restored job would hang in the build's
+        collectives.  Every rank joins the agreement, a rank whose cache
+        path did not resolve too; when the collective fails, every rank
+        rebuilds.  Without a group of more than one rank it is the
+        identity."""
+        if self.group is None or self.group.world_size == 1:
+            return bool(restored)
+        try:
+            # every rank restored ⇔ no rank missed
+            return self._agree(int(not restored), op="max")[0] == 0
+        except Exception as e:
+            from ..utils.logging import log_debug
+            log_debug(f"restore agreement unavailable ({e!r}); "
+                      "rebuilding on all ranks")
+            return False
+
+    def _resolve_structure_cache(self, path: Optional[str]) -> Optional[str]:
+        """The caller's path wins; otherwise the artifact cache's
+        content-addressed default (None when the layer is off or ``h5py``
+        is missing — the basis is then not hashed at all)."""
+        if path is not None:
+            return path
+        from ..utils import artifacts
+        if not artifacts.hdf5_cache_enabled():
+            return None
+        return artifacts.default_structure_cache(
+            self._structure_fingerprint())
+
+    def _structure_sidecar(self, path: str) -> str:
+        """The routing plan's sidecar, per shard count (apart from
+        ``LocalEngine``'s, so the two do not overwrite each other)."""
+        return path + sidecar_name(self.n_devices, "structure")
+
+    def _stream_sidecar(self, path: str) -> str:
+        return path + sidecar_name(self.n_devices, "stream")
+
+    @staticmethod
+    def _own_sidecar(sidecar: str) -> str:
+        """The file this process writes: ``.r<rank>`` when a group of more
+        than one rank is up."""
+        r = process_rank()
+        return sidecar if r is None else f"{sidecar}.r{r}"
+
+    def _candidates(self, sidecar: str) -> List[str]:
+        """The sidecar and every rank's file next to it that exist."""
+        store = self._store
+        return [c for c in [sidecar] + store.glob(glob.escape(sidecar)
+                                                  + ".r*")
+                if store.exists(c)]
+
+    def _emit_plan_reshard(self, cache_path: Optional[str],
+                           rebuild_s: float) -> None:
+        """JAX ``_emit_plan_reshard``: when this build's cache missed and a
+        sidecar of the same base path at another shard count exists, the
+        miss was a change of topology — one ``plan_reshard`` event with
+        the old shard counts and the rebuild's seconds.  Only explicit
+        paths are looked at (the default cache is keyed per fingerprint:
+        there is no sibling to find)."""
+        if not cache_path:
+            return
+        seen = set()
+        for cand in self._store.glob(glob.escape(cache_path) + ".dist*"):
+            m = SIDECAR_RE.search(os.path.basename(cand))
+            if m:
+                seen.add(int(m.group(1)))
+        seen.discard(self.n_devices)
+        if not seen:
+            return
+        emit("plan_reshard", engine="distributed", mode=self.mode,
+             d_from=sorted(seen), d_to=int(self.n_devices),
+             rebuild_s=round(float(rebuild_s), 6))
+
+    def _fingerprint_hash(self):
+        """The JAX engine's ``_structure_fingerprint`` digest, before the
+        port's tag: the basis and operator (a shard-native engine: the
+        operator and the shard manifest's fingerprint), the mode, the
+        shard count and size, and for streamed and hybrid plans the row
+        chunk, the bucket capacity, the lookup's probe count, the tier and
+        the codec version, and hybrid's split token and encoding tier."""
+        import hashlib
+
+        from .engine import hash_basis_operator
+
+        h = hashlib.sha256()
+        if self._manifest is not None:
+            hash_basis_operator(h, self.operator, include_arrays=False)
+            h.update(str(self._manifest["fingerprint"]).encode())
+        else:
+            hash_basis_operator(h, self.operator)
+        # "False": the JAX (re, im) pair form, which the port has not
+        h.update(f"dist|{self.mode}|False|{self.real}"
+                 f"|{self.n_devices}|{self.shard_size}|v2".encode())
+        if self.mode in ("streamed", "hybrid"):
+            h.update(f"|B{self.batch_size}|cap{self._capacity}"
+                     f"|p{self._lk_probes}|c{self.stream_compress}"
+                     f"|codec{PC.PLAN_CODEC_VERSION}|v3".encode())
+        if self.mode == "hybrid":
+            h.update(self._hybrid_token().encode())
+            h.update(f"|tier{self._codec_tier}|v4".encode())
+        return h
+
+    def _structure_fingerprint(self) -> str:
+        """Identity of the plan: JAX's digest with the port's tag (complex
+        coefficients may differ in the last bit, so neither package
+        restores the other's sidecars).  Memoized; a re-key clears it."""
+        if self._fp_cache is None:
+            h = self._fingerprint_hash()
+            h.update(b"|torch-v1")
+            self._fp_cache = h.hexdigest()
+        return self._fp_cache
+
+    def _init_hybrid_cal(self) -> None:
+        """The rates an ``"auto"`` hybrid split is priced with, fixed before
+        the fingerprint is taken (JAX ``_init_hybrid_policy``): the tuner's
+        when tuning, else the device's calibration."""
+        self._hybrid_cal = None
+        if self._hybrid_split == "auto":
+            from ..obs import roofline as _roofline
+            self._hybrid_cal = self._tune_cal or \
+                _roofline.resolve_calibration(device=self.device)
+
+    def _hybrid_token(self) -> str:
+        """The fingerprint's split token (JAX ``_hybrid_token``): the split,
+        and for ``"auto"`` the rates it is priced with."""
+        tok = self._hybrid_split
+        if tok == "auto" and self._hybrid_cal is not None:
+            from ..obs import roofline as _roofline
+            tok += "|" + ",".join(
+                f"{k}={float(self._hybrid_cal.get(k) or 0):.6g}"
+                for k in _roofline.RATE_FIELDS)
+        return f"|hyb[{tok}]"
+
+    def _shard_keys(self) -> Tuple[str, ...]:
+        """Per-shard dataset names of a structure sidecar (``<name>_<d>``)."""
+        if self.mode == "ell":
+            return ("qin", "idx", "coeff", "tail_rows", "tail_idx",
+                    "tail_coeff")
+        return ("qin", "idx", "n_all", "tail_rows", "tail_idx")
+
+    def _try_load_structure(self, path: Optional[str]) -> bool:
+        """Restore the routing plan (JAX ``_try_load_structure``): each
+        shard held here from this process's sidecar or any rank's file
+        next to it, per-shard (v3) datasets; a whole-array (v2) sidecar in
+        one process.  An unreadable file is a miss that feeds the corrupt
+        tally."""
+        if not path:
+            return False
+        candidates = self._candidates(self._structure_sidecar(path))
+        if not candidates:
+            return False
+        fp = self._structure_fingerprint()
+        names = self._shard_keys()
+        rows: Dict[str, Dict[int, np.ndarray]] = {k: {} for k in names}
+        scalars: dict = {}
+        for cand in candidates:
+            try:
+                with self._store.open(cand) as f:
+                    if "engine_structure" not in f:
+                        continue
+                    g = f["engine_structure"]
+                    if str(g.attrs.get("fingerprint", "")) != fp:
+                        continue
+                    if "qin" in g:              # whole-array (v2) layout
+                        if self.group is None and process_rank() is None:
+                            return self._load_structure_v2(g)
+                        continue
+                    for k in ("T0", "C", "W", "S", "Tmax"):
+                        if k in g.attrs:
+                            scalars[k] = g.attrs[k]
+                    for d in self._shards:
+                        if f"qin_{d}" not in g:
+                            continue
+                        for k in names:
+                            if f"{k}_{d}" in g:
+                                rows[k][d] = g[f"{k}_{d}"][...]
+            except OSError as e:
+                self._store.note_corrupt(cand, "structure", e)
+                continue
+        need = {"T0", "C"} | ({"W"} if self.mode == "compact" else set())
+        if set(self._shards) - set(rows["qin"]) or need - set(scalars):
+            return False
+        self._set_structure(scalars, rows)
+        return True
+
+    def _load_structure_v2(self, g) -> bool:
+        """A whole-array (v2) sidecar (JAX ``_load_structure_v2``, one
+        process only): each held shard's row of every table."""
+        rows = {k: {d: g[k][d] for d in self._shards}
+                for k in self._shard_keys() if k in g}
+        self._set_structure({k: g.attrs[k] for k in ("T0", "C", "W", "S",
+                                                     "Tmax")
+                             if k in g.attrs}, rows)
+        return True
+
+    def _set_structure(self, scalars: dict,
+                       rows: Dict[str, Dict[int, np.ndarray]]) -> None:
+        """The routing plan's tensors from restored per-shard rows."""
+        dev = self.device
+
+        def stack(k):
+            return torch.from_numpy(np.stack([np.asarray(rows[k][d])
+                                              for d in self._shards])).to(dev)
+
+        has_tail = all(d in rows.get("tail_rows", {}) for d in self._shards)
+        T0 = int(scalars["T0"])
+        self._ell_T0 = T0
+        self.query_capacity = int(scalars["C"])
+        self._qin = stack("qin")
+        tail = None
+        if has_tail:
+            tail = (stack("tail_rows"), stack("tail_idx"))
+        Tw = int(tail[1].shape[1]) if tail else 0
+        self.ell_split = (T0, int(scalars.get("S", 0)),
+                          int(scalars.get("Tmax", T0 + Tw)))
+        if self.mode == "ell":
+            self._ell_idx, self._ell_coeff = stack("idx"), stack("coeff")
+            self._ell_tail = (*tail, stack("tail_coeff")) if tail else None
+        else:
+            self._c_W = float(scalars["W"])
+            self._c_idx = stack("idx")
+            self._c_tail = tail
+            self._c_norms = stack("n_all")
+            self._c_inv_n = torch.reciprocal(self._norms)
+
+    def _save_structure(self, path: Optional[str], soft: bool = False) -> None:
+        """Write the per-shard (v3) structure sidecar (JAX
+        ``_save_structure``): this process's file holds the shards held
+        here.  ``soft`` marks a default-path save: capped by
+        ``artifact_max_gb`` and failing soft; an explicit path is written
+        loudly.  ``S`` and ``Tmax`` ride beside JAX's attributes (the
+        restored ``ell_split``)."""
+        if not path:
+            return
+        T0, S, Tmax = self.ell_split
+        payload = {"T0": int(self._ell_T0), "C": int(self.query_capacity),
+                   "S": int(S), "Tmax": int(Tmax)}
+        if self.mode == "compact":
+            payload["W"] = float(self._c_W)
+        for i, d in enumerate(self._shards):
+            payload[f"qin_{d}"] = self._qin[i]
+            if self.mode == "ell":
+                payload[f"idx_{d}"] = self._ell_idx[i]
+                payload[f"coeff_{d}"] = self._ell_coeff[i]
+                tail, names = self._ell_tail, ("tail_rows", "tail_idx",
+                                               "tail_coeff")
+            else:
+                payload[f"idx_{d}"] = self._c_idx[i]
+                payload[f"n_all_{d}"] = self._c_norms[i]
+                tail, names = self._c_tail, ("tail_rows", "tail_idx")
+            if tail is not None:
+                for k, a in zip(names, tail):
+                    payload[f"{k}_{d}"] = a[i]
+        sidecar = self._own_sidecar(self._structure_sidecar(path))
+        if self._store.save(sidecar, self._structure_fingerprint(),
+                            self.mode, payload, soft):
+            from ..utils.logging import log_debug
+            log_debug(f"distributed plan checkpointed to {sidecar}")
+
+    def _save_stream_plan(self, path: Optional[str], soft: bool = False
+                          ) -> None:
+        """Save the encoded plan to its stream sidecar (JAX
+        ``_save_stream_plan``; this process's file) and, when the plan is
+        larger than ``stream_plan_ram_gb`` or the tuner chose the disk
+        tier, drop the pinned RAM copy and read the records back from the
+        sidecar per apply.  Each record's four JAX arrays carry JAX's CRC
+        (``crc_<d>_<ci>``); its fill counts ride beside them under a
+        checksum of their own (``fill_<d>_<ci>``, ``fill_crc_<d>_<ci>``).
+        With no sidecar saved the plan stays in RAM, with a warning."""
+        saved = None
+        if path:
+            t0 = time.perf_counter()
+            payload = {"Cap": int(self._capacity),
+                       "B": int(self.batch_size),
+                       "nchunks": int(self.nchunks), "overflow": 0,
+                       "invalid": 0, "codec_spec": self._codec.spec_json()}
+            if self._codec.spec["coeff"] == "dict":
+                for d in self._shards:
+                    payload[f"cdict_{d}"] = self._codec.dict_store(d)
+            for ci in range(self.nchunks):
+                for d in self._shards:
+                    pc = self.plan_chunk(ci, d)
+                    payload[f"crc_{d}_{ci}"] = plan_chunk_crc(pc)
+                    payload[f"fill_crc_{d}_{ci}"] = plan_chunk_crc(
+                        pc, ("fill",))
+                    for k in STREAM_ARRAYS + ("fill",):
+                        payload[f"{k}_{d}_{ci}"] = pc[k]
+            sidecar = self._own_sidecar(self._stream_sidecar(path))
+            if self._store.save(sidecar, self._structure_fingerprint(),
+                                self.mode, payload, soft):
+                saved = sidecar
+            self.timings["plan_save_s"] = time.perf_counter() - t0
+        if self.plan_bytes > get_config().stream_plan_ram_gb * 1e9 \
+                or self._tune_plan_tier == "disk":
+            if saved:
+                self._plan_disk = {d: saved for d in self._shards}
+                self._plan_host = None
+            else:
+                from ..utils.logging import log_warn
+                log_warn(
+                    f"stream plan ({self.plan_bytes / 1e9:.1f} GB) exceeds "
+                    "stream_plan_ram_gb (or the tuner chose the disk tier) "
+                    "but no sidecar could be saved as a disk tier; keeping "
+                    "it in host RAM (pass structure_cache=, enable "
+                    "DMT_ARTIFACT_CACHE, or raise DMT_STREAM_PLAN_RAM_GB)")
+
+    def _try_load_stream_plan(self, path: Optional[str]) -> bool:
+        """Restore the streamed plan from its sidecar (JAX
+        ``_try_load_stream_plan``): the shards held here from this
+        process's file or any rank's next to it, after every check of the
+        spec (capacity, row chunk, chunk count, tier, entry count, shard
+        count, coefficient kind, hybrid flag and term mask).  A plan larger
+        than ``stream_plan_ram_gb`` (or a tuned disk tier) stays in its
+        sidecar; otherwise every record is read, its checksums verified
+        once, and packed into pinned RAM, byte-equal to the built buffer.
+        An unreadable or corrupt sidecar is a miss that feeds the corrupt
+        tally."""
+        if not path:
+            return False
+        candidates = self._candidates(self._stream_sidecar(path))
+        if not candidates:
+            return False
+        t0 = time.perf_counter()
+        store = self._store
+        fp = self._structure_fingerprint()
+        scalars: dict = {}
+        where: Dict[int, str] = {}
+        for cand in candidates:
+            try:
+                with store.open(cand) as f:
+                    if "engine_structure" not in f:
+                        continue
+                    g = f["engine_structure"]
+                    if str(g.attrs.get("fingerprint", "")) != fp:
+                        continue
+                    for k in ("Cap", "B", "nchunks", "overflow", "invalid"):
+                        if k in g.attrs:
+                            scalars[k] = int(g.attrs[k])
+                    if "codec_spec" in g.attrs:
+                        scalars["codec_spec"] = str(g.attrs["codec_spec"])
+                    for d in self._shards:
+                        if d not in where and f"dest_{d}_0" in g:
+                            where[d] = cand
+            except OSError:
+                continue
+        need = {"Cap", "B", "nchunks", "overflow", "invalid", "codec_spec"}
+        if set(self._shards) - set(where) or need - set(scalars):
+            return False
+        nchunks = scalars["nchunks"]
+        if scalars["Cap"] != self._capacity \
+                or scalars["B"] != self.batch_size or nchunks != self.nchunks:
+            return False
+        try:
+            codec = PC.PlanCodec.from_spec_json(scalars["codec_spec"])
+        except (ValueError, KeyError):
+            return False          # another codec format: miss and rebuild
+        spec = codec.spec
+        if (spec["tier"] != self._codec_tier
+                or spec["n_dest"] != self.batch_size * self.num_terms
+                or spec["cap_build"] != self._capacity
+                or spec["D"] != self.n_devices
+                or spec["ckind"] != ("real" if self.real else "complex")
+                or bool(spec.get("hybrid")) != (self.mode == "hybrid")):
+            return False
+        if self.mode == "hybrid":
+            got = codec.term_mask()
+            want = _static_hybrid_mask(self._hybrid_split, self.num_terms)
+            if got is None or got.size != self.num_terms or (
+                    want is not None and not np.array_equal(got, want)):
+                return False
+        by_file: Dict[str, List[int]] = {}
+        for d, cand in where.items():
+            by_file.setdefault(cand, []).append(d)
+        plan_bytes = 0
+        for cand, ds_list in by_file.items():
+            try:
+                with store.open(cand) as f:
+                    g = f["engine_structure"]
+                    for d in ds_list:
+                        if spec["coeff"] == "dict":
+                            codec.set_dict(d, g[f"cdict_{d}"][...])
+                        for ci in range(nchunks):
+                            for k in STREAM_ARRAYS + ("fill",):
+                                ds = g[f"{k}_{d}_{ci}"]
+                                if k != "fill":
+                                    plan_bytes += ds.size * ds.dtype.itemsize
+            except (OSError, KeyError) as e:
+                store.note_corrupt(cand, "stream_plan", e)
+                return False
+        self._codec = codec
+        self._set_record_layout()
+        self.plan_bytes = int(plan_bytes)
+        self.plan_bytes_raw = codec.raw_chunk_bytes() * nchunks \
+            * len(self._shards)
+        if plan_bytes > get_config().stream_plan_ram_gb * 1e9 \
+                or self._tune_plan_tier == "disk":
+            self._plan_host = None
+            self._plan_disk = where
+        else:
+            host = self._new_plan_host()
+            buf = host.numpy()
+            for cand, ds_list in by_file.items():
+                try:
+                    with store.open(cand) as f:
+                        g = f["engine_structure"]
+                        for d in ds_list:
+                            i = self._shards.index(d)
+                            for ci in range(nchunks):
+                                self._pack_record(buf[ci, i], _checked_record(
+                                    g, d, ci))
+                except (OSError, KeyError, ValueError) as e:
+                    store.note_corrupt(cand, "stream_plan", e)
+                    return False
+            self._plan_host = host
+        if self.mode == "hybrid":
+            self._hybrid_mask = codec.term_mask()
+        self.timings["plan_restore_s"] = time.perf_counter() - t0
+        return True
+
+    # -- the disk tier -------------------------------------------------------
+
+    def _plan_chunk_host(self, ci: int, degrade: bool = True
+                         ) -> torch.Tensor:
+        """Chunk ci's ``[L, stride]`` host records (JAX
+        ``_plan_chunk_host``): the pinned RAM copy, a record rebuilt after
+        a failed read, or the disk tier's records — each read retried
+        (``plan_chunk_read``), checksum-verified and packed into a pinned
+        staging slot.  A read that keeps failing degrades
+        (:meth:`_degrade_plan_chunk`) unless ``degrade=False`` (the
+        prefetch workers: the repair runs on the apply thread, so the
+        failure propagates)."""
+        if self._plan_host is not None:
+            return self._plan_host[ci]
+        got = self._plan_repaired.get(ci)
+        if got is not None:
+            return got
+        recs = {}
+        for d, path in list(self._plan_disk.items()):
+            try:
+                recs[d] = faults.with_retries(
+                    "plan_chunk_read",
+                    lambda: self._read_plan_chunk(path, d, ci),
+                    exc_types=(OSError, KeyError, ValueError))
+            except (OSError, KeyError, ValueError) as e:
+                if not degrade:
+                    raise
+                return self._degrade_plan_chunk(ci, path, e)
+        return self._stage_records(ci, recs)
+
+    def _read_plan_chunk(self, path: str, d: int, ci: int) -> dict:
+        """One (shard, chunk) record from a disk-tier sidecar, its
+        checksums verified (``ValueError`` on a mismatch).  Every failure
+        drops the cached handle, so the retry opens the file afresh."""
+        faults.check("plan_chunk_read", path=path, chunk=ci)
+        f = self._plan_files.get(path)
+        if f is None:
+            f = self._plan_files[path] = self._store.open(path)
+        try:
+            return _checked_record(f["engine_structure"], d, ci)
+        except (OSError, KeyError, ValueError):
+            self._plan_files.pop(path, None)
+            try:
+                f.close()
+            except Exception:
+                pass
+            raise
+
+    def _staging(self, slots: int = 4) -> dict:
+        """The disk tier's pinned staging slots (at least ``slots``), each
+        ``[L, stride]`` with the event its last H2D copy recorded."""
+        st = self._stage
+        if st is None or st["n"] < slots:
+            buf = torch.zeros((slots, len(self._shards), self._chunk_stride),
+                              dtype=torch.uint8, pin_memory=True)
+            st = self._stage = {
+                "n": slots, "bufs": [buf[k] for k in range(slots)],
+                "events": [torch.cuda.Event() for _ in range(slots)]}
+        return st
+
+    def _stage_records(self, ci: int, recs: Dict[int, dict]
+                       ) -> torch.Tensor:
+        """Pack chunk ci's read records into host memory in the record
+        layout: on the card into staging slot ``ci % n`` — after waiting
+        on the host for that slot's last copy to have left it (refilling
+        a slot still being copied would hand the device torn records) —
+        elsewhere into a fresh buffer."""
+        L = len(self._shards)
+        if self.device.type == "cuda":
+            st = self._staging()
+            k = ci % st["n"]
+            st["events"][k].synchronize()
+            out = st["bufs"][k]
+        else:
+            out = torch.zeros((L, self._chunk_stride), dtype=torch.uint8)
+        rows = out.numpy()
+        for i, d in enumerate(self._shards):
+            self._pack_record(rows[i], recs[d])
+        return out
+
+    def _note_staged(self, ci: int, src: torch.Tensor, stream) -> None:
+        """After chunk ci's H2D copy is queued on ``stream``: when its
+        source was a staging slot, record the slot's event (its next
+        refill waits on it)."""
+        st = self._stage
+        if st is not None:
+            k = ci % st["n"]
+            if src is st["bufs"][k]:
+                st["events"][k].record(stream)
+
+    def _degrade_plan_chunk(self, ci: int, path: str, error
+                            ) -> torch.Tensor:
+        """A disk-tier record that failed its reads (JAX
+        ``_degrade_plan_chunk``): counted (``artifact_cache{kind=
+        stream_plan,event=corrupt}``), then this chunk is rebuilt on the
+        device; on the sidecar's second failure it is quarantined and the
+        whole plan is rebuilt into pinned RAM (the disk tier is gone).  A
+        rank engine raises ``OSError``: a rank-local rebuild would
+        desynchronize the build's collectives."""
+        from ..utils.logging import log_warn
+
+        quarantined = self._store.note_corrupt(path, "stream_plan", error)
+        f = self._plan_files.pop(path, None)
+        if f is not None:
+            try:
+                f.close()
+            except Exception:
+                pass
+        if self.group is not None and self.group.world_size > 1:
+            # OSError, not RuntimeError: the plan_upload retries retry
+            # RuntimeErrors, and this must not run twice
+            raise OSError(
+                f"stream plan sidecar {path} unreadable on a rank engine "
+                f"({error!r}); a rank-local rebuild would desynchronize the "
+                "build collectives — relaunch to rebuild the plan on every "
+                "rank") from error
+        if quarantined:
+            log_warn("stream plan disk tier lost (sidecar quarantined); "
+                     "rebuilding the full plan into pinned host RAM")
+            self._plan_disk = None
+            self._plan_repaired.clear()
+            self._encode_built_plan()
+            self._register_plan_memory()
+            return self._plan_host[ci]
+        rec = self._rebuild_plan_chunk(ci)
+        self._plan_repaired[ci] = rec
+        return rec
+
+    def _rebuild_plan_chunk(self, ci: int) -> torch.Tensor:
+        """Chunk ci's records rebuilt from structure (JAX
+        ``_rebuild_plan_chunk``): the build's kernels, routing, exchange
+        and lookup on the device (:meth:`_build_chunk`), encoded with the
+        engine's codec and fill counts — byte-equal to what the sidecar
+        held, so its stored checksum matches."""
+        per, _, _ = self._build_chunk(ci)
+        out = torch.zeros((len(self._shards), self._chunk_stride),
+                          dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        rows = out.numpy()
+        for i, d in enumerate(self._shards):
+            enc = self._codec.encode_chunk(per[d], d)
+            enc["fill"] = PC.send_fill(per[d]["dest"], self.n_devices,
+                                       self._capacity)
+            self._pack_record(rows[i], enc)
+        emit("plan_chunk_rebuilt", engine="distributed", chunk=int(ci))
+        return out
 
     # -- ranks ---------------------------------------------------------------
 
@@ -1114,17 +1819,9 @@ class DistributedEngine:
             ckind="real" if self.real else "complex",
             agree=None if self.group is None else self._codec_agree,
             dict_max=PC.DICT_MAX, term_mask=self._hybrid_mask)
-        sizes = self._record_sizes(codec.spec)
-        layout, off = {}, 0
-        for k in ("dest", "ridx", "rok", "coeff", "fill"):
-            layout[k] = (off, sizes[k])
-            off = _round_up(off + sizes[k], _ALIGN)
-        self._chunk_stride = off
-        self._chunk_layout = layout
+        self._set_record_layout()
         n = self.nchunks
-        self._plan_host = torch.zeros(
-            (n, L, self._chunk_stride), dtype=torch.uint8,
-            pin_memory=self.device.type == "cuda")
+        self._plan_host = self._new_plan_host()
         host = self._plan_host.numpy()
 
         def encode(ci: int) -> int:
@@ -1134,16 +1831,9 @@ class DistributedEngine:
             for i, d in enumerate(self._shards):
                 pc = raw[ci][d]
                 enc = codec.encode_chunk(pc, d)
-                enc["fill"] = PC.send_fill(pc["dest"], D, self._capacity)
-                for k, (o, nb) in layout.items():
-                    a = np.ascontiguousarray(enc[k]).reshape(-1).view(
-                        np.uint8)
-                    if a.size != nb:
-                        raise ValueError(f"encoded {k} has {a.size} bytes, "
-                                         f"the chunk layout {nb}")
-                    host[ci, i, o:o + nb] = a
-                del enc["fill"]
                 nbytes += PC.PlanCodec.encoded_bytes(enc)
+                enc["fill"] = PC.send_fill(pc["dest"], D, self._capacity)
+                self._pack_record(host[ci, i], enc)
             raw[ci] = None                       # free the raw chunk
             return nbytes
 
@@ -1154,6 +1844,36 @@ class DistributedEngine:
         # the shards held here (on a rank engine, this rank's shard)
         self.plan_bytes = enc_bytes
         self.plan_bytes_raw = codec.raw_chunk_bytes() * n * L
+
+    def _set_record_layout(self) -> None:
+        """The (chunk, shard) record layout of the codec's spec: dest |
+        ridx | rok | coeff | fill counts, each section at a 16-byte offset
+        (so a f64 or c128 section views in place)."""
+        sizes = self._record_sizes(self._codec.spec)
+        layout, off = {}, 0
+        for k in ("dest", "ridx", "rok", "coeff", "fill"):
+            layout[k] = (off, sizes[k])
+            off = _round_up(off + sizes[k], _ALIGN)
+        self._chunk_stride = off
+        self._chunk_layout = layout
+
+    def _new_plan_host(self) -> torch.Tensor:
+        """A zeroed ``[nchunks, L, stride]`` host plan buffer, pinned on the
+        card."""
+        return torch.zeros(
+            (self.nchunks, len(self._shards), self._chunk_stride),
+            dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+
+    def _pack_record(self, row: np.ndarray, enc: Dict[str, np.ndarray]
+                     ) -> None:
+        """Write one encoded record's sections (the codec's arrays and the
+        fill counts) into its ``[stride]`` bytes."""
+        for k, (o, nb) in self._chunk_layout.items():
+            a = np.ascontiguousarray(enc[k]).reshape(-1).view(np.uint8)
+            if a.size != nb:
+                raise ValueError(f"encoded {k} has {a.size} bytes, the "
+                                 f"chunk layout {nb}")
+            row[o:o + nb] = a
 
     def _setup_hybrid_recompute(self) -> None:
         """The recompute side's tables (JAX ``_setup_hybrid_recompute``):
@@ -1219,9 +1939,12 @@ class DistributedEngine:
         here) as NumPy arrays in the JAX engine's form (``dest``/``ridx``
         u32 word streams or the ``off`` tier's raw i32, ``rok`` u32 words,
         ``coeff`` u8/u16 codes or the raw f64/f32/u16/c128 values), plus
-        its ``fill`` counts [D] int32."""
-        dest, coeff, ridx, rok, fill = self._chunk_views(
-            self._plan_host[ci, self._local(d)])
+        its ``fill`` counts [D] int32.  On the disk tier the record is read
+        (and checked) from the sidecar."""
+        i = self._local(d)
+        rec = self._plan_host[ci, i] if self._plan_host is not None \
+            else self._plan_chunk_host(ci)[i].clone()
+        dest, coeff, ridx, rok, fill = self._chunk_views(rec)
         words = np.int32 if self._codec.spec["tier"] == "off" else np.uint32
         cf = coeff.numpy()
         return {"dest": dest.numpy().view(words),
@@ -1252,27 +1975,91 @@ class DistributedEngine:
         the copy into a slot waits for the compute that last read it —
         everything queued before the consumer asks for the next chunk.  The
         applies read a chunk's records only while producing it, so the
-        ring is the counterpart of the JAX engine's prefetch depth."""
+        ring is the counterpart of the JAX engine's prefetch depth.  The
+        records come from the pinned RAM plan, or through
+        :meth:`_fetch_plan_chunk` (the disk tier, or any tier while a fault
+        site is armed) — at depth ≥ 2 fetched ahead by a
+        :class:`~.plan_cache.PlanPrefetcher`."""
         n, L = self.nchunks, len(self._shards)
         timeline = self._timeline
-        # the plan_upload fault site, only while DMT_FAULT arms a site
-        host = self._fetch_plan_chunk if faults.enabled() \
-            else self._plan_host.__getitem__
-        if self.device.type != "cuda":
-            for ci in range(n):
-                entry = None
-                if timeline is not None:
-                    # the plan never leaves host memory: nothing to wait on
-                    entry = {"chunk": ci, "stall_ms": 0.0, "stage_ms": 0.0}
-                    timeline.append(entry)
-                    t0 = time.perf_counter()
-                rec = host(ci)
-                yield [self._chunk_views(rec[d]) for d in range(L)]
-                if entry is not None:
-                    entry["dispatch_ms"] = round(
-                        (time.perf_counter() - t0) * 1e3, 4)
-            return
         S = slots or max(self.pipeline_depth, 2)
+        if self.device.type == "cuda" and self._plan_host is None:
+            # the disk tier's staging slots, before any fetch fills one
+            self._staging(S + 2)
+        # host waits of the prefetched fetches, by chunk
+        waits: Dict[int, float] = {}
+        pf = None
+        if self._plan_host is not None and not faults.enabled():
+            # the RAM tier with no fault site armed: nothing to fetch
+            host = self._plan_host.__getitem__
+        elif self.pipeline_depth >= 2:
+            host, pf = self._prefetched(n, waits)
+        else:
+            host = self._fetch_plan_chunk
+        try:
+            if self.device.type != "cuda":
+                for ci in range(n):
+                    entry = None
+                    if timeline is not None:
+                        # the plan never leaves host memory: nothing to
+                        # wait on but a prefetched fetch
+                        entry = {"chunk": ci, "stall_ms": 0.0,
+                                 "stage_ms": 0.0}
+                        timeline.append(entry)
+                        t0 = time.perf_counter()
+                    rec = host(ci)
+                    if entry is not None:
+                        entry["stall_ms"] = round(waits.pop(ci, 0.0), 4)
+                    yield [self._chunk_views(rec[d]) for d in range(L)]
+                    if entry is not None:
+                        entry["dispatch_ms"] = round(
+                            (time.perf_counter() - t0) * 1e3, 4)
+                return
+            yield from self._stream_ring(S, host, waits)
+        finally:
+            if pf is not None:
+                # joined even when the apply raised: no worker may still
+                # hold the sidecar handles when the next apply starts
+                pf["pf"].close(join=True)
+
+    def _prefetched(self, n: int, waits: Dict[int, float]):
+        """A chunk source over a :class:`~.plan_cache.PlanPrefetcher` at the
+        pipeline depth (JAX ``run_cols_pipe``'s ``consume``): the apply
+        thread gets each chunk in order; a read failure the workers only
+        marked is repaired here, on the apply thread — the workers are
+        joined first, then a new prefetcher resumes at the next chunk.
+        Each get's wait goes to ``waits`` and ``last_pipeline``
+        (``fetch_wait_ms``).  Returns ``(get, box)``; the caller closes
+        ``box["pf"]``."""
+        d = self.pipeline_depth
+        box = {"pf": PlanPrefetcher(self, n, d)}
+
+        def get(ci: int) -> torch.Tensor:
+            kind, val, _stage_ms, wait_ms = box["pf"].get(ci)
+            if kind == "degrade":
+                box["pf"].close(join=True)
+                t0 = time.perf_counter()
+                val = self._fetch_plan_chunk(ci)
+                wait_ms += (time.perf_counter() - t0) * 1e3
+                box["pf"] = PlanPrefetcher(self, n, d, start=ci + 1)
+            waits[ci] = wait_ms
+            rec = self.last_pipeline
+            if rec is not None:
+                rec["fetch_wait_ms"] = rec.get("fetch_wait_ms", 0.0) \
+                    + wait_ms
+            return val
+
+        return get, box
+
+    def _stream_ring(self, S: int, host, waits: Dict[int, float]
+                     ) -> Iterator[List[Tuple[torch.Tensor, ...]]]:
+        """:meth:`_stream_chunks` on the card: the H2D ring of ``S`` slots
+        over the copy stream.  ``host(ci)`` runs on the apply thread before
+        the copy is queued (outside the copy stream: a rebuilt chunk's
+        device work runs on the compute stream), and a copy out of a
+        staging slot records the slot's event."""
+        n, L = self.nchunks, len(self._shards)
+        timeline = self._timeline
         self._grow_ring(S)
         compute = torch.cuda.current_stream(self.device)
         copy = self._copy_stream
@@ -1289,12 +2076,14 @@ class DistributedEngine:
 
         def issue(ci):
             slot = ci % S
+            src = host(ci)
             with torch.cuda.stream(copy):
                 copy.wait_event(self._free[slot])
                 if ev is not None:
                     ev[3 * (base + ci)].record(copy)
-                self._dev_bufs[slot].copy_(host(ci), non_blocking=True)
+                self._dev_bufs[slot].copy_(src, non_blocking=True)
                 self._ready[slot].record(copy)
+                self._note_staged(ci, src, copy)
                 if ev is not None:
                     ev[3 * (base + ci) + 1].record(copy)
 
@@ -1308,7 +2097,8 @@ class DistributedEngine:
             slot = ci % S
             entry = None
             if ev is not None:
-                entry = {"chunk": ci, "_ev": 3 * (base + ci)}
+                entry = {"chunk": ci, "_ev": 3 * (base + ci),
+                         "_fetch_ms": waits.pop(ci, 0.0)}
                 timeline.append(entry)
                 ev[3 * (base + ci) + 2].record(compute)
                 t0 = time.perf_counter()
@@ -1320,13 +2110,16 @@ class DistributedEngine:
                 entry["dispatch_ms"] = round(
                     (time.perf_counter() - t0) * 1e3, 4)
 
-    def _fetch_plan_chunk(self, ci: int) -> torch.Tensor:
-        """The host half of one plan chunk's upload: the ``plan_upload``
-        fault site and the fetch of its ``[L, stride]`` records, retried
-        with backoff (``io_retries``, ``io_retry_base_s``)."""
+    def _fetch_plan_chunk(self, ci: int, degrade: bool = True
+                          ) -> torch.Tensor:
+        """The host half of one plan chunk's upload (JAX
+        ``_fetch_plan_chunk``): the ``plan_upload`` fault site around the
+        RAM or disk fetch (:meth:`_plan_chunk_host`), retried with backoff
+        (``io_retries``, ``io_retry_base_s``).  The prefetch workers run
+        it ahead of the apply with ``degrade=False``."""
         def fetch():
             faults.check("plan_upload", exc=RuntimeError, chunk=ci)
-            return self._plan_host[ci]
+            return self._plan_chunk_host(ci, degrade=degrade)
 
         return faults.with_retries("plan_upload", fetch,
                                    exc_types=(RuntimeError,))
@@ -1399,7 +2192,14 @@ class DistributedEngine:
                 else:
                     y[d].index_add_(0, ridx, add)
 
-        self._run_chunks(chunks, produce, consume)
+        try:
+            self._run_chunks(chunks, produce, consume)
+        finally:
+            # a chunk generator's clean-up (the prefetcher's join) runs
+            # now, not when the generator is collected
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
         return (y + self._diag.to(dt)[:, :, None] * x).reshape(xh.shape)
 
     def _decode_send(self, send: torch.Tensor, views, s: int, ci: int,
@@ -2104,7 +2904,9 @@ class DistributedEngine:
                     c0, c1, w = ev[k], ev[k + 1], ev[k + 2]
                     # exposed: how long the compute stream, arrived at its
                     # wait, still waited for the chunk's copy to end
-                    c["stall_ms"] = round(max(w.elapsed_time(c1), 0.0), 4)
+                    # plus the host's wait for a prefetched fetch
+                    c["stall_ms"] = round(max(w.elapsed_time(c1), 0.0)
+                                          + c.pop("_fetch_ms", 0.0), 4)
                     c["stage_ms"] = round(c0.elapsed_time(c1), 4)
             measured = {"plan_h2d": sum(c.get("stall_ms", 0.0)
                                         for c in timeline)}
@@ -2325,9 +3127,9 @@ class DistributedEngine:
                 np.concatenate([counts, [rows]]).astype(np.int64)).to(
                     self.device)).cpu().numpy()
             counts, rows = tot[:T], int(tot[T])
-        cal = self._tune_cal or _roofline.resolve_calibration(
-            device=self.device)
-        self._hybrid_cal = cal
+        if self._hybrid_cal is None:
+            self._init_hybrid_cal()
+        cal = self._hybrid_cal
         # modeled encoded bytes of one live streamed entry: the bitpacked
         # (dest, row) pair plus the tier's coefficient bytes (a u16 code
         # for lossless); the shared ridx/rok layout streams regardless
@@ -2408,36 +3210,17 @@ class DistributedEngine:
             chosen.priced_ms, chosen.source, search_s, fp)
         return split
 
-    def _check_tuned(self, t) -> None:
-        """A tuned config the port cannot build raises rather than build
-        something else: the disk plan tier, and more prefetch workers than
-        the RAM plan's H2D ring has chunks in flight (``max(1, depth)``),
-        wait for the persistence slice's prefetcher."""
-        if t.plan_tier != "ram":
-            raise NotImplementedError(
-                f"the autotuner picked the {t.plan_tier!r} plan tier "
-                f"({t.token()}): the port keeps the streamed plan in "
-                "pinned host memory; the disk tier comes with the "
-                "persistence slice — raise stream_plan_ram_gb or pass "
-                "explicit knobs")
-        if int(t.prefetch_workers) > max(1, int(t.pipeline_depth)):
-            raise NotImplementedError(
-                f"the autotuner picked {t.prefetch_workers} prefetch "
-                f"workers at depth {t.pipeline_depth} ({t.token()}): the "
-                "port's RAM plan stages through one copy stream with at "
-                "most max(1, depth) chunks in flight; threaded prefetch "
-                "comes with the persistence slice")
-
     def _apply_tuned_knobs(self, t, batch_size_arg, pipeline_arg,
                            hybrid_arg, compress_arg) -> Optional[str]:
         """Fold a :class:`~..tune.TunedConfig` into the build with the
         JAX precedence: an explicit constructor argument always wins; a
         config knob moved off its default (env var or ``update_config``)
         is a hand pin and wins; the tuned value fills everything else.
-        Returns the tuned hybrid split, or None."""
+        The tuned prefetch worker count and plan tier always take effect
+        (JAX ``_apply_tuned_knobs``).  Returns the tuned hybrid split, or
+        None."""
         import dataclasses as _dc
 
-        self._check_tuned(t)
         cfg = get_config()
         defaults = {f.name: f.default for f in _dc.fields(type(cfg))}
         M = self.shard_size
@@ -2450,6 +3233,8 @@ class DistributedEngine:
         if compress_arg is None and str(cfg.stream_compress) \
                 == str(defaults["stream_compress"]):
             self._set_compress(t.stream_compress)
+        self._tune_workers = int(t.prefetch_workers) or None
+        self._tune_plan_tier = t.plan_tier
         if hybrid_arg is None and str(cfg.hybrid) == str(defaults["hybrid"]) \
                 and t.hybrid_split != "-":
             return t.hybrid_split
@@ -2487,14 +3272,16 @@ class DistributedEngine:
         boundary only (callers: the top of :meth:`matvec`, and the serve
         pool between jobs; on ranks every rank together).  The plan is
         rebuilt at the new knobs exactly as a fresh build at those knobs
-        would be, never mid-apply; a streamed re-tune that keeps the row
-        chunk and the tier keeps its plan (the depth is a schedule, not a
+        would be, never mid-apply — restored from the default cache's
+        sidecar when it holds the new knobs' plan, saved there (and demoted
+        to the disk tier when asked) otherwise; a streamed re-tune that
+        keeps the row chunk, the codec tier and the plan tier keeps its
+        plan (the depth and the prefetch workers are a schedule, not a
         plan, knob).  Returns True when the knobs changed."""
         prop = self._retune_pending
         if prop is None or self.mode not in ("streamed", "hybrid"):
             return False
         self._retune_pending = None
-        self._check_tuned(prop)
         old = self._tuned
         ratio = (self._tuner.last_ratio
                  if self._tuner is not None else 0.0) or 0.0
@@ -2502,10 +3289,13 @@ class DistributedEngine:
         self._tuned = prop
         B = _round_up(min(int(prop.batch_size), self.shard_size), 8)
         rebuild = (self.mode == "hybrid" or B != self.batch_size
-                   or prop.stream_compress != self.stream_compress)
+                   or prop.stream_compress != self.stream_compress
+                   or prop.plan_tier != self._tune_plan_tier)
         self.batch_size = B
         self._pipeline_req = int(prop.pipeline_depth)
         self._set_compress(prop.stream_compress)
+        self._tune_workers = int(prop.prefetch_workers) or None
+        self._tune_plan_tier = prop.plan_tier
         if self.mode == "hybrid":
             if self._tuner is not None:
                 # re-key the auto split at the posterior's rates
@@ -2514,6 +3304,7 @@ class DistributedEngine:
                 self._hybrid_split = prop.hybrid_split
             self._hybrid_mask = _static_hybrid_mask(self._hybrid_split,
                                                     self.num_terms)
+            self._init_hybrid_cal()
         if rebuild:
             self._build_streamed()
             self._register_plan_memory()
@@ -2549,17 +3340,15 @@ class DistributedEngine:
         ``n_devices`` defaults to the file's shard count (a rank engine's
         world size must equal it); ``mode`` defaults to ``"fused"`` (no
         build cost), as in the JAX package; every mode builds
-        shard-native.  ``device`` defaults to ``cuda``; other keywords go
-        to the constructor.  ``structure_cache`` (the JAX engine's plan
-        and table sidecars) is not in the port and raises
-        ``NotImplementedError``."""
-        if structure_cache is not None:
-            raise NotImplementedError(
-                "structure_cache on DistributedEngine (the plan and table "
-                "sidecars) is not in the port yet (ROADMAP.md, Queue 1)")
+        shard-native.  ``structure_cache`` checkpoints the routing plan
+        (or the streamed plan) per shard, keyed by the shard manifest's
+        fingerprint, so a shard-native engine restores it without a global
+        basis.  ``device`` defaults to ``cuda``; other keywords go to the
+        constructor."""
         return cls(operator, n_devices=n_devices, batch_size=batch_size,
                    mode=mode or "fused", device=device, group=group,
-                   shards_path=shards_path, **kwargs)
+                   shards_path=shards_path, structure_cache=structure_cache,
+                   **kwargs)
 
     def _require_layout(self) -> HashedLayout:
         """The global block-order layout; a shard-native engine

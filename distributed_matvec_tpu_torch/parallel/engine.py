@@ -74,7 +74,7 @@ from ..utils.logging import log_debug
 from ..utils.timers import TreeTimer
 from .distributed import SENTINEL_STATE as _SENTINEL_BITS
 from .engine_obs import (emit_engine_init, note_applying, oom_reraise,
-                         register_engine_memory)
+                         record_structure_cache, register_engine_memory)
 
 __all__ = ["LocalEngine", "pad_to_multiple", "SENTINEL_STATE",
            "choose_ell_split", "compact_magnitude", "compact_magnitudes"]
@@ -382,10 +382,8 @@ class LocalEngine:
         if mode in ("ell", "compact"):
             cache = self._resolve_structure_cache(structure_cache)
             self.structure_restored = self._try_load_structure(cache)
-            if cache is not None:
-                from ..utils.artifacts import record_cache_event
-                record_cache_event(
-                    "structure", "hit" if self.structure_restored else "miss")
+            record_structure_cache(self.structure_restored,
+                                   cache is not None)
             if not self.structure_restored:
                 with self.timer.scope("build_structure"):
                     if mode == "ell":

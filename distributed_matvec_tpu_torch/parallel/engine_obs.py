@@ -1,4 +1,4 @@
-# Ported from distributed_matvec_tpu/parallel/engine.py (emit_engine_init, oom_reraise, register_engine_memory).
+# Ported from distributed_matvec_tpu/parallel/engine.py (emit_engine_init, oom_reraise, register_engine_memory, record_structure_cache).
 """Telemetry shared by both engines: the ``engine_init`` event, the memory
 ledger registration with its watermark, OOM forensics on the error paths,
 and the context variable through which an apply names its engine.
@@ -23,7 +23,7 @@ from ..obs.events import emit, obs_enabled
 from ..obs.metrics import gauge
 
 __all__ = ["APPLYING", "emit_engine_init", "note_applying", "oom_reraise",
-           "register_engine_memory"]
+           "record_structure_cache", "register_engine_memory"]
 
 #: A list that collects the engines applied while a solver listens, or None.
 APPLYING: contextvars.ContextVar = contextvars.ContextVar(
@@ -35,6 +35,17 @@ def note_applying(eng) -> None:
     box = APPLYING.get()
     if box is not None:
         box.append(eng)
+
+
+def record_structure_cache(restored: bool, consulted: bool) -> None:
+    """A structure or plan sidecar's outcome → ``artifact_cache{kind=
+    structure}``: ``hit`` or ``miss``; nothing when no cache path resolved
+    (an engine that never looked is not a miss)."""
+    if not consulted:
+        return
+    from ..utils.artifacts import record_cache_event
+
+    record_cache_event("structure", "hit" if restored else "miss")
 
 
 def emit_engine_init(eng, engine_kind: str, init_s: Optional[float] = None

@@ -1,17 +1,20 @@
-# Copied from distributed_matvec_tpu/parallel/shuffle.py (its host part).
+# Copied from distributed_matvec_tpu/parallel/shuffle.py (the device gathers on tensors).
 """Block ↔ hashed layout conversion.
 
 Every distributed array has two layouts: *block* — the globally sorted
 index space (I/O order) — and *hashed* — state σ lives on shard
 ``hash64(σ) % D`` (compute order).  A layout is a precomputed permutation:
 ``perm[d, j]`` = global (block) index of the j-th element of shard d, padded
-with −1.  Conversion is one gather, on the host; the engine moves the result
-to its device.
+with −1.  Conversion is one gather: on the host (NumPy), or on a tensor's
+device (:meth:`HashedLayout.to_hashed_device`, :meth:`~HashedLayout.
+from_hashed_device`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+import torch
 
 from ..enumeration.host import shard_index
 
@@ -66,3 +69,23 @@ class HashedLayout:
         arr = np.asarray(arr)
         flat = arr.reshape((self.n_shards * self.shard_size,) + arr.shape[2:])
         return flat[self.inverse]
+
+    # -- device (tensor gathers on the input's device) ------------------------
+
+    def to_hashed_device(self, arr: torch.Tensor) -> torch.Tensor:
+        """Block → hashed on ``arr``'s device: [N] or [N, R] → [D, M] or
+        [D, M, R], pads zero."""
+        perm = torch.from_numpy(np.where(self.perm >= 0, self.perm, 0)).to(
+            arr.device)
+        mask = torch.from_numpy(self.perm >= 0).to(arr.device)
+        out = arr[perm]
+        m = mask[..., None] if arr.dim() == 2 else mask
+        return torch.where(m, out, torch.zeros((), dtype=arr.dtype,
+                                               device=arr.device))
+
+    def from_hashed_device(self, arr: torch.Tensor) -> torch.Tensor:
+        """Hashed → block on ``arr``'s device: [D, M, ...] → [N, ...]."""
+        inv = torch.from_numpy(self.inverse).to(arr.device)
+        flat = arr.reshape((self.n_shards * self.shard_size,)
+                           + tuple(arr.shape[2:]))
+        return flat[inv]

@@ -30,6 +30,9 @@ The sites of the port:
 * ``plan_upload`` — the host fetch of one plan chunk that feeds the pinned
   H2D ring of a streamed or hybrid apply (``RuntimeError``), retried
   through :func:`with_retries` (``io_retries``, ``io_retry_base_s``);
+* ``plan_chunk_read`` — each record read of a streamed plan's disk tier
+  (``OSError``), retried likewise; a read that keeps failing rebuilds the
+  chunk from structure (``parallel/distributed.py``);
 * ``solver_block`` — each solver's block boundary, beside its preemption
   safe point (``lanczos``, ``lanczos_block``, ``kpm``, ``evolve``);
 * ``ckpt_write`` / ``ckpt_rename`` — before an engine structure sidecar's
@@ -44,9 +47,6 @@ The sites of the port:
   rebuild and the quarantine tally (``utils/artifacts.py``);
 * ``artifact_save`` — before the basis artifact's atomic save, which
   then fails soft.
-
-The JAX package's other I/O site, ``plan_chunk_read``, sits on the
-streamed plan's disk tier, which a later slice ports.
 
 Examples::
 

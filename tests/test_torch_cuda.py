@@ -307,6 +307,49 @@ def test_pipelined_applies_on_card(cuda):
                                    atol=1e-13, rtol=1e-12)
 
 
+def test_disk_tier_on_card(cuda, tmp_path):
+    """The plan's disk tier on the card, through the in-memory sidecar
+    store (the card's machine has no ``h5py``): many small chunks cycle
+    the pinned staging slots, and every apply — depth 0, and 2 and 3 with
+    the prefetch worker — equals the RAM engine's bit for bit under
+    deterministic algorithms; a corrupt record is rebuilt on the card
+    byte-equal to the RAM engine's record."""
+    from distributed_matvec_tpu_torch.parallel import plan_cache
+    from distributed_matvec_tpu_torch.utils.config import (get_config,
+                                                           update_config)
+
+    op = heisenberg_chain(16, symmetric=True)
+    op.basis.build()
+    store = plan_cache._MemorySidecarStore()
+    kw = dict(n_devices=2, mode="streamed", batch_size=16, device=cuda,
+              stream_compress="lossless", _sidecar_store=store,
+              structure_cache=str(tmp_path / "c"))
+    ram = DistributedEngine(op, **kw)
+    old = get_config().stream_plan_ram_gb
+    update_config(stream_plan_ram_gb=0.0)
+    try:
+        disk = DistributedEngine(op, **kw)
+    finally:
+        update_config(stream_plan_ram_gb=old)
+    assert disk.structure_restored and disk._plan_host is None
+    assert disk.nchunks > 8
+    xh = ram.random_hashed(4)
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = ram.matvec(xh)
+        for depth in (0, 2, 3, 0):
+            disk.pipeline_depth = depth
+            assert torch.equal(disk.matvec(xh), want), depth
+        side = next(iter(disk._plan_disk.values()))
+        store.files[side].data["dest_1_5"].reshape(-1).view(
+            np.uint8)[0] ^= 0xFF
+        disk.pipeline_depth = 2
+        assert torch.equal(disk.matvec(xh), want)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(disk._plan_repaired[5], ram._plan_host[5])
+
+
 @pytest.mark.parametrize("backend", ["gloo", "nccl"])
 def test_rank_engine_pipelined_on_card(cuda, backend, tmp_path):
     """A one-rank group on the card: the staged exchange (for gloo through

@@ -46,8 +46,11 @@ SLICE_13 = {"enumeration.sharded":
             "distributed_matvec_tpu/enumeration/sharded.py",
             "io.sharded_io": "distributed_matvec_tpu/io/sharded_io.py",
             "parallel.reshard": "distributed_matvec_tpu/parallel/reshard.py"}
+#: the engine's plan caches (sidecar names, checksum, prefetcher)
+SLICE_14 = {"parallel.plan_cache":
+            "distributed_matvec_tpu/parallel/distributed.py"}
 SOURCES = {**{k: "distributed_matvec_tpu/" + v for k, v in SLICE_11.items()},
-           **SLICE_12, **SLICE_13}
+           **SLICE_12, **SLICE_13, **SLICE_14}
 
 
 @pytest.mark.parametrize("sub", sorted(SOURCES))
@@ -73,7 +76,7 @@ def test_import_pulls_in_no_jax():
                 "obs.export", "obs.flight", "utils.config",
                 "utils.preempt", "utils.logging", "apps.solve_service",
                 *SLICE_11, "models.yaml_io", "io", "io.hdf5",
-                "apps.diagonalize", "apps.dynamics", *SLICE_13):
+                "apps.diagonalize", "apps.dynamics", *SLICE_13, *SLICE_14):
         assert f"distributed_matvec_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
@@ -187,15 +190,16 @@ def test_service_refuses_cpu_without_request(monkeypatch, tmp_path):
     assert app.main([spool, "--drain", "--device", "cpu"]) == 0
 
 
-def test_out_of_scope_raises_not_implemented(monkeypatch):
-    """What the port does not have raises NotImplementedError: the
-    engine's plan and table sidecars (``from_shards(structure_cache=)``)
-    and a tuned config that asks for the disk plan tier (the persistence
-    slice) — never a quiet build of something else.  What earlier slices refused builds now: the two "auto" policies
-    (the hybrid split, also the JAX default, and the pipeline depth),
-    resolved by the cost model as ``obs/roofline.py`` prices them under the
-    CPU calibration; every codec tier, complex sectors in the streamed
-    engine, and hybrid mode with a static split."""
+def test_out_of_scope_raises_not_implemented(monkeypatch, tmp_path):
+    """Nothing the JAX engine builds is refused any more.  What earlier
+    slices refused builds now: the engine's plan and table sidecars
+    (``from_shards(structure_cache=)`` reaches the shard file, and a tuned
+    config that asks for the disk plan tier puts the plan there when it
+    has a sidecar, and keeps it in RAM when it has none), the two "auto"
+    policies (the hybrid split, also the JAX default, and the pipeline
+    depth), resolved by the cost model as ``obs/roofline.py`` prices them
+    under the CPU calibration; every codec tier, complex sectors in the
+    streamed engine, and hybrid mode with a static split."""
     from distributed_matvec_tpu_torch import tune
     from distributed_matvec_tpu_torch.obs import roofline
     from distributed_matvec_tpu_torch.utils.config import update_config
@@ -211,17 +215,24 @@ def test_out_of_scope_raises_not_implemented(monkeypatch):
         if kw["mode"] == "hybrid":
             assert eng._hybrid_mask is not None
             assert eng.hybrid_split.startswith("stream:")
-    with pytest.raises(NotImplementedError, match="structure_cache"):
+    with pytest.raises(ValueError, match="no shard manifest"):
         port.DistributedEngine.from_shards(op, "s.h5", device="cpu",
                                            structure_cache="c.h5")
     disk = tune.TunedConfig(batch_size=64, plan_tier="disk")
     monkeypatch.setattr(tune, "load_tuned", lambda fp: disk)
     update_config(tune="static")
     try:
-        with pytest.raises(NotImplementedError, match="disk"):
-            port.DistributedEngine(op, mode="streamed", device="cpu")
+        ram = port.DistributedEngine(op, mode="streamed", device="cpu")
+        on_disk = port.DistributedEngine(
+            op, mode="streamed", device="cpu",
+            structure_cache=str(tmp_path / "c"))
     finally:
         update_config(tune="off")
+    assert ram._tune_plan_tier == on_disk._tune_plan_tier == "disk"
+    assert ram._plan_host is not None and ram._plan_disk is None
+    assert on_disk._plan_host is None and on_disk._plan_disk
+    x = on_disk.random_hashed(3)
+    assert torch.equal(on_disk.matvec(x), ram.matvec(x))
     for kw in ({"mode": "streamed", "stream_compress": "off"},
                {"mode": "streamed", "n_devices": 2, "stream_compress": "bf16"},
                {"mode": "hybrid", "hybrid_split": "all-recompute"}):

@@ -630,6 +630,38 @@ def test_rank_checkpoint_resume(spawned, ranks, refs, W):
     assert abs(res.eigenvalues[0] - ref.e0) < 1e-10
 
 
+# -- the plan caches on ranks ---------------------------------------------------------
+
+def test_rank_plan_caches_all_or_nothing(ranks, refs):
+    """Two gloo ranks with ``structure_cache=``: each writes its own
+    ``.r<rank>`` sidecars and both restore them, bit-equal to the built
+    applies and within the matvec tolerance of the one-process engine;
+    with rank 1's stream sidecar gone both ranks rebuild (JAX
+    ``agree_restored``: all or nothing); a disk-tier engine restores, and
+    a corrupt record raises ``OSError`` on both ranks instead of a
+    rank-local rebuild."""
+    outs = [o["caches"] for o in ranks[2]]
+    ref = refs[(2, "chain_12_symm")]
+    x = RW.inputs(ref.N, True, seed=7)
+    want = ref.eng["ell"].matvec_global(x)
+    files = outs[0]["files"]
+    for kind in ("structure", "stream"):
+        for r in range(2):
+            assert f"pc.dist2.{kind}.h5.r{r}" in files, files
+    for o in outs:
+        for mode in ("ell", "streamed"):
+            assert o[mode]["restored"] == (False, True), mode
+            np.testing.assert_array_equal(o[mode]["y"][0], o[mode]["y"][1])
+            np.testing.assert_allclose(o[mode]["y"][0], want, atol=ATOL,
+                                       rtol=RTOL)
+        assert o["partial"]["restored"] is False
+        np.testing.assert_array_equal(o["partial"]["y"],
+                                      o["streamed"]["y"][0])
+        assert o["disk"]["restored"] and o["disk"]["on_disk"]
+        np.testing.assert_array_equal(o["disk"]["y"], o["streamed"]["y"][0])
+        assert o["disk"]["raised"] and "rank engine" in o["disk"]["raised"]
+
+
 # -- the self-tuning runtime on ranks --------------------------------------------
 
 def test_rank_tune_agrees_config_and_rekey(ranks):

@@ -287,11 +287,22 @@ def test_from_shards_refusals(shard_files, tmp_path):
     with pytest.raises(ValueError, match="no shard manifest"):
         DistributedEngine.from_shards(op_t, str(tmp_path / "none.h5"),
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="structure_cache"):
-        DistributedEngine.from_shards(op_t, path, device="cpu",
-                                      structure_cache=str(tmp_path))
-    eng = DistributedEngine.from_shards(op_t, path, device="cpu")
-    assert eng.mode == "fused"
+    # structure_cache is taken (fused keeps no plan to cache; an ell
+    # engine restores its routing plan shard-native)
+    cache = str(tmp_path / "c")
+    eng = DistributedEngine.from_shards(op_t, path, device="cpu",
+                                        structure_cache=cache)
+    assert eng.mode == "fused" and not eng.structure_restored
+    built = DistributedEngine.from_shards(op_t, path, mode="ell",
+                                          device="cpu",
+                                          structure_cache=cache)
+    assert not built.structure_restored
+    again = DistributedEngine.from_shards(op_t, path, mode="ell",
+                                          device="cpu",
+                                          structure_cache=cache)
+    assert again.structure_restored and not op_t.basis.is_built
+    x = again.state_keyed_hashed(3)
+    assert torch.equal(again.matvec(x), built.matvec(x))
 
 
 @pytest.mark.parametrize("D", [1, 2, 3, 4])

@@ -8,8 +8,8 @@ rank engine (one shard per process), runs the checks' inputs through it —
 plan and tables, matvec (sequential and pipelined), Lanczos, the block
 solvers, KPM, Krylov evolution, bound observables and the fused-capacity
 overflow — then, at W = 2, the streamed engine's other forms (``FORMS``)
-a codec mismatch, the self-tuning runtime (``run_tune``) and a wrapped
-matvec (``run_wrapped``), and at every W the preemption latch and the
+a codec mismatch, the self-tuning runtime (``run_tune``), a wrapped
+matvec (``run_wrapped``) and the plan caches (``run_caches``), and at every W the preemption latch and the
 solvers' per-rank checkpoints (``run_checkpoint``) — and saves what it
 saw to
 ``OUT_DIR/rank{RANK}.pt``.  With ``serve`` it runs only the solve service
@@ -505,6 +505,71 @@ def run_tune(g, out_dir):
     return out
 
 
+def run_caches(g, out_dir):
+    """The plan caches on ranks (W = 2, chain_12_symm, B = 32: four row
+    chunks): each rank saves its own ``.r<rank>`` sidecars (ell and
+    streamed) and both restore them; with rank 1's stream sidecar removed
+    rank 0 could restore alone, and the agreement makes both rebuild; on
+    the disk tier a corrupt record of each rank's own file raises
+    ``OSError`` on both ranks (no rank-local rebuild).  Records the
+    restored flags, the sidecars written and the applies."""
+    import torch.distributed as dist
+
+    from distributed_matvec_tpu_torch import DistributedEngine
+    from distributed_matvec_tpu_torch.utils.config import (get_config,
+                                                           update_config)
+
+    op = build_op(12, 6, 1, SYMS_12_K0)
+    x = inputs(op.basis.number_states, True, seed=7)
+    cache = os.path.join(out_dir, "pc")
+    out = {}
+
+    def build(mode, **kw):
+        eng = DistributedEngine(op, mode=mode, batch_size=32, group=g,
+                                device="cpu", stream_compress="lossless",
+                                structure_cache=cache, **kw)
+        return eng, eng.from_hashed(eng.matvec(eng.to_hashed(x)))
+
+    for mode in ("ell", "streamed"):
+        e1, y1 = build(mode)
+        e2, y2 = build(mode)
+        out[mode] = {"restored": (e1.structure_restored,
+                                  e2.structure_restored),
+                     "y": (y1, y2)}
+    kind = cache + ".dist2.stream.h5"
+    out["files"] = sorted(os.listdir(out_dir))
+    dist.barrier()
+    if g.rank == 1:
+        os.remove(f"{kind}.r1")
+    dist.barrier()
+    e3, y3 = build("streamed")
+    out["partial"] = {"restored": e3.structure_restored, "y": y3}
+    old = get_config().stream_plan_ram_gb
+    update_config(stream_plan_ram_gb=0.0)
+    try:
+        e4, y4 = build("streamed")
+        out["disk"] = {"restored": e4.structure_restored,
+                       "on_disk": e4._plan_host is None, "y": y4}
+        for f in list(e4._plan_files.values()):
+            f.close()
+        e4._plan_files.clear()
+        import h5py
+
+        with h5py.File(f"{kind}.r{g.rank}", "r+") as f:
+            ds = f["engine_structure"][f"dest_{g.rank}_1"]
+            a = ds[...]
+            a.reshape(-1).view(np.uint8)[0] ^= 0xFF
+            ds[...] = a
+        try:
+            e4.matvec(e4.to_hashed(x))
+            out["disk"]["raised"] = None
+        except OSError as e:
+            out["disk"]["raised"] = str(e)
+    finally:
+        update_config(stream_plan_ram_gb=old)
+    return out
+
+
 def run_wrapped(g):
     """ROADMAP Queue 3 item 1, the rank probe: ``lanczos`` on a wrapped
     rank engine's matvec summed its dots over this rank's shard only
@@ -600,6 +665,7 @@ def main(argv):
             out["forms"] = run_forms(g)
             out["tune"] = run_tune(g, out_dir)
             out["wrapped"] = run_wrapped(g)
+            out["caches"] = run_caches(g, out_dir)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             out["overflow"] = run_overflow(g)
