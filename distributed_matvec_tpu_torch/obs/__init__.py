@@ -8,12 +8,12 @@ The JAX package's telemetry core, copied where it is framework-free:
   labeled series; :func:`snapshot` turns the registry into plain data.
 * :mod:`~.events` — append-only JSONL per process
   (``<run_dir>/rank_<r>/events.jsonl``, rank-tagged envelope, monotonic
-  ``seq``, soft-fail writes), an in-memory ring buffer, and
-  :func:`annotate` ranges in ``torch.profiler`` traces.
+  ``seq``, soft-fail writes) and an in-memory ring buffer.
 * :mod:`~.trace` — one ``trace_id`` per run (agreed across ranks through
   the shared run directory), the ``job_id`` namespacing knob
-  (``DMT_JOB_ID``), and parent-linked spans stamped into every event's
-  envelope.
+  (``DMT_JOB_ID``), parent-linked spans stamped into every event's
+  envelope, and the detail spans below ``apply`` and inside a solver's
+  step, recorded only while a ``torch.profiler`` window records.
 * :mod:`~.slo` — declarative SLOs with multi-window burn-rate alerting.
 * :mod:`~.flight` — post-mortem bundles (preemption, fatal signals).
 * :mod:`~.export` — OpenMetrics text, ``/metrics`` and ``/healthz``.
@@ -37,10 +37,13 @@ The JAX package's telemetry core, copied where it is framework-free:
 * :mod:`~.kernel_costs` — the counterpart of the JAX ``hlo``: per-kernel
   device ms of a profiled apply, bucketed into the phases.
 
-The engines emit ``engine_init`` at construction and ``matvec_apply``
-and ``apply_phases`` per apply inside an ``apply`` span; the solvers open
-a ``solve`` span with ``iteration`` spans, and the solve service its
-events and spans.
+The spans: ``run > solve > iteration > apply`` for a solve and ``run >
+serve_batch > job`` in the solve service; the detail spans under
+``apply`` (the engines' phases), under ``iteration`` (``algebra``) and
+under the solve span (``check``) record only inside a profiler window
+(``obs/trace.py`` names them all).  The engines emit
+``engine_init`` at construction and ``matvec_apply`` and
+``apply_phases`` per apply inside the ``apply`` span.
 
 Config: ``DMT_OBS_DIR`` (or ``obs_dir``) points the sink at a run
 directory; unset ⇒ in-memory only; ``DMT_OBS=off`` disables the layer
@@ -48,8 +51,8 @@ entirely, at which point every instrument is the shared no-op
 :data:`~.metrics.NULL`.
 """
 
-from .events import (annotate, emit, event_path, events, flush, obs_enabled,
-                     reset, run_dir)
+from .events import (emit, event_path, events, flush, obs_enabled, reset,
+                     run_dir)
 from .export import (merge_openmetrics, parse_openmetrics,
                      render_openmetrics, start_exporter, stop_exporter,
                      textfile_path, write_textfile)
@@ -66,7 +69,6 @@ from .trace import (current_span_id, deepest_span, emit_span, job_id,
                     trace_enabled, trace_id)
 
 __all__ = [
-    "annotate",
     "emit",
     "event_path",
     "events",

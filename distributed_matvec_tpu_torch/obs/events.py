@@ -1,5 +1,5 @@
 # Ported from distributed_matvec_tpu/obs/events.py.
-"""Structured event sink: append-only JSONL per process + profiler bridge.
+"""Structured event sink: append-only JSONL per process.
 
 One pillar of the telemetry subsystem (see ``obs/__init__``).  Every event is
 a flat JSON object with a fixed envelope::
@@ -29,11 +29,6 @@ fully disabled (:func:`emit` returns ``None`` without building an event).
 Sink writes fail SOFT: a read-only checkout or full disk logs one
 ``log_warn`` and degrades to in-memory — telemetry must never turn a
 computation into an I/O error.
-
-:func:`annotate` bridges the host-side event timeline into ``torch.profiler``
-traces: it returns a ``record_function`` context so an instrumented phase
-shows up as a named range in the profiler's trace, lining up with the JSONL
-timestamps (the JAX package's ``jax.profiler.TraceAnnotation``).
 """
 
 from __future__ import annotations
@@ -43,7 +38,6 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import nullcontext
 from typing import List, Optional
 
 from ..utils.config import get_config
@@ -55,7 +49,6 @@ __all__ = [
     "event_path",
     "emit",
     "events",
-    "annotate",
     "flush",
     "reset",
     "set_trace_stamper",
@@ -206,20 +199,6 @@ def events(kind: Optional[str] = None) -> List[dict]:
     if kind is not None:
         evs = [e for e in evs if e.get("kind") == kind]
     return evs
-
-
-def annotate(name: str):
-    """Context manager marking a named range in the active
-    ``torch.profiler`` trace (no-op when the layer is off).  Host-side
-    only — a ``record_function`` never launches device work."""
-    if not obs_enabled():
-        return nullcontext()
-    try:
-        import torch
-
-        return torch.profiler.record_function(name)
-    except Exception:
-        return nullcontext()
 
 
 def flush() -> None:

@@ -14,9 +14,11 @@ racing the config cache):
   whose Chrome trace is written to
   ``<run_dir>/rank_<r>/profiles/<engine>-apply<N>/trace.json``, stamped
   with ``trace_id``/``job_id`` and announced by a ``profile_captured``
-  event.  The window's kernels and copies, with their device times, go
-  through :mod:`~.kernel_costs` into a ``kernel_cost`` event and a
-  fingerprinted profile artifact.  A **measured-overhead guard** times
+  event; the detail spans the window recorded (``obs/trace.py::
+  detail_spans``, on the trace's clock) go beside it as ``spans.json``.  The window's
+  kernels and copies, with their device times, go through
+  :mod:`~.kernel_costs` into a ``kernel_cost`` event and a fingerprinted
+  profile artifact.  A **measured-overhead guard** times
   the window's own start/stop (the trace export included) against the
   cumulative apply wall; when measured overhead exceeds
   ``profile_overhead_pct`` (default 2%) after at least two profiled
@@ -46,6 +48,7 @@ from typing import Dict, Optional
 
 from ..utils.config import get_config
 from ..utils.logging import log_debug
+from . import trace as _trace
 from .events import emit, obs_enabled, run_dir
 from .metrics import counter
 
@@ -225,6 +228,7 @@ def _sample_window(engine: str, apply_index: int, mode: str):
         ta = time.perf_counter()
         prof = torch.profiler.profile(activities=profiler_activities())
         prof.__enter__()
+        t_open = _trace.clock()
         extra_s += time.perf_counter() - ta
     except Exception as e:
         log_debug(f"profiler start failed ({target}): {e!r}")
@@ -235,10 +239,13 @@ def _sample_window(engine: str, apply_index: int, mode: str):
         costs = None
         if prof is not None:
             tb = time.perf_counter()
+            t_close = _trace.clock()
             try:
                 prof.__exit__(None, None, None)
                 os.makedirs(target, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(target, "trace.json"))
+                with open(os.path.join(target, "spans.json"), "w") as f:
+                    json.dump(_trace.detail_spans(t_open, t_close), f)
             except Exception as e:
                 log_debug(f"profiler stop failed: {e!r}")
             extra_s += time.perf_counter() - tb

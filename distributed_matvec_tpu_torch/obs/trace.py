@@ -30,9 +30,30 @@ heartbeat watchdog only *reads* the stack, which is why it is global and
 locked rather than thread-local).  Closing a span emits ONE ``span`` event
 carrying ``name``/``cat``/``t0``/``dur_ms``/``parent_span_id`` — emitted
 *before* the pop, so the envelope's ``span_id`` stamp is the span's own id.
-The JAX package's taxonomy (run > solve > iteration > apply > chunk) holds
-here too; in the port only the service layer opens spans so far (run >
-serve_batch > job).
+The port's taxonomy: ``run > solve > iteration > apply`` for a solve
+(the ``solve`` span is named after its solver, kind ``solve``), and the
+solve service's ``run > serve_batch > job``.  The ``apply`` span carries
+``columns``.
+
+Detail spans
+------------
+Below ``apply`` and inside a solver's step the host runs thousands of
+short phases an apply; a span event each would cost more than the phases.
+So these are **detail spans**, recorded only while a ``torch.profiler``
+window records in this process (:func:`profiling`, one flag read per site
+otherwise) under an open regular span: ``t = detail_start()`` …
+``detail_end(name, t, attr)`` appends one record (name, start, end, the
+open span's id, one small integer) to a bounded in-memory buffer, and
+emits nothing; :func:`detail_spans` reads them, and a sampled
+``DMT_PROFILE`` window writes its own beside its ``trace.json`` as
+``spans.json`` (``obs/profile.py``).  The names: ``terms``/``tail``
+(``LocalEngine``'s ell passes), per chunk ``fetch``/``produce``/
+``consume`` and once ``diag_add`` (the chunked applies), ``obs`` (both
+engines' telemetry tail) under ``apply``; ``algebra`` (one ``lanczos``
+step past its apply) under ``iteration``, and ``check`` (one
+convergence-check block of ``lanczos``) under the solve span.  Every
+span, regular or detail, takes its start and end from :func:`clock`
+(``time.time``), the clock ``torch.profiler`` stamps its events with.
 
 Contracts: spans are pure host bookkeeping — no device work, no
 synchronization; ``DMT_TRACE=off`` disables stamping and span events
@@ -46,6 +67,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional
 
@@ -58,6 +80,11 @@ __all__ = [
     "trace_id",
     "job_id",
     "span",
+    "clock",
+    "profiling",
+    "detail_start",
+    "detail_end",
+    "detail_spans",
     "current_span_id",
     "open_spans",
     "deepest_span",
@@ -71,6 +98,16 @@ _trace_id: Optional[str] = None
 _id_counter = 0
 #: the span ids' random suffix, drawn once per process (and per reset)
 _span_salt: Optional[str] = None
+#: every span's clock: ``torch.profiler`` stamps its host and device events
+#: on the same wall clock
+clock = time.time
+#: the detail spans recorded while a profiler window records, the newest
+#: ``DETAIL_CAP``, each as five flat entries (name, t0, t1, parent span
+#: id, attr) — strings, floats and ints, which the garbage collector does
+#: not track: a tuple a span, kept alive, set off collections that cost a
+#: streamed apply's window more than its spans
+DETAIL_CAP = 1 << 18
+_detail: deque = deque(maxlen=5 * DETAIL_CAP)
 
 
 def trace_enabled() -> bool:
@@ -184,7 +221,7 @@ class _Span:
         self.kind = kind
         self.sid = sid
         self.parent_sid = parent_sid
-        self.t0 = time.time()
+        self.t0 = clock()
         self.attrs = attrs
 
 
@@ -212,7 +249,7 @@ def _span_cm(name: str, kind: str, attrs: Dict):
     try:
         yield sp
     finally:
-        dur_ms = (time.time() - sp.t0) * 1e3
+        dur_ms = (clock() - sp.t0) * 1e3
         # emit BEFORE the pop: the envelope stamper sees the closing span
         # on top of the stack, so the span event's own span_id is itself
         # and its children's events (already written) point at it
@@ -233,6 +270,75 @@ def span(name: str, kind: str = "span", **attrs):
     if not trace_enabled():
         return nullcontext()
     return _span_cm(name, kind, attrs)
+
+
+def _bind_flag() -> bool:
+    """Binds :func:`_flag` to the cheapest read of whether a profiler
+    window records here — ``torch.autograd.profiler._is_profiler_enabled``,
+    which every window sets whatever its activities, else the C++ query —
+    and returns its reading."""
+    global _flag
+    try:
+        import torch.autograd.profiler as prof_mod
+    except ImportError:             # pragma: no cover - torch is a hard dep
+        _flag = bool
+        return False
+    if isinstance(getattr(prof_mod, "_is_profiler_enabled", None), bool):
+        def _flag():
+            return prof_mod._is_profiler_enabled
+    else:
+        import torch.autograd
+        _flag = torch.autograd._profiler_enabled
+    return _flag()
+
+
+_flag = _bind_flag
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` window records in this process."""
+    return _flag()
+
+
+def detail_start() -> Optional[float]:
+    """The start of a detail span: :func:`clock`'s reading while a
+    profiler window records and a regular span is open (so tracing is on:
+    no span opens otherwise), else None — the site then records nothing;
+    pass the None on to :func:`detail_end`."""
+    if _flag() and _stack:
+        return clock()
+    return None
+
+
+def detail_end(name: str, t0: Optional[float], attr: Optional[int] = None
+               ) -> Optional[float]:
+    """Record detail span ``name`` from ``t0`` (:func:`detail_start`'s
+    reading) to now, under the innermost open span, with one small
+    integer ``attr`` (a chunk, a step); returns the end's reading, or None
+    where ``t0`` is None."""
+    if t0 is None:
+        return None
+    t1 = clock()
+    st = _stack
+    _detail.extend((name, t0, t1, st[-1].sid if st else None, attr))
+    return t1
+
+
+def detail_spans(t0: Optional[float] = None, t1: Optional[float] = None
+                 ) -> List[dict]:
+    """The detail spans recorded while profiler windows recorded, those
+    that overlap ``[t0, t1]`` (:func:`clock` seconds; None: open-ended), in
+    the order they closed: ``{name, t0, t1, parent_span_id, attr}``, where
+    ``parent_span_id`` is the ``span_id`` of a regular span's event and
+    ``attr`` the site's integer or None.  The buffer holds the newest
+    :data:`DETAIL_CAP`."""
+    lo = float("-inf") if t0 is None else t0
+    hi = float("inf") if t1 is None else t1
+    flat = list(_detail)
+    return [{"name": flat[i], "t0": flat[i + 1], "t1": flat[i + 2],
+             "parent_span_id": flat[i + 3], "attr": flat[i + 4]}
+            for i in range(0, len(flat), 5)
+            if flat[i + 2] >= lo and flat[i + 1] <= hi]
 
 
 def emit_span(name: str, kind: str, t0: float, dur_ms: float,
@@ -368,3 +474,4 @@ def reset_trace() -> None:
         _id_counter = 0
         _span_salt = None
         _stack.clear()
+        _detail.clear()

@@ -521,7 +521,7 @@ class DistributedEngine:
         self._dtype = torch.float64 if self.real else torch.complex128
         #: seconds of each construction phase
         self.timings: Dict[str, float] = {}
-        #: the construction's and the applies' timing tree
+        #: the construction's timing tree
         self.timer = TreeTimer("DistributedEngine")
         t_init = time.perf_counter()
         # pre-build watermark: the delta against the post-init sample is
@@ -830,15 +830,14 @@ class DistributedEngine:
             "stream_build", 2 * (self.batch_size * self.num_terms
                                  * (4 + cfb) + self.n_devices
                                  * self._capacity * 5), self.nchunks)
-        t0 = time.perf_counter()
         with self.timer.scope("build_plan"):
             raw = self._build_stream_plan()
-        self.timings["plan_build_s"] = time.perf_counter() - t0
+        self.timings["plan_build_s"] = self.timer.last("build_plan")
         if self.mode == "hybrid" and self._hybrid_mask is None:
             self._hybrid_mask = self._auto_hybrid_mask(raw)
-        t0 = time.perf_counter()
-        self._encode_stream_plan(raw)
-        self.timings["plan_encode_s"] = time.perf_counter() - t0
+        with self.timer.scope("plan_encode"):
+            self._encode_stream_plan(raw)
+        self.timings["plan_encode_s"] = self.timer.last("plan_encode")
         stage_h.release()           # staging gone; the plan is resident
 
     def _finish_streamed(self) -> None:
@@ -1465,7 +1464,8 @@ class DistributedEngine:
         chunks have been produced; the last d − 1 drain in order.  The
         host time spent in those waits goes to ``last_pipeline`` (and, in
         an observed streamed apply, to the chunk's timeline entry as its
-        ``exch_ms``)."""
+        ``exch_ms``).  Each ``produce`` and ``consume`` is a detail span
+        (``obs/trace.py``) while a profiler window records."""
         d = self.pipeline_depth
         if d >= 2 and self.last_pipeline is None:
             self.last_pipeline = {"depth": d, "chunks": 0, "barrier_ms": 0.0}
@@ -1473,8 +1473,13 @@ class DistributedEngine:
         timeline = self._timeline
         flight: list = []
 
+        def consumed(ci, carry, recvs):
+            t = obs_trace.detail_start()
+            consume(carry, *recvs)
+            obs_trace.detail_end("consume", t, ci)
+
         def retire():
-            waits, carry, entry = flight.pop(0)
+            ci, waits, carry, entry = flight.pop(0)
             t0 = time.perf_counter()
             recvs = [w() for w in waits]
             wait_ms = (time.perf_counter() - t0) * 1e3
@@ -1482,17 +1487,19 @@ class DistributedEngine:
             rec["chunks"] += 1
             if entry is not None:
                 entry["exch_ms"] = round(wait_ms, 4)
-            consume(carry, *recvs)
+            consumed(ci, carry, recvs)
 
         for ci, chunk in enumerate(chunks):
+            t = obs_trace.detail_start()
             sends, carry = produce(ci, chunk)
+            obs_trace.detail_end("produce", t, ci)
             if d < 2:
-                consume(carry, *[self._exchange(s) for s in sends])
+                consumed(ci, carry, [self._exchange(s) for s in sends])
                 continue
             # the streamed chunk source appended this chunk's entry
             entry = timeline[-1] if timeline else None
-            flight.append(([self._exchange_start(s) for s in sends], carry,
-                           entry))
+            flight.append((ci, [self._exchange_start(s) for s in sends],
+                           carry, entry))
             if len(flight) == d:
                 retire()
         while flight:
@@ -2000,6 +2007,7 @@ class DistributedEngine:
             if self.device.type != "cuda":
                 for ci in range(n):
                     entry = None
+                    t = obs_trace.detail_start()
                     if timeline is not None:
                         # the plan never leaves host memory: nothing to
                         # wait on but a prefetched fetch
@@ -2010,7 +2018,9 @@ class DistributedEngine:
                     rec = host(ci)
                     if entry is not None:
                         entry["stall_ms"] = round(waits.pop(ci, 0.0), 4)
-                    yield [self._chunk_views(rec[d]) for d in range(L)]
+                    views = [self._chunk_views(rec[d]) for d in range(L)]
+                    obs_trace.detail_end("fetch", t, ci)
+                    yield views
                     if entry is not None:
                         entry["dispatch_ms"] = round(
                             (time.perf_counter() - t0) * 1e3, 4)
@@ -2076,6 +2086,7 @@ class DistributedEngine:
 
         def issue(ci):
             slot = ci % S
+            t = obs_trace.detail_start()
             src = host(ci)
             with torch.cuda.stream(copy):
                 copy.wait_event(self._free[slot])
@@ -2086,6 +2097,7 @@ class DistributedEngine:
                 self._note_staged(ci, src, copy)
                 if ev is not None:
                     ev[3 * (base + ci) + 1].record(copy)
+            obs_trace.detail_end("fetch", t, ci)
 
         copy.wait_stream(compute)
         for ci in range(min(S - 1, n)):
@@ -2200,7 +2212,10 @@ class DistributedEngine:
             close = getattr(chunks, "close", None)
             if close is not None:
                 close()
-        return (y + self._diag.to(dt)[:, :, None] * x).reshape(xh.shape)
+        t = obs_trace.detail_start()
+        y = (y + self._diag.to(dt)[:, :, None] * x).reshape(xh.shape)
+        obs_trace.detail_end("diag_add", t)
+        return y
 
     def _decode_send(self, send: torch.Tensor, views, s: int, ci: int,
                      x_c: torch.Tensor):
@@ -2764,7 +2779,9 @@ class DistributedEngine:
             idx = self._apply_idx
             self._apply_idx += 1
             with obs_trace.span("apply", kind="apply", engine="distributed",
-                                mode=self.mode, apply=idx), \
+                                mode=self.mode, apply=idx,
+                                columns=int(xh.shape[2]) if xh.dim() == 3
+                                else 1), \
                     obs_profile.sample_window("distributed", idx,
                                               mode=self.mode):
                 return self._matvec_observed(xh, check, idx)
@@ -2787,8 +2804,8 @@ class DistributedEngine:
         self._timeline = [] if (phases and streamed) else None
         t0 = time.perf_counter()
         try:
-            with self.timer.scope("matvec"):
-                y = self._matvec_body(xh, check)
+            y = self._matvec_body(xh, check)
+            t = obs_trace.detail_start()
             self._health(xh, y, idx)
             if phases and self.device.type == "cuda":
                 # the apply's one synchronization: the wall covers its
@@ -2806,6 +2823,7 @@ class DistributedEngine:
         if phases:
             self._emit_phases(idx, dt_ms, cols, timeline)
         histogram("matvec_apply_ms", engine="distributed").observe(dt_ms)
+        obs_trace.detail_end("obs", t)
         return y
 
     def _health(self, xh: torch.Tensor, y: torch.Tensor, idx: int) -> None:

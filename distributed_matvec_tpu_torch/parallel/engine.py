@@ -336,7 +336,7 @@ class LocalEngine:
         self.ell_split = None
         #: True when the ELL tables came from the two-pass build
         self.low_memory_build = False
-        #: the construction's and the applies' timing tree
+        #: the construction's timing tree
         self.timer = TreeTimer("LocalEngine")
         t_init = time.perf_counter()
         # pre-build watermark: the delta against the post-init sample is
@@ -720,13 +720,16 @@ class LocalEngine:
         axis of ``x`` is its last: ``[N]`` or a batch ``[k, N]``."""
         n = self.n_states
         T0 = self.ell_split[0]
+        t = obs_trace.detail_start()
         y = ell_terms(self._diag[:n].to(self._dtype) * x, x,
                       self._ell_idx[:T0, :n], self._ell_coeff[:T0, :n])
+        t = obs_trace.detail_end("terms", t, T0)
         if self._ell_tail is not None:
             rows, idx_t, cf_t = self._ell_tail
             acc = ell_terms(self._zeros(x.shape[:-1] + rows.shape,
                                         self._dtype), x, idx_t, cf_t)
             y[..., rows.long()] += acc
+            obs_trace.detail_end("tail", t)
         return y
 
     def _apply_compact(self, x: torch.Tensor) -> torch.Tensor:
@@ -795,7 +798,8 @@ class LocalEngine:
         idx = self._apply_idx
         self._apply_idx += 1
         with obs_trace.span("apply", kind="apply", engine="local",
-                            mode=self.mode, apply=idx), \
+                            mode=self.mode, apply=idx,
+                            columns=int(x.shape[1]) if x.ndim == 2 else 1), \
                 obs_profile.sample_window("local", idx, mode=self.mode):
             return self._matvec_inner(x, check, idx)
 
@@ -803,8 +807,8 @@ class LocalEngine:
                       idx: int) -> torch.Tensor:
         phases = obs_phases.phases_enabled()
         t0 = time.perf_counter()
-        with self.timer.scope("matvec"):
-            y = self._matvec_body(x, check)
+        y = self._matvec_body(x, check)
+        t = obs_trace.detail_start()
         # health: fold in the probes earlier applies queued (their copies
         # have landed; nothing waits), then queue this apply's
         obs_health.drain()
@@ -827,6 +831,7 @@ class LocalEngine:
                 chunks=self.num_chunks if self.mode == "fused" else 1,
                 columns=k)
         histogram("matvec_apply_ms", engine="local").observe(dt_ms)
+        obs_trace.detail_end("obs", t)
         return y
 
     def _matvec_body(self, x: torch.Tensor, check: Optional[bool]

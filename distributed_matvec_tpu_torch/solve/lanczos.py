@@ -863,14 +863,17 @@ def _store_step(V, alph, bet, m, a, w, red=None) -> torch.Tensor:
 def _run_steps(mv, V, alph, bet, m0: int, nsteps: int, red=None) -> None:
     """Advance the recurrence by ``nsteps`` iterations in place, with two
     full Gram-Schmidt passes per step: V[m+1], α[m], β[m] for
-    m = m0 .. m0+nsteps−1.  No host sync."""
+    m = m0 .. m0+nsteps−1.  No host sync.  Each step's work past its apply
+    is an ``algebra`` detail span (``obs/trace.py``)."""
     for m in range(m0, m0 + nsteps):
         vm = V[m]
         w = mv(vm)
+        t = obs_trace.detail_start()
         a = _re_dot(vm, w, red)
         for _ in range(2):
             w = _mgs_pass(w, V, m, red)
         _store_step(V, alph, bet, m, a, w, red)
+        obs_trace.detail_end("algebra", t, m)
 
 
 def _run_window(mv, V, alph, bet, m0: int, nsteps: int, red=None) -> None:
@@ -888,10 +891,12 @@ def _run_window(mv, V, alph, bet, m0: int, nsteps: int, red=None) -> None:
     for m in range(m0, m0 + nsteps):
         vm = W[-1]
         w = mv(vm)
+        t = obs_trace.detail_start()
         a = _re_dot(vm, w, red)
         w = _project(w, W, red)
         vnew = _store_step(V, alph, bet, m, a, w, red)
         W = torch.cat([W[1:], vnew[None]])
+        obs_trace.detail_end("algebra", t, m)
 
 
 @solve_span("lanczos")
@@ -1127,68 +1132,75 @@ def lanczos(
                 _run_steps(mv, V, alph_d, bet_d, m, nsteps, red)
             used_full = True
         full_sweeps += used_full
-        alph = alph_d.cpu().numpy()
-        bet = bet_d.cpu().numpy()
-        m += nsteps
-        total_iters += nsteps
+        # the check detail span: one convergence-check block — the host
+        # copies of α/β, the Ritz values and residuals, the watchdog, the
+        # checkpoint and the preemption agreement
+        t_check = obs_trace.detail_start()
+        try:
+            alph = alph_d.cpu().numpy()
+            bet = bet_d.cpu().numpy()
+            m += nsteps
+            total_iters += nsteps
 
-        # breakdown: a ~zero β means the Krylov space closed at that step;
-        # discard the garbage steps after it
-        lo = len(lock_theta)
-        broke = None
-        for i in range(max(lo, m - nsteps), m):
-            if bet[i] < 1e-14:
-                broke = i
+            # breakdown: a ~zero β means the Krylov space closed at that step;
+            # discard the garbage steps after it
+            lo = len(lock_theta)
+            broke = None
+            for i in range(max(lo, m - nsteps), m):
+                if bet[i] < 1e-14:
+                    broke = i
+                    break
+            if broke is not None:
+                m = broke + 1
+            if selective and used_full:
+                # every new vector is orthogonal to the whole live basis: the
+                # ω table restarts at roundoff
+                omega_tr.reset(m)
+
+            kk = min(k, m)
+            T = _projected_matrix(alph, bet, lock_theta, lock_sigma, m)
+            theta, S = eigh(T, subset_by_index=(0, kk - 1))
+            res = np.abs(bet[m - 1] * S[m - 1, :])
+            omega = obs_health.omega_estimate(alph, bet, max(lo, m - nsteps),
+                                              m) \
+                if obs_health.probes_enabled() else None
+            if m >= k and np.all(res < tol * np.maximum(1.0, np.abs(theta))):
+                converged = True
                 break
-        if broke is not None:
-            m = broke + 1
-        if selective and used_full:
-            # every new vector is orthogonal to the whole live basis: the
-            # ω table restarts at roundoff
-            omega_tr.reset(m)
-
-        kk = min(k, m)
-        T = _projected_matrix(alph, bet, lock_theta, lock_sigma, m)
-        theta, S = eigh(T, subset_by_index=(0, kk - 1))
-        res = np.abs(bet[m - 1] * S[m - 1, :])
-        omega = obs_health.omega_estimate(alph, bet, max(lo, m - nsteps),
-                                          m) \
-            if obs_health.probes_enabled() else None
-        if m >= k and np.all(res < tol * np.maximum(1.0, np.abs(theta))):
-            converged = True
-            break
-        watchdog.report_omega(omega, total_iters)
-        if broke is not None:
-            # the Krylov space closed without meeting the tolerance
-            watchdog.breakdown(total_iters, float(bet[broke]),
-                               converged=False)
-            break
-        watchdog.check_stagnation(res, total_iters)
-        blocks_done += 1
-        # chaos site at the block boundary (inert unless DMT_FAULT arms
-        # it; delay= stretches a solve so a kill lands mid-iteration)
-        faults.check("solver_block", exc=RuntimeError, solver="lanczos",
-                     iter=int(total_iters))
-        # safe point: the recurrence state is host-consistent and no
-        # collective is in flight; ranks agree on the latch first, so
-        # every rank checkpoints the same generation and exits together
-        cadence_due = bool(checkpoint_path) \
-            and blocks_done % max(checkpoint_every, 1) == 0
-        preempted = preempt.agreed(ranks.group if ranks is not None
-                                   else None)
-        if cadence_due or (preempted and checkpoint_path):
-            _soft_save_ckpt(
-                checkpoint_path, ckpt_fp, owner,
-                V[: m + 1].reshape((m + 1,) + tuple(shape)), {
-                    "alph": alph_d.cpu().numpy(),
-                    "bet": bet_d.cpu().numpy(),
-                    "lock_theta": np.asarray(lock_theta),
-                    "lock_sigma": np.asarray(lock_sigma),
-                    "m": int(m), "total_iters": int(total_iters)},
-                m, sharded_ckpt,
-                reason="cadence" if cadence_due else "preempt")
-        if preempted:
-            preempt.exit_preempted("lanczos", total_iters, checkpoint_path)
+            watchdog.report_omega(omega, total_iters)
+            if broke is not None:
+                # the Krylov space closed without meeting the tolerance
+                watchdog.breakdown(total_iters, float(bet[broke]),
+                                   converged=False)
+                break
+            watchdog.check_stagnation(res, total_iters)
+            blocks_done += 1
+            # chaos site at the block boundary (inert unless DMT_FAULT arms
+            # it; delay= stretches a solve so a kill lands mid-iteration)
+            faults.check("solver_block", exc=RuntimeError, solver="lanczos",
+                         iter=int(total_iters))
+            # safe point: the recurrence state is host-consistent and no
+            # collective is in flight; ranks agree on the latch first, so
+            # every rank checkpoints the same generation and exits together
+            cadence_due = bool(checkpoint_path) \
+                and blocks_done % max(checkpoint_every, 1) == 0
+            preempted = preempt.agreed(ranks.group if ranks is not None
+                                       else None)
+            if cadence_due or (preempted and checkpoint_path):
+                _soft_save_ckpt(
+                    checkpoint_path, ckpt_fp, owner,
+                    V[: m + 1].reshape((m + 1,) + tuple(shape)), {
+                        "alph": alph_d.cpu().numpy(),
+                        "bet": bet_d.cpu().numpy(),
+                        "lock_theta": np.asarray(lock_theta),
+                        "lock_sigma": np.asarray(lock_sigma),
+                        "m": int(m), "total_iters": int(total_iters)},
+                    m, sharded_ckpt,
+                    reason="cadence" if cadence_due else "preempt")
+            if preempted:
+                preempt.exit_preempted("lanczos", total_iters, checkpoint_path)
+        finally:
+            obs_trace.detail_end("check", t_check, total_iters)
 
     kk = min(k, m)
     evecs = None

@@ -88,15 +88,26 @@ class TreeTimer:
                                  for k, c in node.children.items()}}
         return walk(self.root)
 
-    def scope_total(self, *path: str) -> float:
-        """Sum of one scope's total seconds at ``path`` under the root
-        (0.0 when the scope never ran)."""
+    def _node(self, path) -> Optional[_Node]:
         node = self.root
         for name in path:
             node = node.children.get(name)
             if node is None:
-                return 0.0
-        return node.total
+                return None
+        return node
+
+    def last(self, *path: str) -> float:
+        """The latest run's seconds of the scope at ``path`` under the root
+        (0.0 when the scope never ran)."""
+        node = self._node(path)
+        return node.samples[-1] if node is not None and node.samples \
+            else 0.0
+
+    def scope_total(self, *path: str) -> float:
+        """Sum of one scope's total seconds at ``path`` under the root
+        (0.0 when the scope never ran)."""
+        node = self._node(path)
+        return 0.0 if node is None else node.total
 
     def emit(self, kind: str = "timer_tree", **fields) -> Optional[dict]:
         """Bridge into the telemetry event sink: record the whole timing

@@ -564,3 +564,76 @@ def test_decode_kernel_attributes(cuda):
     a = cuda_kernels.kernel_attributes(16, False)
     assert a["num_regs"] > 0 and a["max_threads_per_block"] >= 128
     assert set(a) == set(cuda_kernels.ATTRIBUTE_FIELDS)
+
+
+def test_spans_on_the_profilers_clock(cuda):
+    """A kernel launched inside a detail span, and one launched inside an
+    ``apply`` span before it, each have their launch record inside that
+    span's interval as the profiler reports it: the program's spans and the
+    profiler's records are on one clock.  Prints the margins (µs)."""
+    from torch.autograd import DeviceType
+
+    from distributed_matvec_tpu_torch import obs
+    from distributed_matvec_tpu_torch.obs import trace
+
+    obs.reset_all()
+    x = torch.ones(1 << 22, device=cuda)
+    (x * 2 + 1).sum()
+    torch.cuda.synchronize()
+    # the profiler's own start (CUPTI's) outside the measured window
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        pass
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with trace.span("apply", kind="apply") as app:
+            x + 1
+            t = trace.detail_start()
+            x * 3
+            trace.detail_end("probe", t)
+        app_t1 = trace.clock()      # the span's end lies before this
+        torch.cuda.synchronize()
+    (probe,) = [s for s in trace.detail_spans() if s["name"] == "probe"]
+    host, dev = [], []
+    for e in prof.profiler.kineto_results.events():
+        iv = (e.start_ns() * 1e-9, (e.start_ns() + e.duration_ns()) * 1e-9)
+        if e.device_type() == DeviceType.CUDA:
+            dev.append(iv)
+        elif "LaunchKernel" in e.name():
+            host.append(iv)
+    host.sort()
+    dev.sort()
+    assert len(host) == 2 and len(dev) == 2
+    (a0, a1), (b0, b1) = host
+    print("clock margins us: apply.t0→launch", (a0 - app.t0) * 1e6,
+          "launch→probe.t0", (probe["t0"] - a1) * 1e6,
+          "probe.t0→launch", (b0 - probe["t0"]) * 1e6,
+          "launch→probe.t1", (probe["t1"] - b1) * 1e6,
+          "launch→kernel", [(d[0] - h[0]) * 1e6 for d, h in zip(dev, host)])
+    assert app.t0 <= a0 <= a1 <= probe["t0"]
+    assert probe["t0"] <= b0 <= b1 <= probe["t1"] <= app_t1
+    # the offset δ (profiler clock − span clock), bracketed by many cheap
+    # runtime calls each read between two span-clock readings (a, b):
+    # its record [r0, r1] gives r1 − b ≤ δ ≤ r0 − a (each read matched to
+    # the record that starts nearest it: the window adds records of its own)
+    stream = torch.cuda.current_stream(cuda)
+    reads = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            a = trace.clock()
+            stream.synchronize()
+            reads.append((a, trace.clock()))
+    recs = [(e.start_ns() * 1e-9, (e.start_ns() + e.duration_ns()) * 1e-9)
+            for e in prof.profiler.kineto_results.events()
+            if e.name() == "cudaStreamSynchronize"]
+    assert len(recs) >= len(reads)
+    pairs = [(min(recs, key=lambda r: abs(r[0] - a)), (a, b))
+             for a, b in reads]
+    assert len({r for r, _ in pairs}) == len(reads)
+    lo = max(r1 - b for (_, r1), (_, b) in pairs)
+    hi = min(r0 - a for (r0, _), (a, _) in pairs)
+    print(f"clock offset us: {lo * 1e6:.3f} <= profiler - spans <= "
+          f"{hi * 1e6:.3f}")
+    assert lo <= hi and lo <= 1e-4 and hi >= -1e-4
+    obs.reset_all()

@@ -239,17 +239,6 @@ def test_obs_off_is_inert(monkeypatch, tmp_path):
     assert not (tmp_path / "run").exists()
 
 
-def test_annotate_is_a_profiler_range(clean):
-    import torch
-
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]) as prof:
-        with tobs.annotate("serve_batch_range"):
-            torch.ones(4).sum()
-    names = {e.name for e in prof.events()}
-    assert "serve_batch_range" in names
-
-
 # -- exporter, crash bundles, the preemption hook --------------------------------
 
 def test_http_scrape_and_textfile(clean, monkeypatch, tmp_path):

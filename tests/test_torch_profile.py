@@ -233,6 +233,12 @@ def test_sampled_cadence_traces_and_kernel_costs(clean, case, tmp_path):
         assert (d / "trace.json").exists()
         assert json.loads((d / "PROFILE_META.json").read_text())[
             "capture"] == "sampled"
+        # the window's detail spans beside its trace, under its apply
+        spans = json.loads((d / "spans.json").read_text())
+        names = [sp["name"] for sp in spans]
+        assert names.count("produce") == names.count("consume") \
+            == eng.nchunks and "diag_add" in names
+        assert len({sp["parent_span_id"] for sp in spans}) == 1
     kc = obs.events("kernel_cost")
     assert len(kc) == 3
     assert kc[0]["program"] == "distributed_streamed_apply"

@@ -11,10 +11,12 @@ ell ``LocalEngine`` with ``DMT_PHASES=off``, then prints one JSON line:
   with the layer on (the default) and with ``DMT_OBS=off``, in two
   alternating blocks each;
 * ``pieces_us``: the mean host µs of one call of each piece the observed
-  apply runs (the ``apply`` span, the profile window, the timer scope,
-  the health drain and cadence, one health probe, the watermark cadence
-  and one watermark — on the card also its ``torch.cuda.memory_stats`` and
-  ``mem_get_info`` apart —, the ``matvec_apply`` event, the histogram);
+  apply runs (the ``apply`` span, the profile window, the health drain
+  and cadence, one health probe, the watermark cadence and one watermark —
+  on the card also its ``torch.cuda.memory_stats`` and ``mem_get_info``
+  apart —, the ``matvec_apply`` event, the histogram), and of one detail
+  span site (``obs/trace.py``) with no profiler window open and inside
+  one (``detail_span_off``, ``detail_span_on``);
 * ``profile``: the 15 functions with the most own time over
   ``--applies`` observed applies under ``cProfile``, as
   ``[function, calls, ms]``.
@@ -117,9 +119,9 @@ def main(argv=None) -> int:
         with profile.sample_window("local", 7, mode="ell"):
             pass
 
-    def scope():
-        with eng.timer.scope("matvec"):
-            pass
+    def detail():
+        t = trace.detail_start()
+        trace.detail_end("fetch", t, 7)
 
     def probe():
         health.probe_apply("local", y, 7)
@@ -129,7 +131,7 @@ def main(argv=None) -> int:
     pieces = {
         "apply_span": per_call(span),
         "profile_window": per_call(window),
-        "timer_scope": per_call(scope),
+        "detail_span_off": per_call(detail),
         "health_drain": per_call(health.drain),
         "health_probe_due": per_call(lambda: health.probe_due(7)),
         "health_probe_and_drain": per_call(probe, 200),
@@ -142,6 +144,11 @@ def main(argv=None) -> int:
         "histogram": per_call(lambda: histogram(
             "matvec_apply_ms", engine="local").observe(1.0)),
     }
+    # a site records under an open span while a window records
+    with trace.span("apply", kind="apply"), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA if cuda
+                        else torch.profiler.ProfilerActivity.CPU]):
+        pieces["detail_span_on"] = per_call(detail)
     if cuda:
         # the watermark's two device reads, apart
         pieces["cuda_memory_stats"] = per_call(
