@@ -37,11 +37,19 @@ Phases, one JSON line each with its seconds:
    breakdown of one streamed apply by device kernel, in which nothing may
    fill a send buffer once per chunk.
 6. ``local_full``: the same chain_32_symm operator (enumerated once, by
-   the full leg) through ``LocalEngine``, the default single-device path,
-   in plain PyTorch: the one-pass ``ell`` build (seconds, T0/S/Tmax,
+   the full leg) through ``LocalEngine``, the default single-device path:
+   the one-pass ``ell`` build (seconds, T0/S/Tmax,
    table bytes, peak memory beside the 1.6× reckoning), its apply against
    the streamed engine's (atol 1e-13 / rtol 1e-12), 7 applies timed (host
-   wall and device time) and one profiled, Lanczos (E0 within 1e-8
+   wall and device time) and one profiled; the ELL apply kernel
+   (``csrc/ell_apply.cu``) at R = 1 and R = 4 (``ell_kernel``: µs per
+   apply by CUDA events, the byte bound ``16·N·R + 12·nnz`` at
+   3.35 TB/s, the plain version's µs state-major and, at R = 4, columns
+   first as the engine ran before the kernel, the library's CSR product
+   ``csr @ x`` over the same tables, and the kernel ``torch.equal`` to
+   the plain version); the kernel's launches counted from 0 over the
+   leg's applies and Lanczos, one apply's launches (1, or 2 with a tail)
+   and every Lanczos apply's held to it; Lanczos (E0 within 1e-8
    relative of the recorded value and 1e-10 of the full leg's); the
    low-memory build forced by a small budget, ``torch.equal`` to the
    one-pass tables; ``compact`` mode built, timed and solved to the same
@@ -353,7 +361,13 @@ included), under the service, in the resilience leg, in the two apps'
 solve functions, on the autotuned engines and on the shard-native
 engine;
 largest error against the plain version, time per launch beside its bound
-and the plain version's time, at one shard and at four), the card's name
+and the plain version's time, at one shard and at four; then the ELL
+apply kernel: its launches counted from 0 on ``local_full``'s engine
+(D = 1) and on the sharded leg's ell engine (D = 4), each leg's launches
+per apply as measured over one apply, its largest difference from the
+plain version, and ``local_full``'s times at R = 1 and R = 4 beside
+their byte bounds, the plain version's and the library's CSR product's),
+the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 device; without one it exits with code 2 and prints no result.
@@ -528,7 +542,7 @@ def per_entry_launch(spec, edest, ecodes, cdict, x_c, out) -> None:
         torch.cuda.current_stream(out.device).cuda_stream)
     if rc:
         raise RuntimeError(f"per-entry decode launch failed: "
-                           f"{cuda_kernels.error_string(rc)}")
+                           f"{cuda_kernels.error_string(lib, rc)}")
 
 
 #: kernel_check's synthetic chunks: (B, n_recv, n_live, n_real, code_bits,
@@ -1058,6 +1072,7 @@ def local_full_phase(device, streamed, e0_full):
     import torch
 
     from distributed_matvec_tpu_torch import LocalEngine, lanczos
+    from distributed_matvec_tpu_torch.ops import ell_apply as EA
 
     op = streamed.operator
     n = op.basis.number_states
@@ -1071,14 +1086,32 @@ def local_full_phase(device, streamed, e0_full):
         raise AssertionError("chain_32_symm took the low-memory build")
     ell["full_width_bytes"] = eng.n_padded * T * 12
     ell["reckoned_peak_bytes"] = 1.6 * ell["full_width_bytes"]
+    EA.ell_apply.launches = 0
     y = eng.matvec(x)
+    per_apply = EA.ell_apply.launches
+    if per_apply != 1 + (eng._ell_tail is not None):
+        raise AssertionError(f"{per_apply} ell_apply launches in one apply "
+                             f"(tail: {eng._ell_tail is not None})")
     ell["vs_streamed_max_abs_err"] = assert_close(y, y_streamed,
                                                   "ell vs streamed apply")
     ell.update(apply_times(device, eng, x))
     ell["profile"] = profile_apply(lambda: eng.matvec(x))
+    ell["ell_kernel"] = ell_kernel_times(device, eng)
+    before, calls = EA.ell_apply.launches, [0]
+
+    def matvec(v):
+        calls[0] += 1
+        return eng.matvec(v)
+
     t0 = time.perf_counter()
-    res = lanczos(eng.matvec, n, k=1, tol=1e-10, device=device)
+    res = lanczos(matvec, n, k=1, tol=1e-10, device=device)
     _sync(device)
+    if EA.ell_apply.launches - before != per_apply * calls[0]:
+        raise AssertionError(
+            f"{EA.ell_apply.launches - before} ell_apply launches in "
+            f"{calls[0]} Lanczos applies of {per_apply}")
+    ell["kernel_launches"] = {"launches": EA.ell_apply.launches,
+                              "launches_per_apply": per_apply}
     e0 = float(res.eigenvalues[0])
     ell.update(lanczos_s=time.perf_counter() - t0,
                lanczos_iters=int(res.num_iters), e0=e0,
@@ -1133,6 +1166,147 @@ def local_full_phase(device, streamed, e0_full):
     fused_info.update(apply_times(device, fused, x, applies=1))
     return {"n_states": n, "ell": ell, "lowmem": lowmem, "compact": compact,
             "fused": fused_info, "plain_work": work}, eng
+
+
+def ell_columns_first(x, diag, idx, coeff, tail):
+    """The ``ell`` apply as the engine ran it before the kernel: ``x``
+    ``[n, R]`` transposed to ``[R, n]``, per term a gather along the state
+    axis, a multiply and an add, the tail's rows alike, and ``y``
+    transposed back.  For timing beside the kernel."""
+    import torch
+
+    xc = x.T.contiguous()
+    y = diag.to(x.dtype) * xc[..., :idx.shape[1]]
+    for t in range(idx.shape[0]):
+        y += coeff[t] * torch.index_select(xc, -1, idx[t])
+    if tail is not None:
+        rows, t_idx, t_cf = tail
+        acc = torch.zeros(xc.shape[:-1] + rows.shape, dtype=x.dtype,
+                          device=x.device)
+        for t in range(t_idx.shape[0]):
+            acc += t_cf[t] * torch.index_select(xc, -1, t_idx[t])
+        y[..., rows.long()] += acc
+    return y.T.contiguous()
+
+
+def ell_csr(eng):
+    """``eng``'s operator as one CSR matrix built from its ``ell`` tables
+    (the diagonal, the T0 terms and the tail, zero coefficients left out),
+    for the library's sparse product beside the kernel."""
+    import torch
+
+    n, T0 = eng.n_states, eng.ell_split[0]
+    dev = eng._ell_idx.device
+    states = torch.arange(n, device=dev)
+    parts = [(states, states, eng._diag[:n].to(eng._ell_coeff.dtype))]
+    cf = eng._ell_coeff[:T0, :n]
+    keep = cf != 0
+    parts.append((states.expand(T0, n)[keep], eng._ell_idx[:T0, :n][keep],
+                  cf[keep]))
+    if eng._ell_tail is not None:
+        rows, t_idx, t_cf = eng._ell_tail
+        keep = t_cf != 0
+        parts.append((rows.long().expand(t_idx.shape)[keep], t_idx[keep],
+                      t_cf[keep]))
+    ij = torch.stack([torch.cat([p[0].long() for p in parts]),
+                      torch.cat([p[1].long() for p in parts])])
+    vals = torch.cat([p[2] for p in parts])
+    del parts, keep
+    return torch.sparse_coo_tensor(ij, vals, (n, n)).coalesce(
+    ).to_sparse_csr()
+
+
+def ell_kernel_times(device, eng):
+    """The ELL apply kernel (``ops/ell_apply.py``) on ``eng``'s tables at
+    R = 1 and R = 4: µs per apply (its launches) by CUDA events, the byte
+    bound of ``Y = H·X`` as the benchmark's yardstick counts it
+    (``16·N·R + 12·nnz`` at 3.35 TB/s), the plain version's µs in the
+    state-major layout the kernel takes, the columns-first plain apply's
+    µs at R = 4 (the engine's apply before the kernel; at R = 1 the two
+    layouts are one), and the library's sparse product (``csr @ x``, a CSR
+    matrix of the same tables) with its largest difference from the
+    kernel.  The kernel must equal the state-major plain version bit for
+    bit; ``max_abs_err`` is its largest difference from both plain
+    versions.  These launches are left out of ``ell_apply.launches``."""
+    import numpy as np
+    import torch
+
+    from distributed_matvec_tpu_torch.ops import ell_apply as EA
+
+    n, T0 = eng.n_states, eng.ell_split[0]
+    tail = eng._ell_tail
+    nnz = int(torch.count_nonzero(eng._ell_coeff[:T0, :n]))
+    if tail is not None:
+        nnz += int(torch.count_nonzero(tail[2]))
+    out = {"nnz": nnz, "max_abs_err": 0.0}
+    counted = EA.ell_apply.launches
+    csr = ell_csr(eng)
+    rng = np.random.default_rng(13)
+    for R in (1, 4):
+        x = torch.from_numpy(rng.standard_normal(
+            (n, R) if R > 1 else n)).to(device)
+        args = (x, eng._diag[:n], eng._ell_idx[:T0, :n],
+                eng._ell_coeff[:T0, :n], tail)
+        y, plain = EA.ell_apply(*args), EA.ell_apply_plain(*args)
+        if not torch.equal(y, plain):
+            raise AssertionError(f"ell_apply kernel != plain at R = {R}")
+        cols = ell_columns_first(*args) if R > 1 else plain
+        out["max_abs_err"] = max(
+            out["max_abs_err"], float((y - plain).abs().max()),
+            float((y - cols).abs().max()))
+        bound_us = (16 * n * R + 12 * nnz) / HBM_BYTES_PER_S * 1e6
+        us = device_ms(device, lambda: EA.ell_apply(*args), reps=15) * 1e3
+        r = {"us": us,
+             "plain_us": device_ms(device, lambda: EA.ell_apply_plain(*args),
+                                   reps=3) * 1e3,
+             "library_us": device_ms(device, lambda: csr @ x, reps=15) * 1e3,
+             "library_max_abs_err": assert_close(
+                 csr @ x, y, f"CSR product vs ell_apply at R = {R}"),
+             "bound_us": bound_us, "bound_by": "bytes",
+             "share_of_bound": bound_us / us}
+        if R > 1:
+            r["columns_first_plain_us"] = device_ms(
+                device, lambda: ell_columns_first(*args), reps=3) * 1e3
+        out[f"r{R}"] = r
+        del x, args, y, plain, cols
+    del csr
+    EA.ell_apply.launches = counted
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ell_kernel_line(k, launches_d1, launches_d4):
+    """The ELL apply kernel's entry of the kernels line: ``local_full``'s
+    ``ell_kernel`` timings (chain_32_symm, D = 1) and the launches counted
+    from 0 on the main path's ell engines (``local_full``'s applies and
+    Lanczos at D = 1, the sharded leg's ell engine at D = 4), each with
+    its launches per apply as measured over one apply."""
+    return {
+        "name": "ell_apply",
+        "route": "cuda",
+        "source": "distributed_matvec_tpu_torch/csrc/ell_apply.cu",
+        # the JAX ELL apply is XLA gathers: no Pallas kernel to replace
+        "replaces": None,
+        "launches": launches_d1["launches"] + launches_d4["launches"],
+        "launches_d1": launches_d1["launches"],
+        "launches_per_apply_d1": launches_d1["launches_per_apply"],
+        "launches_d4": launches_d4["launches"],
+        "launches_per_apply_d4": launches_d4["launches_per_apply"],
+        # against the plain version, state-major and columns-first
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["r1"]["us"] / 1e3, "plain_ms": k["r1"]["plain_us"] / 1e3,
+        "bound_ms": k["r1"]["bound_us"] / 1e3, "bound_by": "bytes",
+        # cuSPARSE through torch: csr @ x over the same tables
+        "library_ms": k["r1"]["library_us"] / 1e3,
+        "ms_r4": k["r4"]["us"] / 1e3,
+        # the engine's apply before the kernel (columns first), and the
+        # plain version in the kernel's state-major layout
+        "plain_ms_r4": k["r4"]["columns_first_plain_us"] / 1e3,
+        "plain_state_major_ms_r4": k["r4"]["plain_us"] / 1e3,
+        "bound_ms_r4": k["r4"]["bound_us"] / 1e3,
+        "library_ms_r4": k["r4"]["library_us"] / 1e3,
+    }
 
 
 def solve_timed(device, eng, fn):
@@ -2224,6 +2398,7 @@ def sharded_phase(device, op, ell_ref, D=SHARDS, B=SHARDED_BATCH,
     import torch
 
     from distributed_matvec_tpu_torch import DistributedEngine
+    from distributed_matvec_tpu_torch.ops import ell_apply as EA
     from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
     n = op.basis.number_states
@@ -2263,6 +2438,8 @@ def sharded_phase(device, op, ell_ref, D=SHARDS, B=SHARDED_BATCH,
         if mode == "streamed":
             PC.fused_decode_gather_scatter.launches = 0
             eng.n_applies = 0
+        if mode == "ell":
+            EA.ell_apply.launches = 0
         t0 = time.perf_counter()
         y = torch.from_numpy(eng.matvec_global(x_np)).to(device)
         _sync(device)
@@ -2277,11 +2454,21 @@ def sharded_phase(device, op, ell_ref, D=SHARDS, B=SHARDED_BATCH,
         if mode in ("streamed", "ell") and device.type == "cuda":
             info["profile"] = profile_apply(lambda: eng.matvec(xh))
         if mode == "ell":
+            before = EA.ell_apply.launches
+            eng.matvec(xh)
+            per_apply = EA.ell_apply.launches - before
+            live = sum(1 for s in (eng._ell_tail_live or []) if s)
+            if per_apply != eng.n_devices + live:
+                raise AssertionError(
+                    f"{per_apply} ell_apply launches in one D = {D} apply "
+                    f"({live} shards with a tail)")
             # the Lanczos solves here are cut (time limit): the applies are
             # held to the LocalEngine ell apply above, whose E0 is the
             # full leg's; the saved routing plan restores with no build
             info["cache"] = structure_roundtrip(device, eng,
                                                 lambda: make(mode), y)
+            kernel["ell_launches"] = {"launches": EA.ell_apply.launches,
+                                      "launches_per_apply": per_apply}
         if mode == "streamed":
             launches = PC.fused_decode_gather_scatter.launches
             per_apply = D * eng.nchunks
@@ -4494,8 +4681,8 @@ def main() -> int:
     run_phase("local_small", local_small_phase, device)
     full, eng, launches, chunk_err = run_phase("full", full_phase, device)
     split = run_phase("split", split_phase, device, eng)
-    _, ell = run_phase("local_full", local_full_phase, device, eng,
-                       full["e0"])
+    local_full, ell = run_phase("local_full", local_full_phase, device, eng,
+                                full["e0"])
     solvers, solver_launches = run_phase("solvers", solvers_phase, device,
                                          eng, ell, full["e0"])
     _, resil_launches = run_phase("resilience", resilience_phase, device,
@@ -4581,7 +4768,9 @@ def main() -> int:
         "ms_d4": sharded["ms"], "plain_ms_d4": sharded["plain_ms"],
         "bound_ms_d4": sharded["bound_ms"],
         "bound_by_d4": sharded["bound_by"],
-    }]})
+    }, ell_kernel_line(local_full["ell"]["ell_kernel"],
+                       local_full["ell"]["kernel_launches"],
+                       sharded["ell_launches"])]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -14,8 +14,9 @@ reads what one apply actually ran, from a ``torch.profiler`` window
 * :func:`classify_kernel` buckets each into the phase taxonomy
   (``plan_h2d`` / ``compute`` / ``exchange`` / ``accumulate`` /
   ``overhead``), keyed on kernel-name substrings (:data:`KERNEL_PHASES`,
-  first match wins): the decode kernel is ``compute``, ``index_add_``'s
-  kernels ``accumulate``, host-to-device copies ``plan_h2d``, NCCL
+  first match wins): the decode kernel and the ELL apply kernels are
+  ``compute``, ``index_add_``'s kernels ``accumulate``, host-to-device
+  copies ``plan_h2d``, NCCL
   kernels and device-to-host copies (the staged gloo exchange)
   ``exchange``; a name no entry matches is ``overhead``;
 * :func:`build_profile` assembles a profile artifact — rows merged by
@@ -74,6 +75,8 @@ KERNEL_PHASES: Tuple[Tuple[str, str], ...] = (
     ("memcpy ptop", "exchange"),
     ("memcpy htod", "plan_h2d"),
     ("fused_decode", "compute"),
+    ("ell_terms_kernel", "compute"),
+    ("ell_tail_kernel", "compute"),
     ("indexfunc", "accumulate"),
     ("index_add", "accumulate"),
     ("indexing_backward", "accumulate"),

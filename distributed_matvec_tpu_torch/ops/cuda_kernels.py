@@ -2,9 +2,10 @@
 
 Each source is compiled at first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, in ``build/dmt_torch_kernels/``
-at the checkout root, and loaded with ``ctypes``.  All sources build at
-once, one ``nvcc`` process each, started together.  A library newer than
-its source is reused.  Pointers and the CUDA stream are passed as
+at the checkout root, and loaded with ``ctypes``: :func:`library` builds
+the one it is asked for, :func:`build_all` every source at once, one
+``nvcc`` process each, started together.  A library newer than its source
+is reused.  Pointers and the CUDA stream are passed as
 ``c_void_p``; each entry point returns the ``cudaError_t`` of its launch.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -29,7 +30,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 
 #: kernel library name → source file under csrc/
-SOURCES = {"fused_decode": "fused_decode.cu"}
+SOURCES = {"fused_decode": "fused_decode.cu", "ell_apply": "ell_apply.cu"}
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -53,6 +54,15 @@ _SIGNATURES = {
         "dmt_fused_decode_attributes": (_int, [_int, _int, _vp]),
         "dmt_cuda_error_string": (ctypes.c_char_p, [_int]),
     },
+    "ell_apply": {
+        "dmt_ell_apply": (
+            _int, [_int, _i64, _int, _int, _vp, _i64, _vp, _i64, _vp, _vp,
+                   _vp, _vp]),
+        "dmt_ell_tail": (
+            _int, [_int, _i64, _int, _int, _vp, _vp, _i64, _vp, _i64, _vp,
+                   _vp, _vp]),
+        "dmt_cuda_error_string": (ctypes.c_char_p, [_int]),
+    },
 }
 
 _lock = threading.Lock()
@@ -74,13 +84,15 @@ def _paths(name: str):
             os.path.join(out, f"{name}.log"))
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every stale kernel library, one ``nvcc`` per source, all in
-    parallel.  Returns ``{name: library path}``; raises with the compiler's
-    output if any build fails.  ``nvcc``'s ``-Xptxas -v`` report (registers,
-    shared memory, spills) is kept in ``<name>.log`` beside the library."""
+def build_all(names=None) -> Dict[str, str]:
+    """Compile every stale kernel library (of ``names``; all by default),
+    one ``nvcc`` per source, all in parallel.  Returns ``{name: library
+    path}``; raises with the compiler's output if any build fails.
+    ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is
+    kept in ``<name>.log`` beside the library."""
+    names = list(SOURCES if names is None else names)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         src, so, log = _paths(name)
         if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
                 src):
@@ -98,7 +110,7 @@ def build_all() -> Dict[str, str]:
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
-    return {name: _paths(name)[1] for name in SOURCES}
+    return {name: _paths(name)[1] for name in names}
 
 
 def build_log(name: str) -> str:
@@ -111,26 +123,22 @@ def build_log(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, building the kernels first if
-    needed."""
+    """The loaded kernel library ``name``, building it first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            for n, path in build_all().items():
-                if n in _libs:
-                    continue
-                cdll = ctypes.CDLL(path)
-                for fn, (restype, argtypes) in _SIGNATURES[n].items():
-                    getattr(cdll, fn).restype = restype
-                    getattr(cdll, fn).argtypes = argtypes
-                _libs[n] = cdll
-            lib = _libs[name]
+            lib = ctypes.CDLL(build_all([name])[name])
+            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
         return lib
 
 
-def error_string(code: int) -> str:
-    """``cudaGetErrorString`` of a launch's return code."""
-    msg = library("fused_decode").dmt_cuda_error_string(int(code))
+def error_string(lib: ctypes.CDLL, code: int) -> str:
+    """``cudaGetErrorString`` of a launch's return code, through the
+    library that launched (each carries the entry point)."""
+    msg = lib.dmt_cuda_error_string(int(code))
     return f"{msg.decode() if msg else 'unknown error'} ({code})"
 
 
@@ -149,11 +157,13 @@ def kernel_attributes(code_bits: int = 16, buckets: bool = False
     import numpy as np
 
     out = np.zeros(len(ATTRIBUTE_FIELDS), dtype=np.int64)
-    code = library("fused_decode").dmt_fused_decode_attributes(
-        int(code_bits), int(bool(buckets)), out.ctypes.data)
+    lib = library("fused_decode")
+    code = lib.dmt_fused_decode_attributes(int(code_bits),
+                                           int(bool(buckets)),
+                                           out.ctypes.data)
     if code != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: "
-                           f"{error_string(code)}")
+                           f"{error_string(lib, code)}")
     return dict(zip(ATTRIBUTE_FIELDS, map(int, out)))
 
 

@@ -734,4 +734,4 @@ def _launch_fused_decode(spec: Dict, edest, ecodes, fill, cdict, x_c,
     if rc:
         raise RuntimeError(
             f"fused_decode_gather_scatter launch failed: "
-            f"{cuda_kernels.error_string(rc)}")
+            f"{cuda_kernels.error_string(lib, rc)}")

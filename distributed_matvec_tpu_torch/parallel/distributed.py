@@ -216,6 +216,7 @@ from ..ops import kernels as K
 from ..ops import plan_codec as PC
 from ..ops.bits import build_sorted_lookup, choose_dir_bits, shard_index
 from ..ops.bits import state_index_bucketed
+from ..ops.ell_apply import ell_apply
 from ..utils import faults, u64
 from ..utils.config import get_config
 from ..utils.device import resolve_device
@@ -1083,7 +1084,8 @@ class DistributedEngine:
                           int(scalars.get("Tmax", T0 + Tw)))
         if self.mode == "ell":
             self._ell_idx, self._ell_coeff = stack("idx"), stack("coeff")
-            self._ell_tail = (*tail, stack("tail_coeff")) if tail else None
+            self._set_ell_tail((*tail, stack("tail_coeff")) if tail
+                               else None)
         else:
             self._c_W = float(scalars["W"])
             self._c_idx = stack("idx")
@@ -2624,48 +2626,47 @@ class DistributedEngine:
         else:
             self._ell_coeff = torch.stack([m[0] for m in main])
             self._ell_idx = torch.stack([m[1] for m in main])
-            self._ell_tail = None
-            if S:
-                self._ell_tail = tuple(torch.stack([t[i] for t in tails])
-                                       for i in range(3))
+            self._set_ell_tail(tuple(torch.stack([t[i] for t in tails])
+                                     for i in range(3)) if S else None)
+
+    def _set_ell_tail(self, tail) -> None:
+        """Keep the ``[L, S_max]`` tail and, per shard held here, how many
+        of its rows are real: they rise strictly from its head, and the
+        padding after them (row 0, coefficient 0) is left out of the
+        apply, so the rows it adds to are unique."""
+        self._ell_tail = tail
+        self._ell_tail_live = None if tail is None else (
+            1 + torch.count_nonzero(tail[0][:, 1:], dim=1)).tolist()
 
     def _exchange_x(self, x: torch.Tensor) -> torch.Tensor:
-        """The routing plan's exchange: ``[L, M, R]`` → ``[L, R, M + D·C]``
-        (``[x; R]`` per shard held here, columns first: state axis last).
-        At D = 1 there is nothing to receive."""
+        """The routing plan's exchange: ``[L, M, R]`` → ``[L, M + D·C, R]``
+        (``[x; R]`` per shard held here, state-major).  At D = 1 there is
+        nothing to receive."""
         D, C, L = self.n_devices, self.query_capacity, len(self._shards)
         if D == 1:
-            return x.transpose(1, 2)
+            return x
         send = torch.stack([x[s][self._qin[s].long()] for s in range(L)])
         recv = self._exchange(send)                      # [L, D, C, R]
-        xx = torch.cat([x, recv.reshape(L, D * C, -1)], dim=1)
-        return xx.transpose(1, 2)
+        return torch.cat([x, recv.reshape(L, D * C, -1)], dim=1)
 
     def _apply_ell(self, x: torch.Tensor) -> torch.Tensor:
-        """Per shard: ``y = diag·x``, then term by term ``y += coeff[t]·
-        xx[idx[t]]`` over ``xx = [x; R]``, then the tail's rows
-        (``index_add_``: the pad entries add 0 to row 0).  ``x`` is
-        ``[L, M, R]`` (L the shards held here); the terms gather along the
-        state axis of ``[R, ·]`` (columns first)."""
-        from .engine import ell_terms
-
-        D, M, R = x.shape
+        """Per shard: ``y = diag·x + Σ_t coeff[t]·xx[idx[t]]`` over
+        ``xx = [x; R]``, then the tail's real rows: the kernel of
+        ``ops/ell_apply.py`` on the card.  ``x`` is ``[L, M, R]`` (L the
+        shards held here)."""
         T0 = self._ell_T0
         xx = self._exchange_x(x)
-        y = torch.empty((D, R, M), dtype=self._dtype, device=self.device)
-        for d in range(D):
-            xd = xx[d].contiguous()                          # [R, M + DC]
-            yd = ell_terms(self._diag[d].to(self._dtype) * xd[:, :M], xd,
-                           self._ell_idx[d, :T0], self._ell_coeff[d, :T0])
+        ys = []
+        for d in range(x.shape[0]):
+            tail = None
             if self._ell_tail is not None:
+                s = self._ell_tail_live[d]
                 rows, idx_t, cf_t = (a[d] for a in self._ell_tail)
-                acc = ell_terms(torch.zeros((R, rows.shape[0]),
-                                            dtype=self._dtype,
-                                            device=self.device),
-                                xd, idx_t, cf_t)
-                yd.index_add_(1, rows, acc)
-            y[d] = yd
-        return y.transpose(1, 2)
+                tail = (rows[:s], idx_t[:, :s], cf_t[:, :s])
+            ys.append(ell_apply(xx[d].contiguous(), self._diag[d],
+                                self._ell_idx[d, :T0],
+                                self._ell_coeff[d, :T0], tail))
+        return torch.stack(ys)
 
     def _apply_compact(self, x: torch.Tensor) -> torch.Tensor:
         """Per shard: sign-tagged gathers ``acc = Σ_t s·n(j)·xx(j)``, then
@@ -2674,7 +2675,7 @@ class DistributedEngine:
 
         D, M, R = x.shape
         T0, W = self._ell_T0, self._c_W
-        xx = self._exchange_x(x)
+        xx = self._exchange_x(x).transpose(1, 2)         # columns first
         y = torch.empty((D, R, M), dtype=torch.float64, device=self.device)
         for d in range(D):
             xd = xx[d].contiguous()

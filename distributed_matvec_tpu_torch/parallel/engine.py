@@ -14,7 +14,9 @@ Three modes (``mode=``):
 * ``"ell"`` (default): one pass of the operator kernels precomputes the
   sparse structure, int32 column indices and f64/c128 coefficients in a
   transposed ELL layout ``[T0, N_pad]`` plus a tail over the S rows wider
-  than T0; every apply is then a per-term gather·multiply·add.  When the
+  than T0; every apply is then one kernel launch in which each row walks
+  its T0 terms in registers, and a second over the tail's rows
+  (``ops/ell_apply.py``, ``csrc/ell_apply.cu``).  When the
   full-width ``[T, N_pad]`` tables would pass ``build_budget_gb`` the
   two-pass low-memory build packs each chunk straight into the final
   tables.
@@ -46,7 +48,9 @@ The basis comes from the artifact cache when it holds a checkpoint
 sidecar (``structure_cache=`` or the cache's default), as in the JAX
 engine; both need ``h5py``.  The split-gather table and the (re, im) pair
 form are not carried over: Hopper gathers f64 and complex128 natively.
-Everything here is plain PyTorch.
+The ``ell`` apply on the card is the hand-written kernel of
+``csrc/ell_apply.cu`` (its plain version runs on the CPU); everything else
+here is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from ..obs.events import emit, obs_enabled
 from ..obs.metrics import histogram
 from ..ops import kernels as K
 from ..ops.bits import build_sorted_lookup, state_index_bucketed
+from ..ops.ell_apply import ell_apply
 from ..utils import u64
 from ..utils.config import get_config
 from ..utils.device import resolve_device
@@ -237,15 +242,6 @@ def _tail_layout(nnz: torch.Tensor, T0: int, S: int, Tmax: int):
     tail_counts = (nnz > T0).sum(dim=1).cpu().numpy()
     offs = np.concatenate([[0], np.cumsum(tail_counts)])
     return Tmax - T0, int(tail_counts.max()), offs
-
-
-def ell_terms(y: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
-              coeff: torch.Tensor) -> torch.Tensor:
-    """``y += Σ_t coeff[t]·x[idx[t]]`` term by term, gathering along the
-    last (state) axis of ``x``; ``idx``/``coeff`` are ``[T, n]``."""
-    for t in range(idx.shape[0]):
-        y += coeff[t] * torch.index_select(x, -1, idx[t])
-    return y
 
 
 def compact_terms(acc: torch.Tensor, tags: torch.Tensor, x: torch.Tensor,
@@ -715,27 +711,18 @@ class LocalEngine:
     # -- applies ---------------------------------------------------------------
 
     def _apply_ell(self, x: torch.Tensor) -> torch.Tensor:
-        """``y = diag·x``, then term by term ``y += coeff[t]·x[idx[t]]``, then
-        the tail's rows (unique, so the add is deterministic).  The state
-        axis of ``x`` is its last: ``[N]`` or a batch ``[k, N]``."""
-        n = self.n_states
-        T0 = self.ell_split[0]
-        t = obs_trace.detail_start()
-        y = ell_terms(self._diag[:n].to(self._dtype) * x, x,
-                      self._ell_idx[:T0, :n], self._ell_coeff[:T0, :n])
-        t = obs_trace.detail_end("terms", t, T0)
-        if self._ell_tail is not None:
-            rows, idx_t, cf_t = self._ell_tail
-            acc = ell_terms(self._zeros(x.shape[:-1] + rows.shape,
-                                        self._dtype), x, idx_t, cf_t)
-            y[..., rows.long()] += acc
-            obs_trace.detail_end("tail", t)
-        return y
+        """``y = diag·x + Σ_t coeff[t]·x[idx[t]]`` over the ``[:T0, :n]``
+        tables read in place, then the tail's rows (unique): the kernel of
+        ``ops/ell_apply.py`` on the card.  ``x`` is state-major and
+        contiguous: ``[N]`` or a batch ``[N, k]``."""
+        n, T0 = self.n_states, self.ell_split[0]
+        return ell_apply(x, self._diag[:n], self._ell_idx[:T0, :n],
+                         self._ell_coeff[:T0, :n], self._ell_tail)
 
     def _apply_compact(self, x: torch.Tensor) -> torch.Tensor:
         """Sign-tagged gathers: ``acc = Σ_t s·n(j)·x(j)``, then
         ``y = diag·x + W/n(i)·acc``, and the tail's rows alike.  The state
-        axis of ``x`` is its last, as in :meth:`_apply_ell`."""
+        axis of ``x`` is its last: ``[N]`` or a batch ``[k, N]``."""
         n, T0, W = self.n_states, self.ell_split[0], self._c_W
         acc = self._zeros(x.shape[:-1] + (self.n_padded,), torch.float64)
         acc = compact_terms(acc, self._c_idx[:T0], x, self._norms)[..., :n]
@@ -836,15 +823,15 @@ class LocalEngine:
 
     def _matvec_body(self, x: torch.Tensor, check: Optional[bool]
                      ) -> torch.Tensor:
-        if self.mode in ("ell", "compact"):
+        if self.mode == "ell":
+            return self._apply_ell(x.contiguous())
+        if self.mode == "compact":
             # a batch runs columns-first: gathering a term's entries from
             # [k, N] is k contiguous gathers; gathering k-wide rows of
             # [N, k] made the chain_32_symm apply at k = 4 take 23× the
             # k = 1 time on an H100
             xc = x.T.contiguous() if x.ndim == 2 else x.contiguous()
-            apply = self._apply_ell if self.mode == "ell" \
-                else self._apply_compact
-            y = apply(xc)
+            y = self._apply_compact(xc)
             return y.T.contiguous() if x.ndim == 2 else y
         y, bad = self._apply_fused(x.contiguous())
         if check or (check is None and not self._checked):

@@ -35,6 +35,7 @@ from distributed_matvec_tpu_torch import (DistributedEngine, LocalEngine,
                                           lanczos_block)
 from distributed_matvec_tpu_torch.models.lattices import (
     chain_edges, heisenberg_chain, heisenberg_from_edges)
+from distributed_matvec_tpu_torch.ops import ell_apply as EA
 from distributed_matvec_tpu_torch.ops import plan_codec as PC
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -188,6 +189,96 @@ def test_local_engine_on_card_matches_cpu(cuda, case, mode):
         assert y.device == cuda
         np.testing.assert_allclose(y.cpu().numpy(),
                                    e_cpu.matvec(x).numpy(),
+                                   atol=1e-13, rtol=1e-12)
+
+
+def _hw_ring(n=16):
+    """The hamming sector of the n-ring: skewed rows, so the ELL split
+    leaves a tail."""
+    basis = SpinBasis(n, n // 2, None, [])
+    op = heisenberg_from_edges(basis, chain_edges(n))
+    basis.build()
+    return op
+
+
+def _ell_operands(eng, x, tail):
+    n, T0 = eng.n_states, eng.ell_split[0]
+    return (x, eng._diag[:n], eng._ell_idx[:T0, :n],
+            eng._ell_coeff[:T0, :n], eng._ell_tail if tail else None)
+
+
+@pytest.mark.parametrize("tail", [False, True], ids=["no_tail", "tail"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 6])
+def test_ell_kernel_equals_plain(cuda, R, tail):
+    """Real sector: the kernel against its plain version on the card, bit
+    for bit, at every column-group width (R = 6: a masked group), with and
+    without the tail's launch, and with x holding rows past n."""
+    eng = LocalEngine(_hw_ring(), batch_size=61, mode="ell", device=cuda)
+    assert eng._ell_tail is not None and eng.n_padded > eng.n_states
+    rng = np.random.default_rng(R)
+    for rows in (eng.n_states, eng.n_states + 5):
+        x = torch.from_numpy(rng.random((rows, R)) - 0.5).to(cuda)
+        args = _ell_operands(eng, x if R > 1 else x[:, 0], tail)
+        before = EA.ell_apply.launches
+        y = EA.ell_apply(*args)
+        assert EA.ell_apply.launches - before == 1 + tail
+        assert torch.equal(y, EA.ell_apply_plain(*args))
+
+
+def test_ell_kernel_complex_sector(cuda):
+    """Complex k = 1 sector: the kernel against its plain version within
+    rtol 1e-14 (torch's complex multiply on the card may contract to an
+    FMA; the kernel is built with --fmad=false)."""
+    eng = LocalEngine(_k1_ring(16), batch_size=61, mode="ell", device=cuda)
+    assert not eng.real
+    rng = np.random.default_rng(3)
+    for R in (1, 4):
+        x = torch.from_numpy((rng.random((eng.n_states, R)) - 0.5)
+                             + 1j * (rng.random((eng.n_states, R)) - 0.5)
+                             ).to(cuda)
+        args = _ell_operands(eng, x if R > 1 else x[:, 0], True)
+        want = EA.ell_apply_plain(*args)
+        torch.testing.assert_close(EA.ell_apply(*args), want, rtol=1e-14,
+                                   atol=1e-14 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["chain_16_symm", "chain_16_hw8"])
+def test_ell_kernel_launches_per_apply(cuda, case):
+    """One launch per LocalEngine apply, two where the split has a tail,
+    at one column and at four."""
+    op = heisenberg_chain(16, symmetric=True) if case == "chain_16_symm" \
+        else _hw_ring()
+    eng = LocalEngine(op, batch_size=61, mode="ell", device=cuda)
+    want = 1 + (eng._ell_tail is not None)
+    if case == "chain_16_hw8":
+        assert want == 2
+    n = eng.n_states
+    for shape in ((n,), (n, 4)):
+        before = EA.ell_apply.launches
+        eng.matvec(np.ones(shape))
+        assert EA.ell_apply.launches - before == want
+
+
+@pytest.mark.parametrize("case", ["chain_16_symm", "chain_16_hw8"])
+def test_sharded_ell_on_card_matches_local(cuda, case):
+    """DistributedEngine(mode="ell") at D = 2 on the card (the kernel per
+    shard over [x; received], the tail's real rows only) against
+    LocalEngine on the card."""
+    op = heisenberg_chain(16, symmetric=True) if case == "chain_16_symm" \
+        else _hw_ring()
+    dist = DistributedEngine(op, n_devices=2, mode="ell", batch_size=32,
+                             device=cuda)
+    local = LocalEngine(op, mode="ell", device=cuda)
+    rng = np.random.default_rng(4)
+    n = op.basis.number_states
+    for shape in ((n,), (n, 4)):
+        x = rng.random(shape) - 0.5
+        before = EA.ell_apply.launches
+        got = dist.matvec_global(x)
+        assert EA.ell_apply.launches - before == 2 * (
+            1 + (dist._ell_tail is not None))
+        np.testing.assert_allclose(np.asarray(got),
+                                   local.matvec(x).cpu().numpy(),
                                    atol=1e-13, rtol=1e-12)
 
 

@@ -178,6 +178,10 @@ def test_hottest_ops_and_rendering_equal_jax(top):
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::BinaryFunctor<double, double, double, "
      "at::native::MulFunctor<double>>>", "compute"),
+    ("void (anonymous namespace)::ell_terms_kernel<(anonymous namespace)::"
+     "Real, 1, false>(long, int, int const*, ...)", "compute"),
+    ("void (anonymous namespace)::ell_tail_kernel<(anonymous namespace)::"
+     "Complex, 4, true>(long, int, int const*, ...)", "compute"),
     ("some_unknown_kernel", "overhead"),
 ])
 def test_classify_kernel(name, phase):
