@@ -53,6 +53,11 @@ def parse_args(argv):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # a rank of a ``"ranks"`` cell, as the launcher starts it
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    # ``cpu``: the CPU tests' gloo ranks, never a measurement
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -176,14 +181,26 @@ def read_per_layer(cell, ctx, strict: bool) -> dict:
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
-             t_start: float, engine_hook=None, control: bool = False
-             ) -> dict:
+             t_start: float, engine_hook=None, control: bool = False,
+             group=None) -> Optional[dict]:
     """One run of ``cell``.  ``engine_hook(eng)`` runs on the built engine
     (the tests break it there); ``control`` puts the reference, in the
-    precision below the configuration's, in the program's place."""
+    precision below the configuration's, in the program's place.
+
+    With ``group`` (this rank's ``ShardGroup``) every rank runs this SPMD
+    and the engine is the group's: rank 0 decides each request and traces,
+    the peak is the largest over the ranks, the kept outputs are gathered
+    in basis order, and rank 0 alone judges them and returns the result
+    (the other ranks return None)."""
     import numpy as np
     import torch
 
+    rk = None
+    if group is not None:
+        from ranks import Ranks
+
+        rk = Ranks(group)
+        trace = trace and rk.rank == 0
     sync = make_sync(device)
     cfg = cell.config
     timings = {"start_s": time.time() - t_start}
@@ -198,6 +215,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     t = time.perf_counter()
     if control:
         eng = checks.ControlEngine(cfg, reps, norms, device)
+    elif rk is not None:
+        eng = call(cfg["program"]["engine"], op, device=device, group=group)
     else:
         eng = call(cfg["program"]["engine"], op, device=device)
     sync()
@@ -205,22 +224,35 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     if engine_hook is not None:
         engine_hook(eng)
     space = loops.VectorSpace(eng, len(reps), device)
-    loop = loops.make(cell.traffic, eng, space, seed, sync, trace, PORT)
+    loop = loops.make(cell.traffic, eng, space, seed, sync, trace, PORT,
+                      ranks=rk)
     t = time.perf_counter()
     loop.warm_up()
     if trace:
         tracing.warm_up(sync)
     sync()
+    if rk is not None:
+        rk.barrier()
     timings["warmup_s"] = time.perf_counter() - t
     setup_s = time.time() - t_start
-    print("setup " + json.dumps({"setup_s": setup_s, **timings}),
-          file=sys.stderr)
+    rank = {} if rk is None else {"rank": rk.rank}
+    # one write, so that the ranks' lines do not interleave
+    sys.stderr.write("setup " + json.dumps({"setup_s": setup_s, **timings,
+                                            **rank}) + "\n")
     evs = program_events()
     seq0 = evs[-1]["seq"] if evs else -1
     del evs
     loop.run(seconds)
     peak = int(torch.cuda.max_memory_allocated(device)) \
         if device.type == "cuda" else 0
+    outputs = loop.host_outputs()
+    if rk is not None:
+        peak = int(rk.max(peak))
+        straggler = rk.gather(_median(apply_spans(seq0)))
+        if rk.rank != 0:
+            return None
+        print("straggler " + json.dumps({"apply_ms_median": straggler}),
+              file=sys.stderr)
 
     metrics, ctx = {}, None
     if trace:
@@ -244,7 +276,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             if base(m["name"]) in e2e:
                 metrics[m["name"]] = {"value": float(e2e[base(m["name"])]),
                                       "unit": m["unit"]}
-    outputs = loop.host_outputs()
     solves = getattr(loop, "solves", None)
     attempted, failed = loop.attempted, loop.failed
     breakdown = None
@@ -269,6 +300,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         result["breakdown"] = breakdown
     result["checks"] = numbers
     return result
+
+
+def _median(values) -> float:
+    import numpy as np
+
+    return float(np.median(values)) if values else 0.0
 
 
 def end_to_end(loop, setup_s: float, peak: int) -> dict:

@@ -21,6 +21,14 @@ its requests to the end, past the deadline if need be.  Each loop keeps,
 for the check after the window, the first request's output, the output of
 the first request that starts past a point of the window drawn from the
 seed, and the last request's.
+
+Under a rank group (``ranks``, a ``ranks.Ranks``) every rank runs the
+solve loop SPMD; the apply loop does not run on ranks.  Before each
+request rank 0's decisions (whether it starts, whether it is traced,
+whether its output is kept) go to every rank, a request that raises ends
+the run, and only rank 0 traces.  Starts are drawn in basis
+order on every rank and each rank takes its shard through the engine's
+layout, so every seed does the same work as on one card.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ PROFILE_AFTER = 0.25
 WARMUP_SOLVE_ITERS = 16
 #: set-up's warm-up applies
 WARMUP_APPLIES = 2
+#: what a request's output is kept as, by the code rank 0 sends
+KEEPS = (None, "first", "sampled")
 
 
 def mix(seed: int, *keys: int) -> int:
@@ -99,9 +109,10 @@ class Loop:
     segment."""
 
     def __init__(self, traffic: dict, eng, space: VectorSpace, seed: int,
-                 sync: Callable[[], None], trace: bool, port):
+                 sync: Callable[[], None], trace: bool, port, ranks=None):
         self.traffic, self.eng, self.space = traffic, eng, space
         self.seed, self.sync, self.trace, self.port = seed, sync, trace, port
+        self.ranks = ranks
         self.profile_requests = int(traffic["profile"]["requests"]) \
             if trace else 0
         self.segment = Segment(sync) if trace else None
@@ -140,21 +151,32 @@ class Loop:
         self._in_a_row = 0
         i = 0
         last_done = self.t_start
-        # a traced segment that has begun runs to its end past the deadline
-        while time.perf_counter() < self.t_end or (
-                self.segment is not None and self.segment.open):
+        while True:
             t = time.perf_counter()
-            profiled = self._profiling(i, t, first_profiled)
-            if profiled and not self.segment.open:
-                self.segment.start()
+            # a traced segment that has begun runs to its end past the
+            # deadline
+            go = t < self.t_end or (self.segment is not None and
+                                    self.segment.open)
+            profiled = go and self._profiling(i, t, first_profiled)
             keep = "first" if i == 0 else (
                 "sampled" if t >= sample_at and "sampled" not in self.kept
                 else None)
+            if self.ranks is not None:
+                go, profiled, k = self.ranks.follow(
+                    go, profiled, KEEPS.index(keep))
+                keep = KEEPS[k]
+                profiled = profiled and self.segment is not None
+            if not go:
+                break
+            if profiled and not self.segment.open:
+                self.segment.start()
             self.attempted += 1
             c0 = self.columns
             try:
                 done = self.request(i, keep, profiled)
             except Exception:
+                if self.ranks is not None:
+                    raise
                 if self._failure(str(i)):
                     break
                 done = time.perf_counter()
@@ -239,6 +261,9 @@ class ApplyLoop(Loop):
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
+        if self.ranks is not None:
+            # its normalization would take each rank's norm alone
+            raise ValueError("apply traffic does not run on ranks")
         self.R = int(self.traffic["columns"])
         self.call_ms: List[float] = []
         self.events: list = []

@@ -11,6 +11,10 @@ standard error repeat the checks.  Exits 2 without a result where the card
 is missing or there are fewer cards than the cell asks for, 3 where JAX
 or the JAX package was loaded, and 4 where a per-layer metric that the
 cell lists found nothing to read on the card.
+
+A cell whose configuration declares ``"ranks": true`` runs one process per
+card (``ranks.py``): this process launches them under ``torchrun``, each
+as ``run.py … --worker``, and prints rank 0's result.
 """
 
 import time
@@ -38,24 +42,43 @@ def main(argv=None) -> int:
     harness.prepare_env(cell, ROOT)
     import torch
 
-    if not torch.cuda.is_available() or \
-            torch.cuda.device_count() < cell.chips:
+    cpu = args.device == "cpu"
+    if not cpu and (not torch.cuda.is_available() or
+                    torch.cuda.device_count() < cell.chips):
         print(f"{args.workload} needs {cell.chips} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
+    group, t_start = None, T_START
+    device = torch.device("cpu") if cpu else torch.device("cuda", 0)
+    if cell.config.get("ranks"):
+        import ranks
+
+        if not args.worker:
+            return ranks.launch(os.path.abspath(__file__),
+                                sys.argv[1:] if argv is None else list(argv),
+                                cell.chips, T_START)
+        group, t_start = ranks.join(cpu), ranks.t_start()
+        device = group.device
     try:
         result = harness.run_cell(cell, args.seed, args.seconds,
-                                  bool(args.trace), torch.device("cuda", 0),
-                                  T_START)
+                                  bool(args.trace), device, t_start,
+                                  group=group)
     except harness.MetricMissing as e:
         print(e, file=sys.stderr)
         return 4
+    finally:
+        # after run_cell has let go of the engine built on the group
+        if group is not None:
+            torch.distributed.destroy_process_group()
     loaded = importcheck.loaded_forbidden(sys.modules)
     if loaded:
         print(f"loaded in this process: {', '.join(loaded)}", file=sys.stderr)
         return 3
-    report(result["checks"])
+    if result is None:          # a rank other than 0: rank 0 reports
+        return 0
+    if group is None:           # the launcher repeats rank 0's checks last
+        report(result["checks"])
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0

@@ -53,8 +53,19 @@ def test_apply_bytes_by_hand():
     ("ncclDevKernel_AllReduce_Sum_f64_RING_LL(ncclDevKernelArgsStorage)",
      "exchange"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "compute"),
+    ("void (anonymous namespace)::ell_terms_kernel<(anonymous namespace)"
+     "::Real, 1>(...)", "compute"),
+    ("void (anonymous namespace)::ell_tail_kernel<(anonymous namespace)"
+     "::Real>(...)", "compute"),
     ("void at::native::FillFunctor<double>", "overhead"),
     ("something_else", "overhead"),
 ])
 def test_classify_kernel_by_hand(name, phase):
     assert yardstick.classify_kernel(name) == phase
+
+
+def test_receive_side_names_are_frozen():
+    """``recv_dev_ms`` reads the ``accumulate`` entries: exactly these."""
+    assert [k for k, ph in yardstick.KERNEL_PHASES if ph == "accumulate"] \
+        == ["indexfunc", "index_add", "indexing_backward", "index_put",
+            "scatter"]

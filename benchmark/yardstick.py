@@ -55,6 +55,8 @@ KERNEL_PHASES = (
     ("memcpy ptop", "exchange"),
     ("memcpy htod", "plan_h2d"),
     ("fused_decode", "compute"),
+    ("ell_terms_kernel", "compute"),
+    ("ell_tail_kernel", "compute"),
     ("indexfunc", "accumulate"),
     ("index_add", "accumulate"),
     ("indexing_backward", "accumulate"),
